@@ -1,0 +1,252 @@
+"""Native host-setup kernels (ctypes-bound C), the subset the port's
+BoomerAMG setup uses.
+
+There is one C source for both packages: this loader compiles
+`hypre_tpu/native/kernels.c` by file path (it does not import
+`hypre_tpu`) into the port's build directory, `hypre_tpu_torch/_build/`,
+at first use.  Unlike the JAX package's loader there is no Python
+fallback: a failed build raises with the compiler's output.
+
+The CSR bindings run the kernels' int32-index variants, on scipy's
+int32-index float64 arrays without a copy (`BoomerAMG._setup` converts
+the fine matrix once; every product after it stays int32).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+import scipy.sparse as sp
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG, "_build")
+_SRC = os.path.normpath(
+    os.path.join(_PKG, os.pardir, "hypre_tpu", "native", "kernels.c"))
+_SO = os.path.join(BUILD_DIR, "libhypre_host_kernels.so")
+
+I32 = ctypes.POINTER(ctypes.c_int32)
+I64 = ctypes.POINTER(ctypes.c_int64)
+F64 = ctypes.POINTER(ctypes.c_double)
+F32 = ctypes.POINTER(ctypes.c_float)
+U16 = ctypes.POINTER(ctypes.c_uint16)
+U8 = ctypes.POINTER(ctypes.c_uint8)
+
+_lib = None
+
+
+def build_shared(argv: list[str], src: str, so: str,
+                 libs: list[str] = ()) -> str:
+    """Compile `src` into the shared library `so` with `argv` (the
+    compiler and its flags; the output path, the source and `libs` are
+    appended), unless `so` is newer than `src`.  The library is written
+    to a private temporary name and renamed into place, so concurrent
+    processes never load a half-written file.  Returns the compiler's
+    output; raises RuntimeError with it if the build fails."""
+    if not os.path.exists(src):
+        raise FileNotFoundError(f"kernel source not found: {src}")
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return ""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        r = subprocess.run(argv + ["-o", tmp, src, *libs], capture_output=True,
+                           text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"building {os.path.basename(so)} failed "
+                f"(rc {r.returncode}):\n{' '.join(argv)}\n{r.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return r.stdout + r.stderr
+
+
+def _bind(lib) -> None:
+    sig = {
+        "strength_classical_i32": (
+            ctypes.c_int64,
+            [I32, I32, F64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
+             ctypes.c_int, I32, I32]),
+        "pmis_loop": (
+            None, [I64, I64, ctypes.c_int64, F64, I64, ctypes.c_int]),
+        "classical_interp_fill": (
+            ctypes.c_int64,
+            [I64, I64, F64, F64, I64, I64, I64, I64, ctypes.c_int64,
+             I64, I64, F64]),
+        "trunc_keep": (
+            None, [I64, I64, F64, ctypes.c_int64, ctypes.c_int64, U8]),
+        "nongalerkin_count_i32": (
+            ctypes.c_int64,
+            [I32, I32, F64, ctypes.c_int64, ctypes.c_double, U8, I64]),
+        "nongalerkin_fill_i32": (
+            None,
+            [I32, I32, F64, ctypes.c_int64, ctypes.c_int, U8, I64, I32, F64]),
+        "dia_offsets_i32": (
+            ctypes.c_int64, [I32, I32, ctypes.c_int64, ctypes.c_int64, U8, I64]),
+    }
+    for name, P in (("dia_fill_i32_f64", F64), ("dia_fill_i32_f32", F32),
+                    ("dia_fill_i32_bf16", U16)):
+        sig[name] = (None, [I32, I32, F64, ctypes.c_int64, ctypes.c_int64,
+                            I64, ctypes.c_int64, ctypes.c_int64, P])
+    for name, (restype, argtypes) in sig.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+
+
+def load():
+    """Build (if stale) and load the host kernel library."""
+    global _lib
+    if _lib is None:
+        build_shared(["cc", "-O3", "-shared", "-fPIC"], _SRC, _SO, ["-lm"])
+        lib = ctypes.CDLL(_SO)
+        _bind(lib)
+        _lib = lib
+    return _lib
+
+
+def _p(a: np.ndarray, ptype):
+    return a.ctypes.data_as(ptype)
+
+
+def _i32_csr(M):
+    """(indptr, indices, data) of M as int32 / int32 / float64 arrays
+    (no copy when they already are)."""
+    if M.nnz >= 2**31 or max(M.shape) >= 2**31:
+        raise ValueError(f"matrix too large for int32 indices: {M.shape}")
+    return (np.ascontiguousarray(M.indptr, dtype=np.int32),
+            np.ascontiguousarray(M.indices, dtype=np.int32),
+            np.ascontiguousarray(M.data, dtype=np.float64))
+
+
+def strength_classical(M: sp.csr_matrix, theta: float, max_row_sum: float):
+    """Classical strength pattern (par_strength.c); scipy pattern CSR
+    with data ones and the diagonal excluded."""
+    lib = load()
+    ai, aj, ad = _i32_csr(M)
+    n = M.shape[0]
+    Sp = np.empty(n + 1, dtype=np.int32)
+    Si = np.empty(max(M.nnz, 1), dtype=np.int32)
+    nnz = lib.strength_classical_i32(
+        _p(ai, I32), _p(aj, I32), _p(ad, F64), n, theta, max_row_sum, 0,
+        _p(Sp, I32), _p(Si, I32))
+    return sp.csr_matrix(
+        (np.ones(int(nnz), dtype=np.float32), Si[:nnz], Sp), shape=(n, n))
+
+
+def pmis_loop(S_indptr, S_indices, n: int, measure, cf,
+              first_round_is: bool) -> np.ndarray:
+    """PMIS iterated independent set; returns the CF marker (inputs are
+    copied, not mutated)."""
+    lib = load()
+    sp_ = np.ascontiguousarray(S_indptr, dtype=np.int64)
+    si_ = np.ascontiguousarray(S_indices, dtype=np.int64)
+    meas = np.array(measure, dtype=np.float64)
+    cfa = np.array(cf, dtype=np.int64)
+    lib.pmis_loop(_p(sp_, I64), _p(si_, I64), n, _p(meas, F64), _p(cfa, I64),
+                  1 if first_round_is else 0)
+    return cfa
+
+
+def classical_interp_fill(A: sp.csr_matrix, S: sp.csr_matrix, cf, cmap):
+    """Modified classical interpolation (par_interp.c); scipy CSR P."""
+    lib = load()
+    n = A.shape[0]
+    ai = np.ascontiguousarray(A.indptr, dtype=np.int64)
+    aj = np.ascontiguousarray(A.indices, dtype=np.int64)
+    ad = np.ascontiguousarray(A.data, dtype=np.float64)
+    diag = np.ascontiguousarray(A.diagonal(), dtype=np.float64)
+    sp_ = np.ascontiguousarray(S.indptr, dtype=np.int64)
+    si_ = np.ascontiguousarray(S.indices, dtype=np.int64)
+    cfa = np.ascontiguousarray(cf, dtype=np.int64)
+    cm = np.ascontiguousarray(cmap, dtype=np.int64)
+    cap = int(S.nnz + n + 1)
+    Pp = np.zeros(n + 1, dtype=np.int64)
+    Pi = np.zeros(cap, dtype=np.int64)
+    Px = np.zeros(cap, dtype=np.float64)
+    nnz = lib.classical_interp_fill(
+        _p(ai, I64), _p(aj, I64), _p(ad, F64), _p(diag, F64), _p(sp_, I64),
+        _p(si_, I64), _p(cfa, I64), _p(cm, I64), n, _p(Pp, I64), _p(Pi, I64),
+        _p(Px, F64))
+    nc = int((np.asarray(cf) > 0).sum())
+    return sp.csr_matrix(
+        (Px[:nnz], Pi[:nnz].astype(np.int32), Pp.astype(np.int32)),
+        shape=(n, nc))
+
+
+def trunc_keep(indptr, cols, vals, max_elmts: int) -> np.ndarray:
+    """hypre-exact truncation keep mask (qsort2_abs tie order)."""
+    lib = load()
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.float64)
+    keep = np.zeros(len(cols), dtype=np.uint8)
+    lib.trunc_keep(_p(indptr, I64), _p(cols, I64), _p(vals, F64),
+                   len(indptr) - 1, max_elmts, _p(keep, U8))
+    return keep.astype(bool)
+
+
+def nongalerkin_filter_native(A: sp.csr_matrix, tol: float,
+                              lump: str = "diag") -> sp.csr_matrix:
+    """Non-Galerkin sparsification (par_nongalerkin.c role) of a CSR
+    with sorted indices."""
+    if not A.has_sorted_indices:
+        raise ValueError("nongalerkin_filter_native needs sorted indices")
+    lib = load()
+    ip, ix, ax = _i32_csr(A)
+    n = A.shape[0]
+    keep2 = np.empty(max(A.nnz, 1), dtype=np.uint8)
+    Cp = np.empty(n + 1, dtype=np.int64)
+    nnz = lib.nongalerkin_count_i32(
+        _p(ip, I32), _p(ix, I32), _p(ax, F64), n, tol, _p(keep2, U8),
+        _p(Cp, I64))
+    Ci = np.empty(max(nnz, 1), dtype=np.int32)
+    Cx = np.empty(max(nnz, 1), dtype=np.float64)
+    lib.nongalerkin_fill_i32(
+        _p(ip, I32), _p(ix, I32), _p(ax, F64), n,
+        1 if lump == "strong" else 0, _p(keep2, U8), _p(Cp, I64),
+        _p(Ci, I32), _p(Cx, F64))
+    out = sp.csr_matrix((Cx[:nnz], Ci[:nnz], Cp.astype(np.int32)),
+                        shape=A.shape)
+    # a fully lumped row can cancel its own diagonal; prune exact zeros
+    # as the numpy path's final canonicalization does
+    out.eliminate_zeros()
+    return out
+
+
+def dia_offsets_only(M: sp.csr_matrix) -> np.ndarray:
+    """Sorted distinct diagonal offsets of a CSR pattern."""
+    lib = load()
+    ai, aj, _ = _i32_csr(M)
+    n, m = M.shape
+    mark = np.zeros(n + m - 1, dtype=np.uint8)
+    uniq = np.zeros(n + m - 1, dtype=np.int64)
+    noff = lib.dia_offsets_i32(_p(ai, I32), _p(aj, I32), n, m, _p(mark, U8),
+                               _p(uniq, I64))
+    return uniq[:noff].copy()
+
+
+_FILL = {"float64": ("dia_fill_i32_f64", np.float64, F64),
+         "float32": ("dia_fill_i32_f32", np.float32, F32),
+         # bf16 is filled as its bit pattern (double -> float -> RNE bf16)
+         "bfloat16": ("dia_fill_i32_bf16", np.uint16, U16)}
+
+
+def dia_convert(M: sp.csr_matrix, dtype: str):
+    """CSR -> row-aligned DIA, data[k, i] = M[i, i + uniq[k]], width n.
+
+    Returns (uniq offsets int64, data [noff, n]); for dtype "bfloat16"
+    the data array is uint16 holding the bf16 bit patterns."""
+    lib = load()
+    ai, aj, ad = _i32_csr(M)
+    n, m = M.shape
+    uniq = dia_offsets_only(M)
+    fname, np_dt, ptype = _FILL[dtype]
+    out = np.zeros((len(uniq), n), dtype=np_dt)
+    getattr(lib, fname)(_p(ai, I32), _p(aj, I32), _p(ad, F64), n, m,
+                        _p(uniq, I64), len(uniq), n, _p(out, ptype))
+    return uniq, out

@@ -1,0 +1,26 @@
+"""Strength-of-connection graph S (port of
+hypre_tpu/solvers/amg/strength.py::strength_matrix).
+
+Reference: parcsr_ls/par_strength.c hypre_BoomerAMGCreateSHost:
+
+  i depends on j  iff  a_ij < theta * min_{k != i} a_ik     (a_ii >= 0)
+                  iff  a_ij > theta * max_{k != i} a_ik     (a_ii <  0)
+
+plus the max_row_sum test: if |row_sum| > |a_ii| * max_row_sum (and
+max_row_sum < 1), all dependencies of the row are made weak.  Host
+setup, computed by the native kernel.
+"""
+
+from __future__ import annotations
+
+import scipy.sparse as sp
+
+from ... import native
+
+
+def strength_matrix(A, theta: float = 0.25,
+                    max_row_sum: float = 0.9) -> sp.csr_matrix:
+    """Boolean pattern CSR (data all 1.0), diagonal excluded.  Accepts
+    a CSRMatrix or a scipy CSR."""
+    M = A.to_scipy() if hasattr(A, "to_scipy") else A.tocsr()
+    return native.strength_classical(M, theta, max_row_sum)
