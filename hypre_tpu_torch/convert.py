@@ -11,7 +11,8 @@ Layout changes:
     stores exactly [noff, n].
   * ELL: JAX's device ELL is slot-major [width, n_pad] (`transposed`)
     with n_pad rounded up to 8; the port's is [width, n], same slot
-    order per row.
+    order per row, int32 cols and both leaves contiguous, as the ELL
+    kernel takes them (`ELLMatrix` checks this).
   * bfloat16 leaves keep their bits.
 """
 

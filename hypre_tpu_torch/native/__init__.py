@@ -1,11 +1,13 @@
 """Native host-setup kernels (ctypes-bound C), the subset the port's
 BoomerAMG setup uses.
 
-There is one C source for both packages: this loader compiles
-`hypre_tpu/native/kernels.c` by file path (it does not import
-`hypre_tpu`) into the port's build directory, `hypre_tpu_torch/_build/`,
-at first use.  Unlike the JAX package's loader there is no Python
-fallback: a failed build raises with the compiler's output.
+The source is the port's own, `hypre_tpu_torch/csrc/host_kernels.c`: a
+copy of the functions of the JAX package's `native/kernels.c` that are
+bound here, bodies unchanged, so the port builds without that tree.
+This loader compiles it into the port's build directory,
+`hypre_tpu_torch/_build/`, at first use.  Unlike the JAX package's
+loader there is no Python fallback: a failed build raises with the
+compiler's output.
 
 The CSR bindings run the kernels' int32-index variants, on scipy's
 int32-index float64 arrays without a copy (`BoomerAMG._setup` converts
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 
 import numpy as np
@@ -23,8 +26,8 @@ import scipy.sparse as sp
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
-_SRC = os.path.normpath(
-    os.path.join(_PKG, os.pardir, "hypre_tpu", "native", "kernels.c"))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+_SRC = os.path.join(CSRC_DIR, "host_kernels.c")
 _SO = os.path.join(BUILD_DIR, "libhypre_host_kernels.so")
 
 I32 = ctypes.POINTER(ctypes.c_int32)
@@ -63,6 +66,43 @@ def build_shared(argv: list[str], src: str, so: str,
         if os.path.exists(tmp):
             os.remove(tmp)
     return r.stdout + r.stderr
+
+
+# the CUDA kernels' build: sm_90a (Hopper), ptxas reports each kernel's
+# registers and spills into the build log
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise FileNotFoundError("nvcc not found (PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+_cuda_libs: dict = {}
+
+
+def load_cuda(name: str, argtypes: dict):
+    """Build `csrc/<name>.cu` with nvcc into `_build/lib<name>.so`
+    (unless current), load it once per process and bind its entry
+    points, `argtypes` = {entry point: ctypes argument types}; each
+    returns a C int (the CUDA error of its launch).  Returns (library,
+    compiler output of this call's build, empty when nothing was
+    built)."""
+    if name in _cuda_libs:
+        return _cuda_libs[name], ""
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    log = build_shared([_nvcc(), *NVCC_FLAGS],
+                       os.path.join(CSRC_DIR, f"{name}.cu"), so)
+    lib = ctypes.CDLL(so)
+    for entry, types in argtypes.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    _cuda_libs[name] = lib
+    return lib, log
 
 
 def _bind(lib) -> None:

@@ -102,10 +102,22 @@ class CSRMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class ELLMatrix:
-    """Device-side padded ELL, slot-major: cols/data are [width, n]."""
+    """Device-side padded ELL, slot-major: cols/data are [width, n].
+    Both are contiguous and cols is int32, as the ELL kernel takes them."""
 
     cols: torch.Tensor  # int32 [width, n]
     data: torch.Tensor  # real  [width, n]
     num_rows: int
     num_cols: int
     nnz: int
+
+    def __post_init__(self):
+        if self.cols.dtype != torch.int32:
+            raise TypeError(f"ELL cols must be int32, got {self.cols.dtype}")
+        if (self.data.dim() != 2 or self.cols.shape != self.data.shape
+                or self.data.shape[1] != self.num_rows):
+            raise ValueError(
+                f"ELL cols {tuple(self.cols.shape)} and data "
+                f"{tuple(self.data.shape)} must be [width, {self.num_rows}]")
+        if not (self.cols.is_contiguous() and self.data.is_contiguous()):
+            raise ValueError("ELL cols and data must be contiguous")

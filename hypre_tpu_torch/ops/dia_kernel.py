@@ -18,19 +18,11 @@ holds the kernel against it on the card.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 
 import torch
 import torch.nn.functional as F
 
-from ..native import BUILD_DIR, build_shared
-
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "dia_spmv.cu")
-_SO = os.path.join(BUILD_DIR, "libdia_spmv.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from ..native import load_cuda
 
 _ENTRY = {
     (torch.float32, torch.float32): "dia_spmv_f32_f32",
@@ -38,31 +30,15 @@ _ENTRY = {
     (torch.float64, torch.float64): "dia_spmv_f64_f64",
 }
 
-_lib = None
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise FileNotFoundError("nvcc not found (PATH or /usr/local/cuda/bin)")
-    return nvcc
+# (data, offsets, x, y, n, noff, stream), every entry point alike
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_void_p]
 
 
 def load():
     """Build (if stale) and load the kernel library.  Returns (library,
-    compiler output of this call's build, empty when it was current)."""
-    global _lib
-    log = ""
-    if _lib is None:
-        log = build_shared([_nvcc(), *NVCC_FLAGS], _SRC, _SO)
-        lib = ctypes.CDLL(_SO)
-        for name in _ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib, log
+    compiler output of this call's build, empty when nothing was built)."""
+    return load_cuda("dia_spmv", {e: _ARGTYPES for e in _ENTRY.values()})
 
 
 def dia_spmv_cuda(data: torch.Tensor, offsets: torch.Tensor,

@@ -82,6 +82,13 @@ def main() -> None:
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall:.1f}%), idle "
           f"{100 * (1 - busy_us / 1e6 / wall):.1f}%; {len(events)} device "
           f"events ({len(events) / max(res.num_iterations, 1):.0f} per iteration)")
+    for label, key in (("K1 dia_spmv", "dia_spmv_kernel"),
+                       ("ELL ell_spmv", "ell_spmv_kernel")):
+        mine = [e for e in events if key in e.name]
+        us = sum(e.time_range.end - e.time_range.start for e in mine)
+        print(f"{NX}^3 {args.dtype}: {label}: {len(mine)} launches, "
+              f"{us / 1e3:.3f} ms, {100 * us / max(busy_us, 1e-9):.1f}% of "
+              f"device busy time")
 
 
 def _union_us(ranges) -> float:

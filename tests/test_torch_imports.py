@@ -18,6 +18,8 @@ SLICE_MODULES = [
     "hypre_tpu_torch.ops.csr",
     "hypre_tpu_torch.ops.dia",
     "hypre_tpu_torch.ops.dia_kernel",
+    "hypre_tpu_torch.ops.ell_kernel",
+    "hypre_tpu_torch.ops.gather_kernel",
     "hypre_tpu_torch.ops.spmv",
     "hypre_tpu_torch.solvers.amg.boomeramg",
     "hypre_tpu_torch.solvers.amg.coarsen",
