@@ -12,6 +12,9 @@ Phases (any failure raises and the script exits non-zero):
   3. hold K1 (the DIA SpMV) against its plain torch version on the card
      at the shapes of the main path and on wide/edge offset sets; time
      both at 96^3, and the cuSPARSE CSR product on the same operator;
+     then K1's fused forms (resid, axpy, jacobi) at 96^3 against their
+     plain versions, each timed beside the unfused sequence it replaces
+     (the plain kernel and torch's elementwise ops);
   4. the gathers (counterparts of the TPU gather probes K2/K3): run the
      probes' four gathers through the kernels, hold each against its
      plain version bitwise, and time each;
@@ -21,7 +24,9 @@ Phases (any failure raises and the script exits non-zero):
      hypre oracle count, with K1 carrying the fine-level matvecs and the
      ELL kernel every coarse-level and grid-transfer matvec; then the ELL
      kernel against its plain version on every ELL operator of that
-     hierarchy, each timed beside its floor and the cuSPARSE call;
+     hierarchy, each timed beside its floor and the cuSPARSE call, and
+     every form of it against its plain version on every operator, the
+     forms the V-cycle uses timed beside the unfused sequence;
   7. the same with float32 vectors, bfloat16 matrices and
      nongalerkin_tol 0.02 at 96^3 -- 21 +- 1 iterations.
 The last two lines are the kernel report and {"ok": true, ...}.
@@ -30,7 +35,7 @@ The last two lines are the kernel report and {"ok": true, ...}.
 from __future__ import annotations
 
 import json
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -40,10 +45,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from hypre_tpu_torch.utils.timing import REPS, time_cuda_ms
+
 NX = 96
 ORACLE_F64 = 25  # hypre 2.20 `ij -laplacian` at 96^3 (BASELINE.md)
 PRODUCTION_F32 = 21  # the JAX package's count for the f32/bf16 config
-REPS = 50
 # H100 SXM data sheet: HBM3 bandwidth, and the non-tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
@@ -148,25 +154,6 @@ def check_solution(amg, res, n):
     return rel, bound
 
 
-def time_cuda(fn, flush: torch.Tensor) -> float:
-    """Median ms of fn() over REPS launches, each after an L2 flush
-    (write of a buffer larger than the 50 MB L2), timed with CUDA
-    events around the call alone."""
-    for _ in range(5):
-        fn()
-    times = []
-    for _ in range(REPS):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def csr_from_ell(A, dtype):
     """The ELL operator as a torch CSR tensor (cuSPARSE's SpMV, the
     library yardstick), padding dropped, values in `dtype`."""
@@ -225,8 +212,7 @@ def phase_k1(dev, flush, card):
     A_ell = laplacian_7pt(NX, NX, NX).to_ell("float64", dev)
     out = {}
     for label, data, offs, x, tol in k1_cases(dev):
-        offs_t = torch.tensor(offs, dtype=torch.int64, device=dev)
-        y = dia_spmv_cuda(data, offs_t, x)
+        y = dia_spmv_cuda(data, offs, x)
         y_ref = dia_spmv_reference(data, offs, x)
         torch.cuda.synchronize()
         err = float((y - y_ref).abs().max())
@@ -243,15 +229,78 @@ def phase_k1(dev, flush, card):
         lib_dt = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
         csr = csr_from_ell(A_ell, lib_dt)
         x_lib = x.to(lib_dt)
-        ms = time_cuda(lambda: dia_spmv_cuda(data, offs_t, x), flush)
-        plain_ms = time_cuda(lambda: dia_spmv_reference(data, offs, x), flush)
-        lib_ms = time_cuda(lambda: csr @ x_lib, flush)
+        ms = time_cuda_ms(lambda: dia_spmv_cuda(data, offs, x), flush)
+        plain_ms = time_cuda_ms(lambda: dia_spmv_reference(data, offs, x), flush)
+        lib_ms = time_cuda_ms(lambda: csr @ x_lib, flush)
         out[label] = (ms, plain_ms, lib_ms, err, bms, by)
         log(f"  time [{label}; {card}], L2 flushed, median of {REPS}: "
             f"K1 {ms * 1e3:.1f} us ({nbytes / ms / 1e6:.0f} GB/s), "
             f"plain {plain_ms * 1e3:.1f} us, cuSPARSE CSR ({lib_dt}) "
             f"{lib_ms * 1e3:.1f} us; {nbytes / 1e6:.1f} MB, floor "
             f"{bms * 1e3:.1f} us")
+    return out
+
+
+JACOBI_W = 0.7
+
+
+def form_operands(form, n, dtype, dev, rng):
+    """The form's seeded vectors of n entries (d > 0, as D^{-1} is)."""
+    from hypre_tpu_torch.ops.forms import OPERANDS
+
+    t = lambda a: torch.from_numpy(a).to(dev, dtype)  # noqa: E731
+    ops = {"f": t(rng.standard_normal(n)), "u": t(rng.standard_normal(n)),
+           "d": t(rng.uniform(0.1, 1.0, n))}
+    ops = {k: v for k, v in ops.items() if k in OPERANDS[form]}
+    if form == "jacobi":
+        ops["w"] = JACOBI_W
+    return ops
+
+
+def check_form(name, label, form, fused, plain, tol):
+    """Hold one fused launch against its plain version; returns the max
+    abs error."""
+    y, y_ref = fused(), plain()
+    torch.cuda.synchronize()
+    err = float((y - y_ref).abs().max())
+    rel = err / max(float(y_ref.abs().max()), 1e-300)
+    require(rel <= tol, f"{name} {form} disagrees with its plain version on "
+                        f"{label}: rel {rel:.3e} (tol {tol:g})")
+    return err, rel
+
+
+def phase_k1_forms(dev, flush, card):
+    """K1's fused forms at 96^3 against their plain versions, each timed
+    beside the unfused sequence (K1 plain, then torch's elementwise ops,
+    as the V-cycle ran them before).  Returns {label: {form: (ms,
+    unfused_ms, bound_ms, bound_by, max_abs_err)}}."""
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, dia_spmv_reference
+    from hypre_tpu_torch.ops.forms import OPERANDS, epilogue
+
+    rng = np.random.default_rng(5)
+    out = {}
+    for label, data, offs, x, tol in k1_cases(dev):
+        if not label.startswith("96^3"):
+            continue
+        n, vsz = x.shape[0], x.element_size()
+        out[label] = {}
+        for form in ("resid", "axpy", "jacobi"):
+            ops = form_operands(form, n, x.dtype, dev, rng)
+            fused = lambda: dia_spmv_cuda(data, offs, x, form, **ops)  # noqa: E731
+            err, rel = check_form("K1", label, form, fused, lambda: (
+                dia_spmv_reference(data, offs, x, form, **ops)), tol)
+            unfused = lambda: epilogue(  # noqa: E731
+                form, dia_spmv_cuda(data, offs, x), x, **ops)
+            nbytes = (len(offs) * data.element_size()
+                      + vsz * (2 + len(OPERANDS[form]))) * n
+            bms, by = bound_ms(nbytes, (2 * len(offs) + 4) * n, x.dtype)
+            ms = time_cuda_ms(fused, flush)
+            un_ms = time_cuda_ms(unfused, flush)
+            out[label][form] = (ms, un_ms, bms, by, err)
+            log(f"K1 {form} [{label}; {card}]: rel err {rel:.2e}; fused "
+                f"{ms * 1e3:.1f} us, unfused (K1 + torch elementwise) "
+                f"{un_ms * 1e3:.1f} us; floor {bms * 1e3:.1f} us "
+                f"({nbytes / 1e6:.1f} MB)")
     return out
 
 
@@ -322,7 +371,7 @@ def phase_gathers(dev, flush, card):
     for label, tbl, fn, plain, lib_name, lib, ne in cases:
         nbytes = 4 * (2 * ne + tbl)  # idx in, out back, the table once
         bms, by = bound_ms(nbytes, 0, torch.float32)
-        ms, plain_ms, lib_ms = (time_cuda(f, flush) for f in (fn, plain, lib))
+        ms, plain_ms, lib_ms = (time_cuda_ms(f, flush) for f in (fn, plain, lib))
         times[label] = (ms, plain_ms, lib_ms, bms, by, errs[label])
         log(f"  time [{label}, {ne} gathers; {card}], L2 flushed, median of "
             f"{REPS}: kernel {ms * 1e3:.2f} us = {ms * 1e6 / ne:.4f} ns/elem, "
@@ -335,18 +384,26 @@ def phase_gathers(dev, flush, card):
 def phase_ell(amg, tol, flush, card, label):
     """The ELL kernel against its plain version on every ELL operator of
     a hierarchy, each timed with the L2 flushed beside its floors and
-    the cuSPARSE CSR product.  Returns per-V-cycle sums (ms, plain_ms,
-    library_ms, bound_ms, bound_by) and the largest abs error."""
-    from hypre_tpu_torch.ops.ell_kernel import ell_spmv_cuda, ell_spmv_reference
+    the cuSPARSE CSR product; then every form on every operator against
+    its plain version, and the forms the V-cycle uses (A: resid and
+    jacobi, P: axpy) timed beside the unfused sequence.  Returns
+    per-V-cycle sums of the plain form (ms, plain_ms, library_ms,
+    bound_ms, bound_by), the largest abs error, and the forms' sums
+    {form: (ms, unfused_ms, bound_ms, bound_by, max_abs_err)}, with
+    "v_cycle" the cycle's matvecs in the forms the path runs."""
+    from hypre_tpu_torch.ops.ell_kernel import (
+        ell_spmv_cuda, ell_spmv_reference, slot_lanes)
+    from hypre_tpu_torch.ops.forms import OPERANDS, epilogue
 
     rng = np.random.default_rng(11)
     worst = 0.0
     tot = np.zeros(4)
+    forms = {f: np.zeros(4) for f in ("resid", "axpy", "jacobi", "v_cycle")}
+    vdt = amg.levels[0].dinv.dtype
     for name, A, per_cycle in ell_operators(amg):
-        vdt = amg.levels[0].dinv.dtype
         x = torch.from_numpy(rng.standard_normal(A.num_cols)).to(
             A.data.device, vdt)
-        y = ell_spmv_cuda(A.data, A.cols, x)
+        y = ell_spmv_cuda(A.data, A.cols, A.row_len, x)
         y_ref = ell_spmv_reference(A.data, A.cols, x)
         torch.cuda.synchronize()
         err = float((y - y_ref).abs().max())
@@ -355,28 +412,66 @@ def phase_ell(amg, tol, flush, card, label):
                             f"on {label} {name}: rel {rel:.3e}")
         worst = max(worst, err)
         width, n = A.data.shape
-        vsz = x.element_size()
-        pad_bytes = width * n * (A.data.element_size() + 4) + vsz * (
-            n + A.num_cols)
-        nnz_bytes = A.nnz * (A.data.element_size() + 4) + vsz * (
-            n + A.num_cols)
+        vsz, msz = x.element_size(), A.data.element_size()
+        pad_bytes = width * n * (msz + 4) + vsz * (n + A.num_cols)
+        # nnz entries, row_len, x and y once
+        nnz_bytes = A.nnz * (msz + 4) + 4 * n + vsz * (n + A.num_cols)
         bms, by = bound_ms(nnz_bytes, 2 * A.nnz, vdt)
         csr = csr_from_ell(A, vdt)
-        ms = time_cuda(lambda: ell_spmv_cuda(A.data, A.cols, x), flush)
-        plain_ms = time_cuda(lambda: ell_spmv_reference(A.data, A.cols, x),
+        ms = time_cuda_ms(lambda: ell_spmv_cuda(A.data, A.cols, A.row_len, x),
+                       flush)
+        plain_ms = time_cuda_ms(lambda: ell_spmv_reference(A.data, A.cols, x),
                              flush)
-        lib_ms = time_cuda(lambda: csr @ x, flush)
+        lib_ms = time_cuda_ms(lambda: csr @ x, flush)
         tot += per_cycle * np.array([ms, plain_ms, lib_ms, bms])
         log(f"ELL [{label} {name}, {n}x{A.num_cols}, width {width}, nnz "
-            f"{A.nnz}, {per_cycle}/cycle; {card}]: rel err {rel:.2e}; "
-            f"kernel {ms * 1e3:.1f} us ({pad_bytes / ms / 1e6:.0f} GB/s "
-            f"padded), plain {plain_ms * 1e3:.1f} us, cuSPARSE CSR "
-            f"{lib_ms * 1e3:.1f} us; floor {pad_bytes / HBM_BYTES_PER_S * 1e6:.1f}"
-            f" us padded ({pad_bytes / 1e6:.1f} MB), {bms * 1e3:.1f} us nnz")
-    log(f"ELL [{label}] per V-cycle ({card}): kernel {tot[0] * 1e3:.1f} us, "
-        f"plain {tot[1] * 1e3:.1f} us, cuSPARSE {tot[2] * 1e3:.1f} us, "
-        f"floor (nnz bytes) {tot[3] * 1e3:.1f} us")
-    return (*tot, "bytes"), worst
+            f"{A.nnz}, {slot_lanes(width, n)} lanes, {per_cycle}/cycle; "
+            f"{card}]: rel err {rel:.2e}; kernel {ms * 1e3:.1f} us "
+            f"({nnz_bytes / ms / 1e6:.0f} GB/s of nnz bytes), plain "
+            f"{plain_ms * 1e3:.1f} us, cuSPARSE CSR {lib_ms * 1e3:.1f} us; "
+            f"floor {pad_bytes / HBM_BYTES_PER_S * 1e6:.1f} us padded "
+            f"({pad_bytes / 1e6:.1f} MB), {bms * 1e3:.1f} us nnz "
+            f"({nnz_bytes / 1e6:.2f} MB)")
+        # the forms: all against the plain version, the path's timed
+        kind = name.split()[-1]
+        path_forms = {"A": ("resid", "jacobi"), "P": ("axpy",), "R": ()}[kind]
+        if kind == "R":
+            forms["v_cycle"] += np.array([ms, ms, bms, 0.0])
+        for form in ("resid", "axpy", "jacobi"):
+            if form == "jacobi" and n != A.num_cols:
+                continue
+            ops = form_operands(form, n, vdt, x.device, rng)
+            fused = lambda: ell_spmv_cuda(  # noqa: E731
+                A.data, A.cols, A.row_len, x, form, **ops)
+            ferr, frel = check_form("ELL", f"{label} {name}", form, fused,
+                                    lambda: ell_spmv_reference(
+                                        A.data, A.cols, x, form, **ops), tol)
+            worst = max(worst, ferr)
+            if form not in path_forms:
+                log(f"ELL {form} [{label} {name}]: rel err {frel:.2e}")
+                continue
+            unfused = lambda: epilogue(  # noqa: E731
+                form, ell_spmv_cuda(A.data, A.cols, A.row_len, x), x, **ops)
+            fbytes = nnz_bytes + vsz * n * len(OPERANDS[form])
+            fbms, _ = bound_ms(fbytes, 2 * A.nnz + 4 * n, vdt)
+            fms = time_cuda_ms(fused, flush)
+            un_ms = time_cuda_ms(unfused, flush)
+            forms[form][:3] += [fms, un_ms, fbms]
+            forms[form][3] = max(forms[form][3], ferr)
+            forms["v_cycle"] += np.array([fms, un_ms, fbms, 0.0])
+            log(f"ELL {form} [{label} {name}; {card}]: rel err {frel:.2e}; "
+                f"fused {fms * 1e3:.1f} us, unfused (kernel + torch "
+                f"elementwise) {un_ms * 1e3:.1f} us; floor {fbms * 1e3:.1f} us")
+    forms["v_cycle"][3] = worst
+    log(f"ELL [{label}] per V-cycle ({card}), plain form: kernel "
+        f"{tot[0] * 1e3:.1f} us, plain {tot[1] * 1e3:.1f} us, cuSPARSE "
+        f"{tot[2] * 1e3:.1f} us, floor (nnz bytes) {tot[3] * 1e3:.1f} us")
+    for form, (fms, un_ms, fbms, _) in forms.items():
+        log(f"ELL [{label}] per V-cycle ({card}), {form}: fused "
+            f"{fms * 1e3:.1f} us, unfused {un_ms * 1e3:.1f} us, floor "
+            f"{fbms * 1e3:.1f} us")
+    form_out = {f: (*v[:3], "bytes", float(v[3])) for f, v in forms.items()}
+    return (*tot, "bytes"), worst, form_out
 
 
 def counted_wrappers():
@@ -397,6 +492,20 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counted_wrappers().items()}
+
+
+def ptxas_summary(out: str) -> str:
+    """One line from a build's compiler output: the kernels ptxas
+    reported, their register range and spill bytes, and any line that
+    is neither (a warning, say)."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", out)]
+    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", out))
+    other = [ln.strip() for ln in out.splitlines() if ln.strip() and not
+             re.search(r"ptxas info|bytes stack frame|Compile time", ln)]
+    if not regs:
+        return "no ptxas report" + (f"; {' | '.join(other)}" if other else "")
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{spills} bytes spilled" + (f"; {' | '.join(other)}" if other else ""))
 
 
 def build_all():
@@ -436,14 +545,16 @@ def main() -> int:
     # -- 2. builds ---------------------------------------------------------
     t0 = time.perf_counter()
     for name, secs, out in build_all():
-        log(f"build: {name} {secs:.2f} s")
-        for line in out.strip().splitlines():
-            log(f"  {name}: {line.strip()}")
+        log(f"build: {name} {secs:.2f} s; {ptxas_summary(out)}")
     log(f"build: all libraries in {time.perf_counter() - t0:.2f} s")
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    # what the timing method reads for a kernel that does no work
+    log(f"timing floor ({card}): an empty kernel reads "
+        f"{time_cuda_ms(lambda: torch.cuda._sleep(0), flush) * 1e3:.1f} us")
     # -- 3. K1 against its plain version ------------------------------------
     k1 = phase_k1(dev, flush, card)
+    k1_forms = phase_k1_forms(dev, flush, card)
     # -- 4. the gathers (K2, K3) --------------------------------------------
     gather_launches, gather_times = phase_gathers(dev, flush, card)
 
@@ -486,7 +597,7 @@ def main() -> int:
     require(launches > 0, "the f64 slice did not launch K1")
     require(ell_launches == ell_expected > 0,
             "the f64 slice's ELL matvecs did not all launch the ELL kernel")
-    ell64, ell_err = phase_ell(amg, 1e-12, flush, card, "f64")
+    ell64, ell_err, ell_forms64 = phase_ell(amg, 1e-12, flush, card, "f64")
     del amg, res
 
     # -- 7. f32 vectors, bf16 matrices, nongalerkin 0.02 ---------------------
@@ -524,15 +635,23 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
+    def form_times(forms, per):
+        """{form: {ms, unfused_ms, bound_ms, bound_by, max_abs_err, per}}"""
+        keys = ("ms", "unfused_ms", "bound_ms", "bound_by", "max_abs_err")
+        return {f: {**dict(zip(keys, v)), "per": per if f != "v_cycle"
+                    else "v_cycle"} for f, v in forms.items()}
+
     ms, plain_ms, lib_ms, err, bms, by = k1["96^3 f64"]
     kernels = [
         entry("dia_spmv", "hypre_tpu_torch/csrc/dia_spmv.cu",
               "hypre_tpu/ops/pallas_dia.py:104", err, ms, plain_ms, lib_ms,
-              bms, by, per="launch"),
+              bms, by, per="launch",
+              forms=form_times(k1_forms["96^3 f64"], "launch")),
         # one f64 V-cycle's ELL matvecs, each timed alone and summed
         entry("ell_spmv", "hypre_tpu_torch/csrc/ell_spmv.cu",
               "scripts/exp_mosaic_gather.py:52", ell_err, *ell64[:5],
-              per="v_cycle", matvecs=per_cycle64),
+              per="v_cycle", matvecs=per_cycle64,
+              forms=form_times(ell_forms64, "v_cycle")),
     ]
     for name, probe, replaces in (
             ("take_along_axis", "K3 grid", "scripts/exp_mosaic_gather.py:65"),

@@ -9,7 +9,8 @@ ELL layout on an explicit torch device.
 ELL layout: slot-major `[width, n]` (the JAX package's `transposed`
 form), so neighbouring rows read neighbouring addresses for each slot.
 Padding entries point at column 0 with value 0, so no masking is
-needed.
+needed; `row_len` gives each row's count of leading real slots, so the
+ELL kernel skips the padding.
 """
 
 from __future__ import annotations
@@ -97,19 +98,25 @@ class CSRMatrix:
             num_rows=n,
             num_cols=m,
             nnz=self.nnz,
+            row_len=torch.from_numpy(rn.astype(np.int32)).to(device),
         )
 
 
 @dataclasses.dataclass(frozen=True)
 class ELLMatrix:
     """Device-side padded ELL, slot-major: cols/data are [width, n].
-    Both are contiguous and cols is int32, as the ELL kernel takes them."""
+    Both are contiguous and cols is int32, as the ELL kernel takes them.
+    row_len (int32 [n], each in [0, width]) bounds each row's real
+    slots; when it is not given it is derived on the tensors' device as
+    the last slot whose cols or data is nonzero, plus one (the padding
+    is (0, 0))."""
 
     cols: torch.Tensor  # int32 [width, n]
     data: torch.Tensor  # real  [width, n]
     num_rows: int
     num_cols: int
     nnz: int
+    row_len: torch.Tensor = None  # int32 [n]
 
     def __post_init__(self):
         if self.cols.dtype != torch.int32:
@@ -121,3 +128,21 @@ class ELLMatrix:
                 f"{tuple(self.data.shape)} must be [width, {self.num_rows}]")
         if not (self.cols.is_contiguous() and self.data.is_contiguous()):
             raise ValueError("ELL cols and data must be contiguous")
+        width = self.cols.shape[0]
+        if self.row_len is None:
+            real = (self.cols != 0) | (self.data != 0)
+            slot = torch.arange(1, width + 1, dtype=torch.int32,
+                                device=self.cols.device).unsqueeze(1)
+            object.__setattr__(self, "row_len", torch.amax(
+                torch.where(real, slot, 0), dim=0).to(torch.int32))
+            return
+        if (self.row_len.dtype != torch.int32
+                or self.row_len.shape != (self.num_rows,)
+                or self.row_len.device != self.cols.device):
+            raise ValueError(
+                f"ELL row_len must be int32 [{self.num_rows}] on "
+                f"{self.cols.device}")
+        # the ELL kernel reads slots 0..row_len[i]-1 without a check
+        if self.num_rows and not bool(
+                ((self.row_len >= 0) & (self.row_len <= width)).all()):
+            raise ValueError(f"ELL row_len entries must lie in [0, {width}]")

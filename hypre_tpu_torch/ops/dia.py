@@ -10,7 +10,10 @@ hierarchy into the same formats.
 
 `dia_spmv` dispatches on the device of x alone: a CUDA tensor launches
 the hand-written kernel K1 (ops/dia_kernel.py) or raises; a CPU tensor
-takes K1's plain torch version.
+takes K1's plain torch version.  `spmv_resid`, `spmv_axpy` and
+`spmv_jacobi` are the matvec with the elementwise work that follows it
+in the V-cycle (ops/forms.py), one kernel launch each on the card for
+DIA and ELL operators; dense operators use torch ops.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from .. import native
 from .csr import CSRMatrix, ELLMatrix, to_device, torch_dtype
 from .dia_kernel import dia_spmv_cuda, dia_spmv_reference
+from .forms import epilogue
 from .spmv import ell_spmv
 
 # freeze_auto's thresholds, the JAX package's (picked there for the TPU;
@@ -39,8 +43,6 @@ class DIAMatrix:
     offsets: tuple
     num_rows: int
     num_cols: int
-    # the offsets as an int64 tensor beside `data`, for the kernel
-    offsets_t: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         if self.num_rows != self.num_cols:
@@ -50,8 +52,6 @@ class DIAMatrix:
             raise ValueError(
                 f"DIA data {tuple(self.data.shape)} does not match "
                 f"{len(self.offsets)} offsets x {self.num_rows} rows")
-        object.__setattr__(self, "offsets_t", torch.tensor(
-            self.offsets, dtype=torch.int64, device=self.data.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,12 +76,14 @@ def csr_to_dia(A: CSRMatrix, dtype, device) -> DIAMatrix:
                      num_rows=n, num_cols=m)
 
 
-def dia_spmv(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y_i = sum_k data[k,i] * x[i + off_k]: K1 on CUDA, plain on CPU."""
+def dia_spmv(A: DIAMatrix, x: torch.Tensor, form: str = "plain",
+             **operands) -> torch.Tensor:
+    """The form (ops/forms.py) of y_i = sum_k data[k,i] * x[i + off_k]:
+    K1 on CUDA, plain on CPU."""
     if x.device.type == "cuda":
-        return dia_spmv_cuda(A.data, A.offsets_t, x)
+        return dia_spmv_cuda(A.data, A.offsets, x, form, **operands)
     if x.device.type == "cpu":
-        return dia_spmv_reference(A.data, A.offsets, x)
+        return dia_spmv_reference(A.data, A.offsets, x, form, **operands)
     raise ValueError(f"dia_spmv: no path for device {x.device}")
 
 
@@ -106,12 +108,33 @@ def freeze_auto(A: CSRMatrix, dtype, device):
     return A.to_ell(dtype, device)
 
 
+def _spmv_form(A, x: torch.Tensor, form: str, **operands) -> torch.Tensor:
+    if isinstance(A, DIAMatrix):
+        return dia_spmv(A, x, form, **operands)
+    if isinstance(A, ELLMatrix):
+        return ell_spmv(A, x, form, **operands)
+    if isinstance(A, DenseMatrix):
+        return epilogue(form, dense_spmv(A, x), x, **operands)
+    raise TypeError(f"spmv: unsupported operator {type(A).__name__}")
+
+
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """Polymorphic matvec over DIA / dense / ELL."""
-    if isinstance(A, DIAMatrix):
-        return dia_spmv(A, x)
-    if isinstance(A, DenseMatrix):
-        return dense_spmv(A, x)
-    if isinstance(A, ELLMatrix):
-        return ell_spmv(A, x)
-    raise TypeError(f"spmv: unsupported operator {type(A).__name__}")
+    return _spmv_form(A, x, "plain")
+
+
+def spmv_resid(A, x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """f - A x (the residual before restriction)."""
+    return _spmv_form(A, x, "resid", f=f)
+
+
+def spmv_axpy(A, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """u + A x, u of A.num_rows entries (the prolongation u + P e)."""
+    return _spmv_form(A, x, "axpy", u=u)
+
+
+def spmv_jacobi(A, d: torch.Tensor, u: torch.Tensor, f: torch.Tensor,
+                w: float) -> torch.Tensor:
+    """u + w * d * (f - A u): one weighted Jacobi sweep, d = D^{-1} (or
+    the l1 inverse)."""
+    return _spmv_form(A, u, "jacobi", f=f, d=d, w=w)

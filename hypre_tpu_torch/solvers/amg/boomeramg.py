@@ -28,7 +28,7 @@ import scipy.sparse as sp
 import torch
 
 from ...ops.csr import CSRMatrix, to_device, torch_dtype
-from ...ops.dia import freeze_auto, spmv
+from ...ops.dia import freeze_auto, spmv, spmv_axpy, spmv_resid
 from ...utils.timing import timed
 from .coarsen import pmis_coarsen
 from .interp import classical_interp, truncate_interp
@@ -408,7 +408,7 @@ class BoomerAMG:
                 U[l] = self._smooth(lvl, rt, U[l], F[l], up=False, level=l,
                                     u_zero=u_zero)
                 u_zero = False
-            r = F[l] - spmv(lvl.A, U[l])
+            r = spmv_resid(lvl.A, U[l], F[l])
             F[l + 1] = spmv(lvl.R, r)
             U[l + 1] = torch.zeros_like(F[l + 1])
             u_zero = True
@@ -420,7 +420,7 @@ class BoomerAMG:
                                     up=False, level=L - 1)
         rt, ns = self._relax_plan("up")
         for l in range(L - 2, -1, -1):
-            U[l] = U[l] + spmv(levels[l].P, U[l + 1])
+            U[l] = spmv_axpy(levels[l].P, U[l + 1], U[l])
             for _ in range(ns):
                 U[l] = self._smooth(levels[l], rt, U[l], F[l], up=True, level=l)
         return U[0]

@@ -9,13 +9,13 @@ from __future__ import annotations
 
 import torch
 
-from ...ops.dia import spmv
+from ...ops.dia import spmv, spmv_jacobi
 
 
 def jacobi(A, dinv, u, f, weight=1.0):
-    """u += weight * D^{-1} (f - A u)   (par_relax.c case 0, all points)."""
-    r = f - spmv(A, u)
-    return u + weight * dinv * r
+    """u += weight * D^{-1} (f - A u)   (par_relax.c case 0, all points);
+    one kernel launch on the card for DIA and ELL operators."""
+    return spmv_jacobi(A, dinv, u, f, weight)
 
 
 def jacobi_cf(A, dinv, u, f, mask, weight=1.0):

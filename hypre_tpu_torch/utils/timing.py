@@ -1,14 +1,19 @@
-"""Named-timer registry (port of hypre_tpu/utils/timing.py).
+"""Named-timer registry (port of hypre_tpu/utils/timing.py), and the
+kernel timer of the port's measurement scripts.
 
 The HYPRE_TIMING named-timer registry (utilities/timing.h:102-108).  A
 scope that times work on a CUDA device synchronizes that device before
 it reads the clock at both ends, so the wall time covers the device
 work and not only its enqueue.
+
+`time_cuda_ms` times one call on the card with the L2 flushed, as
+chip_smoke.py and lane_sweep.py report it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from collections import defaultdict
 
@@ -70,3 +75,28 @@ def timed(name: str, device=None):
     with GLOBAL_TIMER.scope(name, device):
         yield
 
+# cycles of the sleep kernel before each timed call (~1 ms on the H100)
+LEAD_CYCLES = 2_000_000
+REPS = 50  # timed calls a median
+
+
+def time_cuda_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
+    """Median ms of fn() on the card over `reps` calls, after 5 warm-up
+    calls.  Before each call `flush` (larger than the 50 MB L2) is
+    written, then a sleep kernel of LEAD_CYCLES keeps the card busy
+    while the host enqueues fn, so the CUDA events around the call see
+    device time and not host latency."""
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(LEAD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)

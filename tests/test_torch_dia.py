@@ -144,7 +144,7 @@ def test_cpu_tensors_never_launch_k1():
     y = spmv(A, x)
     assert y.shape == (216,)
     with pytest.raises(ValueError, match="CUDA"):
-        dia_spmv_cuda(A.data, A.offsets_t, x)
+        dia_spmv_cuda(A.data, A.offsets, x)
     assert dia_spmv_cuda.launches == 0
 
 

@@ -101,7 +101,7 @@ def test_cpu_tensors_never_launch_the_ell_kernel():
     assert y.shape == (50,)
     assert torch.equal(y, ell_spmv_reference(A.data, A.cols, x))
     with pytest.raises(ValueError, match="CUDA"):
-        ell_spmv_cuda(A.data, A.cols, x)
+        ell_spmv_cuda(A.data, A.cols, A.row_len, x)
     with pytest.raises(ValueError, match="x has shape"):
         ell_spmv(A, torch.ones(50, dtype=torch.float32))
     assert ell_spmv_cuda.launches == 0

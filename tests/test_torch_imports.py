@@ -14,11 +14,13 @@ SLICE_MODULES = [
     "hypre_tpu_torch.convert",
     "hypre_tpu_torch.native",
     "hypre_tpu_torch.profile_slice",
+    "hypre_tpu_torch.lane_sweep",
     "hypre_tpu_torch.models.laplacian",
     "hypre_tpu_torch.ops.csr",
     "hypre_tpu_torch.ops.dia",
     "hypre_tpu_torch.ops.dia_kernel",
     "hypre_tpu_torch.ops.ell_kernel",
+    "hypre_tpu_torch.ops.forms",
     "hypre_tpu_torch.ops.gather_kernel",
     "hypre_tpu_torch.ops.spmv",
     "hypre_tpu_torch.solvers.amg.boomeramg",
