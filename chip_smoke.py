@@ -7,8 +7,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (csrc/dia_spmv.cu, csrc/ell_spmv.cu,
-     csrc/gather.cu; one nvcc each, all at once) and the host setup
-     library (csrc/host_kernels.c, cc) from the sources;
+     csrc/gather.cu, csrc/coo_tail.cu; one nvcc each, all at once) and
+     the host setup library (csrc/host_kernels.c, cc) from the sources;
   3. hold K1 (the DIA SpMV) against its plain torch version on the card
      at the shapes of the main path and on wide/edge offset sets; time
      both at 96^3, and the cuSPARSE CSR product on the same operator;
@@ -18,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
   4. the gathers (counterparts of the TPU gather probes K2/K3): run the
      probes' four gathers through the kernels, hold each against its
      plain version bitwise, and time each;
-  5. the 24^3 f64 slice on the card against the same on the CPU;
+  5. the 24^3 f64 slice on the card against the same on the CPU, with
+     the plain forms and with the lattice forms (relocate_min_n2=0);
   6. the slice in float64 at 96^3: BoomerAMG setup, freeze on the card,
      PCG (two-norm, tol 1e-6, b = ones) -- exactly 25 iterations, the
      hypre oracle count, with K1 carrying the fine-level matvecs and the
@@ -28,7 +29,17 @@ Phases (any failure raises and the script exits non-zero):
      every form of it against its plain version on every operator, the
      forms the V-cycle uses timed beside the unfused sequence;
   7. the same with float32 vectors, bfloat16 matrices and
-     nongalerkin_tol 0.02 at 96^3 -- 21 +- 1 iterations.
+     nongalerkin_tol 0.02 at 96^3 -- 21 +- 1 iterations;
+  8. the lattice path at 96^3 in both configurations: the JAX package's
+     own option defaults (level 1 embedded on the fine lattice, deeper
+     levels relocated onto cell lattices with parity transfers and COO
+     tails, the coarse sub-cycle collapsed), lattice_shape given and
+     device_rap=False -- 25 and 21 +- 1 iterations again, every DIA part
+     a K1 launch, every tail a coo_tail launch, every gather a flat_take
+     launch, counted exactly; then each lattice operator against its
+     plain evaluation, timed beside its bound, each tail (coo_tail)
+     against its plain version and the three-call torch form, and each
+     gather (flat_take) against its plain version, bitwise.
 The last two lines are the kernel report and {"ok": true, ...}.
 """
 
@@ -79,6 +90,18 @@ def slice_options(**kw):
         coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
         relax_down=18, relax_up=18, embed_level1=False,
         relocate_level2=False, collapse_coarse_n=0, **kw)
+
+
+def lattice_options(nx: int, **kw):
+    """The JAX package's own option defaults (embed_level1,
+    relocate_level2, relocate_tail, collapse_coarse_n=2048) on the nx^3
+    lattice, with the embedded level-1 values computed on the host."""
+    from hypre_tpu_torch.solvers.amg import BoomerAMGOptions
+
+    return BoomerAMGOptions(
+        coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
+        relax_down=18, relax_up=18, lattice_shape=(nx, nx, nx),
+        device_rap=False, **kw)
 
 
 def run_slice(nx: int, opts, device):
@@ -474,15 +497,355 @@ def phase_ell(amg, tol, flush, card, label):
     return (*tot, "bytes"), worst, form_out
 
 
+def cycle_operators(amg):
+    """[(label, operator, rows in, rows out, applications per V-cycle)]
+    of a frozen hierarchy.  Per cycle with one sweep down and up and the
+    u_zero skip: A twice on every level above the last (residual,
+    up-smooth), P and R once each, and the last level's coarse solve
+    once where it is an operator (the collapsed sub-cycle)."""
+    size = [lvl.dinv.shape[0] for lvl in amg.levels]
+    ops = []
+    for l, lvl in enumerate(amg.levels[:-1]):
+        ops += [(f"L{l} A", lvl.A, size[l], size[l], 2),
+                (f"L{l} P", lvl.P, size[l + 1], size[l], 1),
+                (f"L{l} R", lvl.R, size[l], size[l + 1], 1)]
+    ci = amg.levels[-1].coarse_inv
+    if not isinstance(ci, torch.Tensor):
+        ops.append((f"L{len(size) - 1} coarse solve", ci, size[-1], size[-1], 1))
+    return ops
+
+
+def expected_launches(amg, iterations: int) -> dict:
+    """Kernel launches of one PCG solve over this hierarchy, from the
+    operators' formats alone: iterations + 1 V-cycles and as many
+    fine-level matvecs of PCG's own (K1)."""
+    from hypre_tpu_torch.ops.dia import kernel_launches
+
+    per_cycle = {name: 0 for name in counted_wrappers()}
+    for _, op, _, _, k in cycle_operators(amg):
+        for name, c in kernel_launches(op).items():
+            per_cycle[name] += k * c
+    per_cycle["dia_spmv"] += 1  # PCG's matvec with the fine DIA operator
+    return {name: c * (iterations + 1) for name, c in per_cycle.items()}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def describe(A):
+    """(format, DIA offsets, tail entries, stored entries, stored bytes,
+    gathered rows or None) of an operator."""
+    from hypre_tpu_torch.ops import dia as D
+    from hypre_tpu_torch.ops.csr import ELLMatrix
+
+    if isinstance(A, D.DIAMatrix):
+        return "DIA", len(A.offsets), 0, A.data.numel(), tensor_bytes(A.data), None
+    if isinstance(A, ELLMatrix):
+        return ("ELL", 0, 0, A.nnz,
+                tensor_bytes(A.data, A.cols, A.row_len), None)
+    if isinstance(A, D.DenseMatrix):
+        return "dense", 0, 0, A.data.numel(), tensor_bytes(A.data), None
+    if isinstance(A, D.DIAWithTail):
+        _, noff, _, ne, nb, _ = describe(A.dia)
+        t = A.tail
+        return ("DIA+tail", noff, t.nnz, ne + t.nnz,
+                nb + tensor_bytes(t.vals, t.cols, t.seg_ptr, t.rows_u), None)
+    if isinstance(A, (D.GatherOp, D.ScatterOp)):
+        fmt, noff, nt, ne, nb, g = describe(A.inner)
+        word = "gather" if isinstance(A, D.GatherOp) else "scatter"
+        if isinstance(A, D.GatherOp):
+            g = A.pos.numel()
+        return f"{word}({fmt})", noff, nt, ne, nb + tensor_bytes(A.pos), g
+    if isinstance(A, (D.ParityRestrictOp, D.ParityInterpOp)):
+        word = "restrict" if isinstance(A, D.ParityRestrictOp) else "interp"
+        ne = sum(m.data.numel() for m in A.mats)
+        nb = tensor_bytes(*(m.data for m in A.mats))
+        nt = 0
+        if A.tail is not None:
+            t = A.tail
+            nt = t.nnz
+            nb += tensor_bytes(t.vals, t.cols, t.seg_ptr, t.rows_u)
+        live = sum(1 for m in A.mats if m.offsets)
+        return (f"parity {word} x{live}", sum(len(m.offsets) for m in A.mats),
+                nt, ne + nt, nb, None)
+    raise TypeError(f"describe: unexpected operator {type(A).__name__}")
+
+
+def plain_spmv(A, x):
+    """A x through the kernels' plain torch versions alone (no launch of
+    a hand-written kernel), on x's device: what the lattice operators
+    are held against."""
+    from hypre_tpu_torch.ops import dia as D
+    from hypre_tpu_torch.ops.csr import ELLMatrix
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_reference
+    from hypre_tpu_torch.ops.ell_kernel import ell_spmv_reference
+    from hypre_tpu_torch.ops.gather_kernel import flat_take_reference
+    from hypre_tpu_torch.ops.tail_kernel import coo_tail_reference
+
+    def tail(t, v, y):
+        if t is None:
+            return y
+        return coo_tail_reference(t.vals, t.cols, t.seg_ptr, t.rows_u, v, y)
+
+    if isinstance(A, D.DIAMatrix):
+        return dia_spmv_reference(A.data, A.offsets, x)
+    if isinstance(A, ELLMatrix):
+        return ell_spmv_reference(A.data, A.cols, x)
+    if isinstance(A, D.DenseMatrix):
+        return D.dense_spmv(A, x)
+    if isinstance(A, D.DIAWithTail):
+        return tail(A.tail, x, plain_spmv(A.dia, x))
+    if isinstance(A, D.GatherOp):
+        return plain_spmv(A.inner, flat_take_reference(x, A.pos))
+    if isinstance(A, D.ScatterOp):
+        y = plain_spmv(A.inner, x)
+        out = torch.zeros(A.n_out, dtype=y.dtype, device=y.device)
+        out[A.pos] = y
+        return out
+    if isinstance(A, D.ParityRestrictOp):
+        X = D.parity_split(x, A.fine_shape, A.factors)
+        acc = torch.zeros(A.num_rows, dtype=x.dtype, device=x.device)
+        for b, m in enumerate(A.mats):
+            acc = acc + plain_spmv(m, X[b].contiguous())
+        return tail(A.tail, x, acc)
+    if isinstance(A, D.ParityInterpOp):
+        Y = torch.stack([plain_spmv(m, x) for m in A.mats])
+        return tail(A.tail, x, D.parity_merge(Y, A.fine_shape, A.factors))
+    raise TypeError(f"plain_spmv: unexpected operator {type(A).__name__}")
+
+
+PLAIN_REPS = 10  # a plain lattice matvec is hundreds of torch calls
+
+
+def phase_lattice_ops(amg, tol, flush, card, label):
+    """Every operator of a lattice hierarchy through the kernels (`spmv`)
+    against its plain evaluation, timed with the L2 flushed beside its
+    bound: stored bytes, the input rows it reads and the output rows it
+    writes once, two operations a stored entry.  Returns the rows
+    [{operator, format, offsets, tail_entries, bytes, per_cycle, ms,
+    plain_ms, bound_ms, rel_err}]."""
+    from hypre_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(17)
+    vdt = amg.levels[0].dinv.dtype
+    vsz = torch.empty((), dtype=vdt).element_size()
+    dev = amg.levels[0].dinv.device
+    rows = []
+    for name, A, n_in, n_out, k in cycle_operators(amg):
+        fmt, noff, ntail, entries, nbytes, gathered = describe(A)
+        x = torch.from_numpy(rng.standard_normal(n_in)).to(dev, vdt)
+        y, y_ref = spmv(A, x), plain_spmv(A, x)
+        torch.cuda.synchronize()
+        require(y.shape == (n_out,), f"{label} {name}: shape {tuple(y.shape)}")
+        rel = float((y - y_ref).abs().max()) / max(
+            float(y_ref.abs().max()), 1e-300)
+        # a dense core's f32 dot products run to thousands of terms
+        op_tol = max(tol, 1e-4) if "dense" in fmt and vdt == torch.float32 else tol
+        require(rel <= op_tol, f"{label} {name} ({fmt}) disagrees with its "
+                               f"plain evaluation: rel {rel:.3e}")
+        total = nbytes + vsz * ((gathered or n_in) + n_out)
+        bms, _ = bound_ms(total, 2 * entries, vdt)
+        ms = time_cuda_ms(lambda: spmv(A, x), flush)
+        plain_ms = time_cuda_ms(lambda: plain_spmv(A, x), flush, PLAIN_REPS)
+        rows.append({"operator": name, "format": fmt, "offsets": noff,
+                     "tail_entries": ntail, "bytes": nbytes, "per_cycle": k,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "rel_err": rel})
+        log(f"lattice [{label} {name}: {fmt}, {n_out}x{n_in}, {noff} offsets, "
+            f"{ntail} tail entries, {nbytes / 1e6:.2f} MB stored, {k}/cycle; "
+            f"{card}]: rel err {rel:.2e}; kernels {ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, floor {bms * 1e3:.1f} us")
+    tot = {key: sum(r["per_cycle"] * r[key] for r in rows)
+           for key in ("ms", "plain_ms", "bound_ms")}
+    log(f"lattice [{label}] per V-cycle ({card}), every operator timed alone "
+        f"and summed: kernels {tot['ms'] * 1e3:.1f} us, plain "
+        f"{tot['plain_ms'] * 1e3:.1f} us, floor {tot['bound_ms'] * 1e3:.1f} us; "
+        f"{sum(r['bytes'] for r in rows) / 1e9:.3f} GB stored")
+    return rows
+
+
+def hierarchy_tails(amg):
+    """[(label, COOTail, rows in, rows out, applications per V-cycle)]."""
+    out = []
+    for name, A, n_in, n_out, k in cycle_operators(amg):
+        t = getattr(A, "tail", None)  # DIAWithTail and the parity operators
+        if t is not None:
+            out.append((name, t, n_in, n_out, k))
+    return out
+
+
+def phase_tail(amg, tol, flush, card, label):
+    """`coo_tail` against its plain version on every tail of a lattice
+    hierarchy, at the path's shapes: relative error within tol on the
+    card, the same bits on a second run (no atomics), and in f64 the
+    bits of the CPU's plain version, which sums each row in stored order.
+    Timed beside its bound (vals, cols, segment pointers and rows once,
+    one x element an entry, y read and written on the rows touched) and
+    the three-call torch form (index_select, multiply, index_add_).
+    Returns per-V-cycle sums (ms, plain_ms, library_ms, bound_ms,
+    "bytes"), the largest abs error and the tails' total entries."""
+    from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda, coo_tail_reference
+
+    rng = np.random.default_rng(23)
+    vdt = amg.levels[0].dinv.dtype
+    dev = amg.levels[0].dinv.device
+    tot, worst, entries = np.zeros(4), 0.0, 0
+    for name, t, n_in, n_out, k in hierarchy_tails(amg):
+        x = torch.from_numpy(rng.standard_normal(n_in)).to(dev, vdt)
+        y0 = torch.from_numpy(rng.standard_normal(n_out)).to(dev, vdt)
+        args = (t.vals, t.cols, t.seg_ptr, t.rows_u)
+        y = coo_tail_cuda(*args, x, y0.clone())
+        y_ref = coo_tail_reference(*args, x, y0.clone())
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max())
+        rel = err / max(float(y_ref.abs().max()), 1e-300)
+        require(rel <= tol, f"coo_tail disagrees with its plain version on "
+                            f"{label} {name}: rel {rel:.3e}")
+        require(torch.equal(coo_tail_cuda(*args, x, y0.clone()), y),
+                f"coo_tail gave other bits on a second run on {label} {name}")
+        y_cpu = coo_tail_reference(*(a.cpu() for a in args), x.cpu(), y0.cpu())
+        same_card, same_cpu = torch.equal(y, y_ref), torch.equal(y.cpu(), y_cpu)
+        if vdt == torch.float64:
+            require(same_cpu, f"coo_tail f64 is not bitwise the ordered sum "
+                              f"of the CPU's plain version on {label} {name}")
+        worst = max(worst, err)
+        entries += t.nnz
+        nseg = t.rows_u.numel()
+        vsz, msz = x.element_size(), t.vals.element_size()
+        nbytes = (t.nnz * (msz + 4 + vsz) + 4 * (2 * nseg + 1)
+                  + 2 * vsz * nseg)
+        bms, _ = bound_ms(nbytes, 2 * t.nnz + nseg, vdt)
+        # the three-call form; its bf16 values are widened beforehand
+        rows_e = t.rows_u.long()[t.seg.long()]
+        vals_w = t.vals.to(vdt)
+        y_lib = y0.clone()
+        y_k, y_p = y0.clone(), y0.clone()
+        ms = time_cuda_ms(lambda: coo_tail_cuda(*args, x, y_k), flush)
+        plain_ms = time_cuda_ms(lambda: coo_tail_reference(*args, x, y_p), flush)
+        lib_ms = time_cuda_ms(lambda: y_lib.index_add_(
+            0, rows_e, vals_w * torch.index_select(x, 0, t.cols)), flush)
+        tot += k * np.array([ms, plain_ms, lib_ms, bms])
+        seg_max = int(torch.diff(t.seg_ptr).max())
+        log(f"coo_tail [{label} {name}: {t.nnz} entries on {nseg} rows, "
+            f"longest row {seg_max}, x {n_in}, y {n_out}, {k}/cycle; {card}]: "
+            f"rel err {rel:.2e}, bitwise vs the card's plain version "
+            f"{same_card}, vs the CPU's {same_cpu}; kernel {ms * 1e3:.2f} us, "
+            f"plain {plain_ms * 1e3:.2f} us, index_select * vals -> index_add_ "
+            f"{lib_ms * 1e3:.2f} us; floor {bms * 1e3:.2f} us "
+            f"({nbytes / 1e6:.3f} MB)")
+    log(f"coo_tail [{label}] per V-cycle ({card}): kernel {tot[0] * 1e3:.1f} "
+        f"us, plain {tot[1] * 1e3:.1f} us, three-call torch form "
+        f"{tot[2] * 1e3:.1f} us, floor {tot[3] * 1e3:.1f} us; {entries} entries")
+    return (*tot, "bytes"), worst, entries
+
+
+def hierarchy_gathers(amg):
+    """[(label, pos, table rows, applications per V-cycle)] of every
+    GatherOp of a hierarchy."""
+    from hypre_tpu_torch.ops.dia import GatherOp, ScatterOp
+
+    out = []
+    for name, A, n_in, _, k in cycle_operators(amg):
+        while isinstance(A, (GatherOp, ScatterOp)):
+            if isinstance(A, GatherOp):
+                out.append((name, A.pos, n_in, k))
+            A = A.inner
+    return out
+
+
+def phase_path_gathers(amg, flush, card, label):
+    """`flat_take` at the shapes the lattice path gives it (every
+    GatherOp's x[pos]) against its plain version, bitwise, timed beside
+    its bound (pos and the taken rows in, the result out) and
+    torch.index_select.  Returns per-V-cycle sums (ms, plain_ms,
+    library_ms, bound_ms, "bytes") and the shapes."""
+    from hypre_tpu_torch.ops.gather_kernel import flat_take_cuda, flat_take_reference
+
+    rng = np.random.default_rng(29)
+    vdt = amg.levels[0].dinv.dtype
+    tot, shapes = np.zeros(4), []
+    for name, pos, n_in, k in hierarchy_gathers(amg):
+        x = torch.from_numpy(rng.standard_normal(n_in)).to(pos.device, vdt)
+        out, ref = flat_take_cuda(x, pos), flat_take_reference(x, pos)
+        torch.cuda.synchronize()
+        require(torch.equal(out, ref), f"flat_take differs from its plain "
+                                       f"version on {label} {name}")
+        ne = pos.numel()
+        nbytes = ne * (4 + 2 * x.element_size())
+        bms, _ = bound_ms(nbytes, 0, vdt)
+        ms = time_cuda_ms(lambda: flat_take_cuda(x, pos), flush)
+        plain_ms = time_cuda_ms(lambda: flat_take_reference(x, pos), flush)
+        lib_ms = time_cuda_ms(lambda: torch.index_select(x, 0, pos), flush)
+        tot += k * np.array([ms, plain_ms, lib_ms, bms])
+        shapes.append({"operator": name, "table": n_in, "gathers": ne,
+                       "dtype": str(vdt).split(".")[-1]})
+        log(f"flat_take [{label} {name}: {ne} gathers from {n_in} rows of "
+            f"{vdt}, {k}/cycle; {card}]: bitwise equal; kernel {ms * 1e3:.2f} "
+            f"us, plain {plain_ms * 1e3:.2f} us, torch index_select "
+            f"{lib_ms * 1e3:.2f} us; floor {bms * 1e3:.2f} us")
+    return (*tot, "bytes"), shapes
+
+
+def run_lattice(nx, opts, dev, card, label, iters_ok, plain_k1: int):
+    """Drive the lattice path once at nx^3 with the counts set to 0 just
+    before and read just after; require convergence in an allowed
+    iteration count, a right solution, and every DIA part, tail and
+    gather of the path on its kernel, counted exactly.  Returns (amg,
+    result, launches, setup_s, solve_s)."""
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    GLOBAL_TIMER.clear()
+    zero_counts()
+    amg, res, setup_s, solve_s = run_slice(nx, opts, dev)
+    counts = read_counts()
+    log(f"launches in the lattice {label} {nx}^3 run: {counts}")
+    log(f"setup phases, lattice {label} {nx}^3 (host clock; FREEZE and "
+        f"COLLAPSE synchronize the card):")
+    for line in GLOBAL_TIMER.summary().splitlines():
+        log(f"  {line}")
+    n = nx**3
+    rel, bound = check_solution(amg, res, n)
+    levels = "; ".join(
+        f"L{l} A {describe(lvl.A)[0]} {lvl.dinv.shape[0]}"
+        + (f", P {describe(lvl.P)[0]}" if lvl.P is not None else "")
+        for l, lvl in enumerate(amg.levels))
+    ci = amg.levels[-1].coarse_inv
+    coarse = ("dense pinv" if isinstance(ci, torch.Tensor)
+              else f"collapsed sub-cycle as {describe(ci)[0]}")
+    expected = expected_launches(amg, res.num_iterations)
+    log(f"lattice {label} {nx}^3 ({card}): levels [{levels}], coarse solve "
+        f"{coarse} (setup hierarchy: {len(amg._host_A)} levels); setup "
+        f"{setup_s:.2f} s, solve {solve_s:.4f} s ({n / solve_s:.4g} DOF/s), "
+        f"{res.num_iterations} iterations, final rel residual "
+        f"{float(res.rel_residual_norm):.3e} (true, in f64: {rel:.3e}, bound "
+        f"{bound:.1e}); expected launches {expected}")
+    require(res.converged and res.num_iterations in iters_ok,
+            f"lattice {label}: {res.num_iterations} iterations, expected one "
+            f"of {sorted(iters_ok)}; residual history "
+            f"{res.res_norms[:res.num_iterations + 1].tolist()}")
+    require(counts == expected,
+            f"lattice {label}: launches {counts} are not the path's "
+            f"operators' {expected}: a matvec left its kernel")
+    require(counts["dia_spmv"] > plain_k1 and counts["flat_take"] > 0
+            and counts["coo_tail"] > 0,
+            f"lattice {label}: K1 {counts['dia_spmv']} (plain path "
+            f"{plain_k1}), flat_take {counts['flat_take']}, coo_tail "
+            f"{counts['coo_tail']}: the lattice forms did not engage")
+    return amg, res, counts, setup_s, solve_s
+
+
 def counted_wrappers():
     """{kernel name: its wrapper}; each wrapper's `launches` counts its
     kernel's launches."""
     from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda
     from hypre_tpu_torch.ops.ell_kernel import ell_spmv_cuda
     from hypre_tpu_torch.ops.gather_kernel import flat_take_cuda, take_along_axis_cuda
+    from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda
 
     return {"dia_spmv": dia_spmv_cuda, "ell_spmv": ell_spmv_cuda,
-            "take_along_axis": take_along_axis_cuda, "flat_take": flat_take_cuda}
+            "take_along_axis": take_along_axis_cuda, "flat_take": flat_take_cuda,
+            "coo_tail": coo_tail_cuda}
 
 
 def zero_counts() -> None:
@@ -512,7 +875,8 @@ def build_all():
     """Build every library from the sources, nvcc and cc at once.
     Returns [(name, seconds, compiler log)]."""
     from hypre_tpu_torch import native
-    from hypre_tpu_torch.ops import dia_kernel, ell_kernel, gather_kernel
+    from hypre_tpu_torch.ops import (dia_kernel, ell_kernel, gather_kernel,
+                                     tail_kernel)
 
     def timed_build(name, fn):
         t0 = time.perf_counter()
@@ -520,7 +884,8 @@ def build_all():
         return name, time.perf_counter() - t0, r[1] if isinstance(r, tuple) else ""
 
     jobs = (("dia_spmv.cu", dia_kernel.load), ("ell_spmv.cu", ell_kernel.load),
-            ("gather.cu", gather_kernel.load), ("host_kernels.c", native.load))
+            ("gather.cu", gather_kernel.load), ("coo_tail.cu", tail_kernel.load),
+            ("host_kernels.c", native.load))
     with ThreadPoolExecutor(len(jobs)) as ex:
         return list(ex.map(lambda j: timed_build(*j), jobs))
 
@@ -567,6 +932,21 @@ def main() -> int:
         f"{res_c.num_iterations}, max rel diff of x {dx:.3e}")
     require(res_g.num_iterations == res_c.num_iterations == 16 and dx < 1e-9,
             "24^3 slice differs between the card and the CPU")
+    # the same through the lattice forms (the relocation engages at this
+    # size only with relocate_min_n2=0)
+    l24 = lattice_options(24, dtype="float64", relocate_min_n2=0)
+    amg_g, res_g, _, _ = run_slice(24, l24, dev)
+    amg_c, res_c, _, _ = run_slice(24, l24, "cpu")
+    dx = float((res_g.x.cpu() - res_c.x).abs().max() / res_c.x.abs().max())
+    forms = [describe(l.A)[0] for l in amg_g.levels]
+    log(f"24^3 f64 lattice path {forms}, card vs CPU: iterations "
+        f"{res_g.num_iterations} vs {res_c.num_iterations}, max rel diff of "
+        f"x {dx:.3e}")
+    require(res_g.num_iterations == res_c.num_iterations == 16 and dx < 1e-9,
+            "24^3 lattice path differs between the card and the CPU")
+    require(forms == [describe(l.A)[0] for l in amg_c.levels]
+            and any("scatter" in f for f in forms),
+            f"24^3 lattice hierarchy {forms}: the relocation did not engage")
     del amg_g, amg_c
 
     # -- 6. the slice in f64 at 96^3 ----------------------------------------
@@ -600,6 +980,16 @@ def main() -> int:
     ell64, ell_err, ell_forms64 = phase_ell(amg, 1e-12, flush, card, "f64")
     del amg, res
 
+    # -- 8a. the lattice path in f64 at 96^3 ---------------------------------
+    amg, res, lat64, _, _ = run_lattice(
+        NX, lattice_options(NX, dtype="float64"), dev, card, "f64",
+        {ORACLE_F64}, launches)
+    tail64, tail_err, tail_entries = phase_tail(amg, 1e-12, flush, card, "f64")
+    take64, take_shapes = phase_path_gathers(amg, flush, card, "f64")
+    lat_rows64 = phase_lattice_ops(amg, 1e-12, flush, card, "f64")
+    del amg, res
+    torch.cuda.empty_cache()
+
     # -- 7. f32 vectors, bf16 matrices, nongalerkin 0.02 ---------------------
     o32 = slice_options(dtype="float32", mat_dtype="bfloat16",
                         nongalerkin_tol=0.02)
@@ -625,15 +1015,37 @@ def main() -> int:
     require(ell_launches32 == per_cycle * (res.num_iterations + 1) > 0,
             "the f32/bf16 slice's ELL matvecs did not all launch the ELL kernel")
     phase_ell(amg, 1e-5, flush, card, "bf16/f32")
+    del amg, res
+
+    # -- 8b. the lattice path in f32 / bf16 / ngt 0.02 at 96^3 ---------------
+    amg, res, lat32, _, _ = run_lattice(
+        NX, lattice_options(NX, dtype="float32", mat_dtype="bfloat16",
+                            nongalerkin_tol=0.02), dev, card, "f32/bf16",
+        {PRODUCTION_F32 - 1, PRODUCTION_F32, PRODUCTION_F32 + 1}, launches32)
+    phase_tail(amg, 1e-5, flush, card, "bf16/f32")
+    phase_path_gathers(amg, flush, card, "bf16/f32")
+    lat_rows32 = phase_lattice_ops(amg, 1e-5, flush, card, "bf16/f32")
     del amg, res, flush
 
-    # `launches` counts the f64 96^3 run; "per" says what the times cover
+    # `launches` counts the two f64 96^3 runs, the plain path's and the
+    # lattice path's, each driven with the counts at 0 just before and
+    # read just after; "per" says what the times cover
     def entry(name, source, replaces, err, ms, plain_ms, lib_ms, bms, by,
               **per):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": path64[name],
+                "replaces": replaces,
+                "launches": path64[name] + lat64[name],
+                "path_launches": {"plain f64": path64[name],
+                                  "lattice f64": lat64[name],
+                                  "plain f32/bf16": path32[name],
+                                  "lattice f32/bf16": lat32[name]},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
+
+    def lattice_rows(rows):
+        keys = ("operator", "format", "offsets", "tail_entries", "bytes",
+                "per_cycle", "ms", "bound_ms")
+        return [{k: r[k] for k in keys} for r in rows]
 
     def form_times(forms, per):
         """{form: {ms, unfused_ms, bound_ms, bound_by, max_abs_err, per}}"""
@@ -646,7 +1058,11 @@ def main() -> int:
         entry("dia_spmv", "hypre_tpu_torch/csrc/dia_spmv.cu",
               "hypre_tpu/ops/pallas_dia.py:104", err, ms, plain_ms, lib_ms,
               bms, by, per="launch",
-              forms=form_times(k1_forms["96^3 f64"], "launch")),
+              forms=form_times(k1_forms["96^3 f64"], "launch"),
+              # the lattice hierarchies' operators, each whole (its K1
+              # launches, its tail, its gather), L2 flushed
+              lattice_f64=lattice_rows(lat_rows64),
+              lattice_f32_bf16=lattice_rows(lat_rows32)),
         # one f64 V-cycle's ELL matvecs, each timed alone and summed
         entry("ell_spmv", "hypre_tpu_torch/csrc/ell_spmv.cu",
               "scripts/exp_mosaic_gather.py:52", ell_err, *ell64[:5],
@@ -657,9 +1073,21 @@ def main() -> int:
             ("take_along_axis", "K3 grid", "scripts/exp_mosaic_gather.py:65"),
             ("flat_take", "K2 (c) flat", "scripts/exp_mosaic_gather.py:52")):
         ms, plain_ms, lib_ms, bms, by, err = gather_times[probe]
+        extra = {}
+        if name == "flat_take":
+            # on the path: one f64 lattice V-cycle's gathers (bitwise
+            # equal to the plain version), beside the probe's shape
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+            extra = {"v_cycle": dict(zip(keys, take64)), "shapes": take_shapes}
         kernels.append(entry(name, "hypre_tpu_torch/csrc/gather.cu", replaces,
                              err, ms, plain_ms, lib_ms, bms, by, per="launch",
-                             probe=probe, probe_launches=gather_launches[name]))
+                             probe=probe, probe_launches=gather_launches[name],
+                             **extra))
+    # one f64 lattice V-cycle's tails, each timed alone and summed; the
+    # library time is the three-call torch form
+    kernels.append(entry("coo_tail", "hypre_tpu_torch/csrc/coo_tail.cu",
+                         "hypre_tpu/ops/dia.py:87", tail_err, *tail64[:5],
+                         per="v_cycle", entries=tail_entries))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,6 +14,12 @@ Layout changes:
     order per row, int32 cols and both leaves contiguous, as the ELL
     kernel takes them (`ELLMatrix` checks this).
   * bfloat16 leaves keep their bits.
+  * Lattice forms (read by class name): a COOTail's `seg` becomes the
+    segment pointers the port keeps; GatherOp keeps int32 positions (the
+    flat_take kernel's), ScatterOp gets int64 ones (torch's indexed
+    write); parity matrices lose their padding like any DIA; a
+    `coarse_inv` that is an operator (the collapsed sub-cycle) is
+    carried as one.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import numpy as np
 import torch
 
 from .ops.csr import ELLMatrix
-from .ops.dia import DenseMatrix, DIAMatrix
+from .ops.dia import (COOTail, DenseMatrix, DIAMatrix, DIAWithTail, GatherOp,
+                      ParityInterpOp, ParityRestrictOp, ScatterOp)
 from .solvers.amg.boomeramg import AMGLevel
 
 
@@ -33,9 +40,37 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _tail(T, device):
+    if T is None:
+        return None
+    seg = np.asarray(T.seg)
+    nseg = int(np.asarray(T.rows_u).shape[0])
+    seg_ptr = np.concatenate(([0], np.cumsum(np.bincount(seg, minlength=nseg))))
+    return COOTail(rows_u=_tensor(np.asarray(T.rows_u, np.int32), device),
+                   seg_ptr=_tensor(seg_ptr.astype(np.int32), device),
+                   cols=_tensor(np.asarray(T.cols, np.int32), device),
+                   vals=_tensor(T.vals, device))
+
+
 def _matrix(M, device):
     if M is None:
         return None
+    kind = type(M).__name__
+    if kind == "DIAWithTail":
+        return DIAWithTail(dia=_matrix(M.dia, device), tail=_tail(M.tail, device))
+    if kind == "GatherOp":
+        return GatherOp(inner=_matrix(M.inner, device),
+                        pos=_tensor(np.asarray(M.pos, np.int32), device))
+    if kind == "ScatterOp":
+        return ScatterOp(inner=_matrix(M.inner, device),
+                         pos=_tensor(np.asarray(M.pos, np.int64), device),
+                         n_out=int(M.n_out))
+    if kind in ("ParityRestrictOp", "ParityInterpOp"):
+        cls = ParityRestrictOp if kind == "ParityRestrictOp" else ParityInterpOp
+        return cls(mats=tuple(_matrix(m, device) for m in M.mats),
+                   fine_shape=tuple(int(s) for s in M.fine_shape),
+                   factors=tuple(int(f) for f in M.factors),
+                   tail=_tail(M.tail, device))
     n, m = int(M.num_rows), int(M.num_cols)
     if hasattr(M, "offsets"):  # DIAMatrix
         return DIAMatrix(data=_tensor(np.asarray(M.data)[:, :n], device),
@@ -52,9 +87,18 @@ def _matrix(M, device):
                        num_rows=n, num_cols=m)
 
 
+def _coarse_inv(ci, device):
+    """The dense pinv as a tensor; the collapsed sub-cycle as an operator."""
+    if ci is None:
+        return None
+    if isinstance(ci, np.ndarray) or not hasattr(ci, "num_rows"):
+        return _tensor(ci, device)
+    return _matrix(ci, device)
+
+
 def levels_from_numpy(levels, device) -> list[AMGLevel]:
     """The port's AMGLevels on `device` from hypre_tpu's numpy-leaf
-    AMGLevels (the slice's formats: DIA, ELL, dense)."""
+    AMGLevels (DIA, ELL, dense and the lattice forms)."""
     out = []
     for lvl in levels:
         out.append(AMGLevel(
@@ -64,7 +108,6 @@ def levels_from_numpy(levels, device) -> list[AMGLevel]:
             cmask=_tensor(np.asarray(lvl.cmask, dtype=bool), device),
             P=_matrix(lvl.P, device),
             R=_matrix(lvl.R, device),
-            coarse_inv=(None if lvl.coarse_inv is None
-                        else _tensor(lvl.coarse_inv, device)),
+            coarse_inv=_coarse_inv(lvl.coarse_inv, device),
         ))
     return out

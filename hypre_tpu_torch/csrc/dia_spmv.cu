@@ -40,6 +40,17 @@
 //     (stored as its 16-bit pattern) widened to float in registers
 //     (pallas_dia.py:163-174).  The epilogue uses round-to-nearest
 //     intrinsics, so no multiply-add is contracted there.
+//   * Offset lanes for many diagonals on few rows (the relocated lattice
+//     operators: 10^2-10^3 offsets on 10^4-10^5 cells).  One thread a
+//     row walking every offset in turn leaves the card a few thousand
+//     threads that each wait out one memory latency a tap.  With S > 1
+//     lanes a block takes 32 rows x S lanes; lane s sums the taps
+//     k = s, s + S, ... of its row (loads coalesced over the 32 rows, the
+//     loop unrolled so four taps are in flight), the partial sums meet in
+//     shared memory and lane 0 adds them in lane order and writes the
+//     form.  The order is fixed, so the result is the same every run; it
+//     is not the offset order of the one-lane path.  The wrapper picks S
+//     from the row and offset counts (ops/dia_kernel.py::offset_lanes).
 //
 // What bounds it: device-memory bytes.  One call needs data, x, y and
 // the form's vectors once: (noff * sizeof(D) + 2 * sizeof(V)) * n for
@@ -50,9 +61,10 @@
 // Plain C interface, loaded with ctypes (hypre_tpu_torch/ops/dia_kernel.py):
 // one entry point per form and dtype pair, each launches on the given
 // stream, does not synchronize, and returns cudaGetLastError() (or
-// cudaErrorInvalidValue when more than 8 offsets come without the
-// device array).  Each instance is (form, dtype pair, vector path,
-// index width): 48 kernels.
+// cudaErrorInvalidValue when more than 8 offsets, or offset lanes, come
+// without the device array).  Each instance is (form, dtype pair, vector
+// path, index width): 48 kernels, and (form, dtype pair, index width)
+// for the offset-lane kernel: 24 more.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -202,6 +214,53 @@ dia_spmv_kernel(Args<D, V> a, Taps<I> taps, int noff, I n, I lo, I hi) {
   store_rows(a.y + i0, out);
 }
 
+constexpr int kLaneRows = 32;  // rows a block of the offset-lane kernel
+constexpr int kMaxLanes = 32;
+
+// blockDim = (kLaneRows, S): thread (rx, s) sums the taps k = s, s + S,
+// ... of row blockIdx.x * kLaneRows + rx; lane 0 reduces and writes.
+template <typename D, typename V, int F, typename I>
+__global__ void __launch_bounds__(kLaneRows * kMaxLanes)
+dia_spmv_lanes_kernel(Args<D, V> a, int noff, I n) {
+  __shared__ V part[kMaxLanes * kLaneRows];
+  const int rx = threadIdx.x, s = threadIdx.y, S = blockDim.y;
+  const I i = (I)blockIdx.x * kLaneRows + rx;
+  V acc = V(0);
+  if (i < n) {
+#pragma unroll 4
+    for (int k = s; k < noff; k += S) {
+      const I j = i + (I)__ldg(a.offsets + k);
+      if (j >= 0 && j < n)
+        acc += (V)widen(__ldcs(a.data + (I)k * n + i)) * __ldg(a.x + j);
+    }
+  }
+  part[s * kLaneRows + rx] = acc;
+  __syncthreads();
+  if (s != 0 || i >= n) return;
+  V ax = part[rx];
+  for (int t = 1; t < S; ++t) ax = add_rn(ax, part[t * kLaneRows + rx]);
+  V out;
+  if constexpr (F == kPlain) {
+    out = ax;
+  } else if constexpr (F == kResid) {
+    out = sub_rn(__ldg(a.f + i), ax);
+  } else if constexpr (F == kAxpy) {
+    out = add_rn(__ldg(a.u + i), ax);
+  } else {
+    out = add_rn(__ldg(a.x + i), mul_rn(mul_rn(a.w, __ldg(a.d + i)),
+                                        sub_rn(__ldg(a.f + i), ax)));
+  }
+  a.y[i] = out;
+}
+
+template <typename D, typename V, int F, typename I>
+void go_lanes(const Args<D, V>& a, int64_t noff, int64_t n, int lanes,
+              cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n + kLaneRows - 1) / kLaneRows);
+  dia_spmv_lanes_kernel<D, V, F, I><<<blocks, dim3(kLaneRows, lanes), 0, stream>>>(
+      a, (int)noff, (I)n);
+}
+
 template <typename D, typename V, int F, bool VEC, typename I>
 void go(const Args<D, V>& a, const int64_t* offs, int64_t noff, int64_t n,
         int64_t lo, int64_t hi, cudaStream_t stream) {
@@ -218,13 +277,20 @@ template <typename D, typename V, int F>
 int launch(const void* data, const void* offsets_dev, const int64_t* offs,
            int64_t noff, const void* x, const void* f, const void* u,
            const void* d, double w, void* y, int64_t n, int vec, int wide,
-           void* stream) {
+           int lanes, void* stream) {
   const Args<D, V> a{(const D*)data, (const int64_t*)offsets_dev,
                      (const V*)x, (const V*)f, (const V*)u, (const V*)d,
                      (V)w, (V*)y};
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
-  if (noff > kMaxByValue && offsets_dev == nullptr) return (int)cudaErrorInvalidValue;
+  if ((noff > kMaxByValue || lanes > 1) && offsets_dev == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
+  if (lanes > 1) {
+    if (wide) go_lanes<D, V, F, int64_t>(a, noff, n, lanes, st);
+    else go_lanes<D, V, F, int32_t>(a, noff, n, lanes, st);
+    return (int)cudaGetLastError();
+  }
   // rows [lo, hi) have every tap inside [0, n)
   int64_t lo = 0, hi = n;
   for (int64_t k = 0; k < noff; ++k) {
@@ -250,9 +316,9 @@ int launch(const void* data, const void* offsets_dev, const int64_t* offs,
       const void* data, const void* offsets_dev, const int64_t* offsets,      \
       int64_t noff, const void* x, const void* f, const void* u,              \
       const void* d, double w, void* y, int64_t n, int vec, int wide,       \
-      void* stream) {                                                         \
+      int lanes, void* stream) {                                              \
     return launch<D, V, F>(data, offsets_dev, offsets, noff, x, f, u, d, w,   \
-                           y, n, vec, wide, stream);                          \
+                           y, n, vec, wide, lanes, stream);                   \
   }
 
 #define DIA_FORMS(DT, D, V)              \

@@ -10,10 +10,11 @@
 //   flat_take:          out[e] = table[idx[e]]  (idx of any shape)
 //     K2 (c), :52-57, the flat gather from a 128k-entry table: the gather
 //     the ELL SpMV (ell_spmv.cu) performs, there fused with its multiply
-//     and reduction.
+//     and reduction.  On the solver path it is GatherOp's x[pos]
+//     (hypre_tpu/ops/dia.py:877), so it has an f64 instance beside f32.
 //
-// f32 values, int32 indices, one output element per thread in a
-// grid-stride loop, so the idx reads and out writes are coalesced; the
+// f32 values (flat_take: f32 or f64), int32 indices, one output element
+// per thread in a grid-stride loop, so the idx reads and out writes are coalesced; the
 // table reads go through the read-only path.  Indices must lie in range
 // (0 <= idx < the gathered extent): the kernels do not check them.
 //
@@ -49,9 +50,10 @@ __global__ void take_along_axis_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void flat_take_kernel(const float* __restrict__ table,
+template <typename T>
+__global__ void flat_take_kernel(const T* __restrict__ table,
                                  const int32_t* __restrict__ idx,
-                                 float* __restrict__ out, int64_t total) {
+                                 T* __restrict__ out, int64_t total) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += stride)
@@ -88,8 +90,16 @@ int take_along_axis_f32(const void* x, const void* idx, void* out, int64_t xr,
 int flat_take_f32(const void* table, const void* idx, void* out, int64_t total,
                   void* stream) {
   if (total > 0)
-    flat_take_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+    flat_take_kernel<float><<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)table, (const int32_t*)idx, (float*)out, total);
+  return (int)cudaGetLastError();
+}
+
+int flat_take_f64(const void* table, const void* idx, void* out, int64_t total,
+                  void* stream) {
+  if (total > 0)
+    flat_take_kernel<double><<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+        (const double*)table, (const int32_t*)idx, (double*)out, total);
   return (int)cudaGetLastError();
 }
 

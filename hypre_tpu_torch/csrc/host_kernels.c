@@ -296,6 +296,65 @@ void dia_fill_i32_bf16(const int32_t *Ap, const int32_t *Ai,
     DIA_FILL_I32_BODY(D2BF16, uint16_t)
 }
 
+/* COO (already embedded: off = col - row) variant for
+ * build_embedded_dia: offsets+counts in one linear pass pair.  (The
+ * coo_dia_fill_* functions beside it in the JAX package's source are
+ * not copied: the port fills the diagonal image on the device.) */
+int64_t coo_dia_offsets(const int64_t *rows, const int64_t *cols,
+                        int64_t nnz, int64_t n, unsigned char *mark,
+                        int64_t *uniq, int64_t *cnt)
+{
+    for (int64_t p = 0; p < nnz; ++p)
+        mark[cols[p] - rows[p] + (n - 1)] = 1;
+    int64_t noff = 0;
+    for (int64_t o = 0; o < 2 * n - 1; ++o)
+        if (mark[o]) uniq[noff++] = o - (n - 1);
+    int64_t *lut = (int64_t *)malloc((2 * n - 1) * sizeof(int64_t));
+    for (int64_t k = 0; k < noff; ++k) { lut[uniq[k] + (n - 1)] = k; cnt[k] = 0; }
+    for (int64_t p = 0; p < nnz; ++p)
+        ++cnt[lut[cols[p] - rows[p] + (n - 1)]];
+    free(lut);
+    return noff;
+}
+
+/* Embedded-offset enumeration for the lattice relocation planner
+ * (ops/dia.py embedded_offsets / embedded_offset_count): given a
+ * compressed operator M (COO row/col) and lattice position maps
+ * rpos/cpos, enumerate the distinct embedded diagonals
+ * off = cpos[col] - rpos[row] and their entry counts in two linear
+ * passes, with no nnz-sized temporaries.  i32 variant avoids the
+ * int64 conversion copies of scipy's default index dtype. */
+#define EMB_OFFSETS_BODY(ITYPE)                                           \
+    for (int64_t p = 0; p < nnz; ++p)                                     \
+        mark[cpos[mcol[p]] - rpos[mrow[p]] + (n - 1)] = 1;                \
+    int64_t noff = 0;                                                     \
+    for (int64_t o = 0; o < 2 * n - 1; ++o)                               \
+        if (mark[o]) uniq[noff++] = o - (n - 1);                          \
+    int64_t *lut = (int64_t *)malloc((2 * n - 1) * sizeof(int64_t));      \
+    for (int64_t k = 0; k < noff; ++k) { lut[uniq[k] + (n - 1)] = k; cnt[k] = 0; } \
+    for (int64_t p = 0; p < nnz; ++p)                                     \
+        ++cnt[lut[cpos[mcol[p]] - rpos[mrow[p]] + (n - 1)]];              \
+    free(lut);                                                            \
+    return noff;
+
+int64_t embedded_offsets_i32(const int32_t *mrow, const int32_t *mcol,
+                             int64_t nnz, const int64_t *rpos,
+                             const int64_t *cpos, int64_t n,
+                             unsigned char *mark, int64_t *uniq,
+                             int64_t *cnt)
+{
+    EMB_OFFSETS_BODY(int32_t)
+}
+
+int64_t embedded_offsets_i64(const int64_t *mrow, const int64_t *mcol,
+                             int64_t nnz, const int64_t *rpos,
+                             const int64_t *cpos, int64_t n,
+                             unsigned char *mark, int64_t *uniq,
+                             int64_t *cnt)
+{
+    EMB_OFFSETS_BODY(int64_t)
+}
+
 /* Two-pass, int32-CSR variant of the non-Galerkin filter: operates
  * directly on scipy's native int32 index arrays and fills caller
  * (numpy-)allocated outputs, eliminating the int64 conversion and the

@@ -127,6 +127,15 @@ def _bind(lib) -> None:
             [I32, I32, F64, ctypes.c_int64, ctypes.c_int, U8, I64, I32, F64]),
         "dia_offsets_i32": (
             ctypes.c_int64, [I32, I32, ctypes.c_int64, ctypes.c_int64, U8, I64]),
+        "coo_dia_offsets": (
+            ctypes.c_int64,
+            [I64, I64, ctypes.c_int64, ctypes.c_int64, U8, I64, I64]),
+        "embedded_offsets_i32": (
+            ctypes.c_int64,
+            [I32, I32, ctypes.c_int64, I64, I64, ctypes.c_int64, U8, I64, I64]),
+        "embedded_offsets_i64": (
+            ctypes.c_int64,
+            [I64, I64, ctypes.c_int64, I64, I64, ctypes.c_int64, U8, I64, I64]),
     }
     for name, P in (("dia_fill_i32_f64", F64), ("dia_fill_i32_f32", F32),
                     ("dia_fill_i32_bf16", U16)):
@@ -290,3 +299,43 @@ def dia_convert(M: sp.csr_matrix, dtype: str):
     getattr(lib, fname)(_p(ai, I32), _p(aj, I32), _p(ad, F64), n, m,
                         _p(uniq, I64), len(uniq), n, _p(out, ptype))
     return uniq, out
+
+
+def _offset_scratch(n: int):
+    """(mark, uniq, cnt) scratch of the offset-count kernels for an
+    n-point lattice: one slot per possible offset in [-(n-1), n-1]."""
+    span = max(2 * n - 1, 1)
+    return (np.zeros(span, dtype=np.uint8), np.zeros(span, dtype=np.int64),
+            np.zeros(span, dtype=np.int64))
+
+
+def coo_dia_counts(rows, cols, n: int):
+    """(sorted distinct offsets cols - rows, entries on each) of COO
+    entries positioned on an n-point lattice."""
+    lib = load()
+    r = np.ascontiguousarray(rows, dtype=np.int64)
+    c = np.ascontiguousarray(cols, dtype=np.int64)
+    mark, uniq, cnt = _offset_scratch(n)
+    noff = lib.coo_dia_offsets(_p(r, I64), _p(c, I64), len(r), n,
+                               _p(mark, U8), _p(uniq, I64), _p(cnt, I64))
+    return uniq[:noff].copy(), cnt[:noff].copy()
+
+
+def embedded_counts(mrow, mcol, rpos, cpos, n: int):
+    """(sorted distinct embedded offsets cpos[col] - rpos[row], entries
+    on each); int32 row/col arrays are taken without a copy."""
+    lib = load()
+    mrow, mcol = np.asarray(mrow), np.asarray(mcol)
+    if mrow.dtype == np.int32 and mcol.dtype == np.int32:
+        fn, ptype = lib.embedded_offsets_i32, I32
+        r, c = np.ascontiguousarray(mrow), np.ascontiguousarray(mcol)
+    else:
+        fn, ptype = lib.embedded_offsets_i64, I64
+        r = np.ascontiguousarray(mrow, dtype=np.int64)
+        c = np.ascontiguousarray(mcol, dtype=np.int64)
+    rp = np.ascontiguousarray(rpos, dtype=np.int64)
+    cp = np.ascontiguousarray(cpos, dtype=np.int64)
+    mark, uniq, cnt = _offset_scratch(n)
+    noff = fn(_p(r, ptype), _p(c, ptype), len(r), _p(rp, I64), _p(cp, I64), n,
+              _p(mark, U8), _p(uniq, I64), _p(cnt, I64))
+    return uniq[:noff].copy(), cnt[:noff].copy()

@@ -1,5 +1,5 @@
-"""DIA (diagonal) format, dense format and the polymorphic `spmv`
-(port of the slice's part of hypre_tpu/ops/dia.py).
+"""DIA (diagonal) format, dense format, the lattice forms and the
+polymorphic `spmv` (port of hypre_tpu/ops/dia.py).
 
 Matrices whose nonzeros live on few distinct diagonals (the stencil
 fine level) are stored as row-aligned diagonals, data[k, i] =
@@ -13,7 +13,22 @@ the hand-written kernel K1 (ops/dia_kernel.py) or raises; a CPU tensor
 takes K1's plain torch version.  `spmv_resid`, `spmv_axpy` and
 `spmv_jacobi` are the matvec with the elementwise work that follows it
 in the V-cycle (ops/forms.py), one kernel launch each on the card for
-DIA and ELL operators; dense operators use torch ops.
+DIA and ELL operators; every other operator runs its plain matvec and
+then the form's elementwise torch ops.
+
+The lattice forms (the JAX package's default solve path) trade padded
+bandwidth for gathers: a coarse operator whose unknowns sit on a
+sub-lattice is lifted onto the lattice as DIA (`build_embedded_dia`),
+its rare diagonals split off into an exact `COOTail`; a coarse grid
+relocated onto a regular cell lattice (`relocate_to_cells`) gets its
+grid transfers as sums of square DIA operators, one per fine-parity
+class (`ParityRestrictOp`, `ParityInterpOp`); `GatherOp` / `ScatterOp`
+wrap a compact operator below the last relocated level.  On the card
+every DIA part is a K1 launch, every tail one `coo_tail` launch
+(ops/tail_kernel.py) and every GatherOp's x[pos] one `flat_take` launch
+(ops/gather_kernel.py).  Unlike the JAX package there is no width
+padding and no deferred host image: a DIA image is `torch.zeros` on the
+device filled by one indexed write of its compact (index, value) pairs.
 """
 
 from __future__ import annotations
@@ -27,7 +42,9 @@ from .. import native
 from .csr import CSRMatrix, ELLMatrix, to_device, torch_dtype
 from .dia_kernel import dia_spmv_cuda, dia_spmv_reference
 from .forms import epilogue
+from .gather_kernel import flat_take
 from .spmv import ell_spmv
+from .tail_kernel import coo_tail
 
 # freeze_auto's thresholds, the JAX package's (picked there for the TPU;
 # re-deriving them for the H100 is open work, see PERF.md)
@@ -108,18 +125,578 @@ def freeze_auto(A: CSRMatrix, dtype, device):
     return A.to_ell(dtype, device)
 
 
+# ---------------------------------------------------------------------------
+# The exact low-frequency remainder of a lattice operator
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class COOTail:
+    """Entries of a lattice operator on diagonals too rare to store as
+    DIA rows (a stored diagonal streams the whole lattice width whatever
+    it carries): sorted COO, applied by gather, ordered segment sum and
+    an add on the distinct rows.  The operator stays exact; only the
+    evaluation is split by diagonal frequency.
+
+    The JAX package keeps `seg` (entry -> index into rows_u); the port
+    keeps the segment pointers the kernel walks, and derives `seg`."""
+
+    rows_u: torch.Tensor   # int32 [nseg]      distinct output rows, sorted
+    seg_ptr: torch.Tensor  # int32 [nseg + 1]  entries of row s: [seg_ptr[s], seg_ptr[s+1])
+    cols: torch.Tensor     # int32 [T]
+    vals: torch.Tensor     # [T]
+
+    @property
+    def nnz(self) -> int:
+        return self.vals.shape[0]
+
+    @property
+    def seg(self) -> torch.Tensor:
+        """int32 [T], entry -> index into rows_u (the JAX package's field)."""
+        n = self.rows_u.shape[0]
+        return torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int32, device=self.rows_u.device),
+            torch.diff(self.seg_ptr).long())
+
+
+def tail_apply(tail: COOTail, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y += tail @ x, in place on y (the tensor the DIA part just made):
+    the `coo_tail` kernel on CUDA, its plain version on CPU."""
+    return coo_tail(tail.vals, tail.cols, tail.seg_ptr, tail.rows_u, x, y)
+
+
+def _build_tail(rows, cols, vals, dtype, device) -> COOTail:
+    order = np.argsort(rows, kind="stable")
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    rows_u, counts = np.unique(rows, return_counts=True)
+    seg_ptr = np.concatenate(([0], np.cumsum(counts)))
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)  # noqa: E731
+    return COOTail(rows_u=i32(rows_u), seg_ptr=i32(seg_ptr), cols=i32(cols),
+                   vals=to_device(vals, torch_dtype(dtype), device))
+
+
+@dataclasses.dataclass(frozen=True)
+class DIAWithTail:
+    """Hybrid lattice operator: streamed DIA majority + exact COOTail."""
+
+    dia: DIAMatrix
+    tail: COOTail
+
+    @property
+    def num_rows(self) -> int:
+        return self.dia.num_rows
+
+    @property
+    def num_cols(self) -> int:
+        return self.dia.num_cols
+
+
+def tail_min_count(ncells: int, itemsize: int) -> int:
+    """Keep a diagonal in DIA only if it carries at least this many
+    entries: count >= ncells * itemsize * 3.36e-4 + 37.  The constants
+    are the JAX package's, a break-even measured on a TPU (streamed
+    bytes and kernel dispatch per stored diagonal against the cost of a
+    tail entry), not the card's: the formula is kept so both packages
+    split the same diagonals into the tail."""
+    return max(2, int(ncells * itemsize * 3.36e-4) + 37)
+
+
+# ---------------------------------------------------------------------------
+# Lattice embedding
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GatherOp:
+    """Compress-then-apply: y = inner @ x[pos] (embedded -> compressed)."""
+
+    inner: object
+    pos: torch.Tensor  # int32 [k], as the flat_take kernel takes it
+
+    @property
+    def num_rows(self) -> int:
+        return self.inner.num_rows
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterOp:
+    """Apply-then-embed: y = zeros(n_out); y[pos] = inner @ x."""
+
+    inner: object
+    pos: torch.Tensor  # int64 [inner.num_rows], as torch's indexed write takes it
+    n_out: int
+
+    @property
+    def num_rows(self) -> int:
+        return self.n_out
+
+
+def _uniq_offsets(offs: np.ndarray, n: int, m: int):
+    """(sorted distinct offsets, inverse) for diagonal offsets bounded in
+    [-(n-1), m-1]: a presence bitmap + searchsorted against the few
+    distinct diagonals, one linear pass."""
+    if offs.size == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    present = np.zeros(n + m - 1, dtype=bool)
+    present[offs + (n - 1)] = True
+    uniq = np.flatnonzero(present) - (n - 1)
+    return uniq, np.searchsorted(uniq, offs)
+
+
+def _dia_scatter(k, rows, vals, uniq, n: int, dtype, device) -> DIAMatrix:
+    """The n x n DIA operator with data[k[e], rows[e]] = vals[e] on
+    distinct (k, rows) pairs: the compact pairs go to the device and one
+    indexed write fills a zero image there (the embedded level-1 image
+    is ~97% zeros: it is never built on the host).  bfloat16 values are
+    rounded f64 -> f32 -> bf16 (nearest even), as the native fill does."""
+    dt = torch_dtype(dtype)
+    noff = len(uniq)
+    data = torch.zeros(noff * n, dtype=dt, device=device)
+    if len(vals):
+        flat = np.asarray(k, dtype=np.int64) * n + np.asarray(rows, dtype=np.int64)
+        data[torch.from_numpy(flat).to(device)] = to_device(vals, dt, device)
+    return DIAMatrix(data=data.view(noff, n),
+                     offsets=tuple(int(o) for o in uniq), num_rows=n, num_cols=n)
+
+
+def build_embedded_dia(M, rpos: np.ndarray, cpos: np.ndarray, n_emb: int,
+                       dtype, device, tail_min: int = 0):
+    """Lift a compressed sparse operator onto a lattice embedding.
+
+    M: scipy sparse with rows indexed by `rpos` lattice positions and
+    cols by `cpos` positions.  Returns a DIA operator over the n_emb
+    lattice: out[rpos[r]] = sum_c M[r,c] * x[cpos[c]], rows off rpos stay
+    zero.  With tail_min, diagonals carrying fewer entries go to a
+    COOTail (a DIAWithTail comes back) unless that would take all or
+    none of them."""
+    Mc = M.tocoo()
+    rows_emb = rpos[Mc.row]
+    cols_emb = cpos[Mc.col]
+    vals = Mc.data
+    uniq, cnt = native.coo_dia_counts(rows_emb, cols_emb, n_emb)
+    # inverse via an O(nnz) lut gather (no per-entry searchsorted)
+    lut = np.zeros(2 * n_emb - 1, dtype=np.int64)
+    lut[uniq + (n_emb - 1)] = np.arange(len(uniq))
+    k = lut[cols_emb - rows_emb + (n_emb - 1)]
+    tail = None
+    if tail_min:
+        low = cnt < tail_min
+        if low.any() and not low.all():
+            in_tail = low[k]
+            tail = _build_tail(rows_emb[in_tail], cols_emb[in_tail],
+                               vals[in_tail], dtype, device)
+            # the kept diagonals, renumbered
+            renum = np.cumsum(~low) - 1
+            rows_emb, vals, k = (rows_emb[~in_tail], vals[~in_tail],
+                                 renum[k[~in_tail]])
+            uniq = uniq[~low]
+    dia = _dia_scatter(k, rows_emb, vals, uniq, n_emb, dtype, device)
+    return DIAWithTail(dia=dia, tail=tail) if tail is not None else dia
+
+
+def _embedded_counts(M, rpos, cpos):
+    """(uniq embedded offsets, per-offset counts), native: no nnz-sized
+    temporaries (the relocation planner calls this per level)."""
+    Mc = M.tocoo()
+    if Mc.nnz == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    n = max(int(rpos.max()), int(cpos.max())) + 1
+    return native.embedded_counts(Mc.row, Mc.col, rpos, cpos, n)
+
+
+def embedded_offsets(M, rpos, cpos) -> np.ndarray:
+    """Sorted distinct lattice offsets of the embedded form of M."""
+    return _embedded_counts(M, rpos, cpos)[0]
+
+
+def embedded_offset_count(M, rpos, cpos, tail_min: int = 0) -> int:
+    """Distinct embedded offsets; with tail_min, only those KEPT by a
+    tailed build (carrying >= tail_min entries)."""
+    uniq, cnt = _embedded_counts(M, rpos, cpos)
+    if not tail_min:
+        return len(uniq)
+    if len(uniq) == 0:
+        return 0
+    kept = int((cnt >= tail_min).sum())
+    return kept if kept else len(cnt)
+
+
+# ---------------------------------------------------------------------------
+# Parity-factored (octant) lattice transfer operators
+#
+# When an AMG coarse level is RELOCATED onto a regular sub-lattice (each
+# coarse point assigned a distinct cell of the factor-coarsened lattice,
+# see solvers/amg/boomeramg.py), the restriction R: fine -> cells and
+# interpolation P: cells -> fine become strided stencil operators.  A
+# strided stencil is a sum over fine-parity classes of SQUARE DIA
+# operators on the cell lattice: splitting x by parity class makes every
+# tap a plain diagonal shift, so the transfers run on K1.
+# ---------------------------------------------------------------------------
+
+def _parity_index(px, py, pz, factors):
+    fx, fy, fz = factors
+    return (pz * fy + py) * fx + px
+
+
+def parity_split(x: torch.Tensor, fine_shape, factors) -> torch.Tensor:
+    """Split a flat fine-lattice vector (x-fastest: gid = ix + nx*(iy +
+    ny*iz)) into its parity sub-lattice vectors, cell-lattice flat: a
+    contiguous [B, ncells] tensor (one strided copy) whose row
+    _parity_index(px, py, pz) is the JAX package's part of that class."""
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    x6 = x.view(nz // fz, fz, ny // fy, fy, nx // fx, fx)
+    return x6.permute(1, 3, 5, 0, 2, 4).reshape(fx * fy * fz, -1)
+
+
+def parity_merge(parts: torch.Tensor, fine_shape, factors) -> torch.Tensor:
+    """Inverse of parity_split: recombine the [B, ncells] per-parity cell
+    vectors into a flat fine-lattice vector (one permuted copy)."""
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    y = parts.view(fz, fy, fx, nz // fz, ny // fy, nx // fx)
+    return y.permute(3, 0, 4, 1, 5, 2).reshape(nz * ny * nx)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParityRestrictOp:
+    """R: fine lattice -> cell lattice; y = sum_p mats[p] @ split_p(x)."""
+
+    mats: tuple  # one DIAMatrix per parity class, square on the cell lattice
+    fine_shape: tuple
+    factors: tuple
+    # exact rare-diagonal remainder: rows = cells, cols = FLAT fine
+    tail: COOTail | None = None
+
+    @property
+    def num_rows(self) -> int:
+        return self.mats[0].num_rows
+
+    @property
+    def num_cols(self) -> int:
+        nx, ny, nz = self.fine_shape
+        return nx * ny * nz
+
+
+@dataclasses.dataclass(frozen=True)
+class ParityInterpOp:
+    """P: cell lattice -> fine lattice; y = merge_p(mats[p] @ x)."""
+
+    mats: tuple  # one DIAMatrix per parity class, square on the cell lattice
+    fine_shape: tuple
+    factors: tuple
+    # exact rare-diagonal remainder: rows = FLAT fine, cols = cells
+    tail: COOTail | None = None
+
+    @property
+    def num_rows(self) -> int:
+        nx, ny, nz = self.fine_shape
+        return nx * ny * nz
+
+    @property
+    def num_cols(self) -> int:
+        return self.mats[0].num_cols
+
+
+def _cells_of_fine(idx, fine_shape, factors):
+    """Fine flat index -> (cell flat index, parity index)."""
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    ix = idx % nx
+    iy = (idx // nx) % ny
+    iz = idx // (nx * ny)
+    cx, px = ix // fx, ix % fx
+    cy, py = iy // fy, iy % fy
+    cz, pz = iz // fz, iz % fz
+    cells = cx + (nx // fx) * (cy + (ny // fy) * cz)
+    return cells, _parity_index(px, py, pz, factors)
+
+
+def dia_from_coo(rows, cols, vals, n: int, dtype, device) -> DIAMatrix:
+    """Square n x n DIA directly from UNIQUE (row, col) coordinate
+    entries, without a scipy CSR roundtrip."""
+    uniq, k = _uniq_offsets(cols - rows, n, n)
+    return _dia_scatter(k, rows, vals, uniq, n, dtype, device)
+
+
+def _per_parity_dia(rows_cell, cols_cell, parity, vals, ncells, nparity, dtype,
+                    device):
+    # fine index <-> (cell, parity) is a bijection, so entries within one
+    # parity class are unique (row, col) pairs: no dedup needed
+    mats = []
+    for p in range(nparity):
+        m = parity == p
+        mats.append(dia_from_coo(rows_cell[m], cols_cell[m], vals[m], ncells,
+                                 dtype, device))
+    return tuple(mats)
+
+
+def _parity_tail_mask(rows_cell, cols_cell, parity, ncells, tail_min):
+    """Entries on (parity, offset) diagonals with < tail_min entries."""
+    key = parity.astype(np.int64) * (2 * ncells + 1) + (
+        cols_cell - rows_cell + ncells
+    )
+    ukey, inv = np.unique(key, return_inverse=True)
+    cnt = np.bincount(inv)
+    low = cnt[inv] < tail_min
+    return low if low.any() and not low.all() else None
+
+
+def build_parity_restrict(M, rcell, fine_shape, factors, dtype, device,
+                          tail_min: int = 0):
+    """M: scipy sparse (n_pts x n_fine) with rows = coarse points, cols =
+    fine lattice indices; rcell[i] = assigned cell of point i."""
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    ncells = (nx // fx) * (ny // fy) * (nz // fz)
+    Mc = M.tocoo()
+    ccell, par = _cells_of_fine(Mc.col.astype(np.int64), fine_shape, factors)
+    rows_cell, vals = rcell[Mc.row], Mc.data
+    cols_fine = Mc.col.astype(np.int64)
+    tail = None
+    if tail_min:
+        low = _parity_tail_mask(rows_cell, ccell, par, ncells, tail_min)
+        if low is not None:
+            tail = _build_tail(rows_cell[low], cols_fine[low], vals[low],
+                               dtype, device)
+            rows_cell, ccell, par, vals = (
+                rows_cell[~low], ccell[~low], par[~low], vals[~low]
+            )
+    mats = _per_parity_dia(rows_cell, ccell, par, vals, ncells, fx * fy * fz,
+                           dtype, device)
+    return ParityRestrictOp(mats=mats, fine_shape=tuple(fine_shape),
+                            factors=tuple(factors), tail=tail)
+
+
+def build_parity_interp(M, ccol, fine_shape, factors, dtype, device,
+                        tail_min: int = 0):
+    """M: scipy sparse (n_fine x n_pts) with rows = fine lattice indices,
+    cols = coarse points; ccol[j] = assigned cell of point j."""
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    ncells = (nx // fx) * (ny // fy) * (nz // fz)
+    Mc = M.tocoo()
+    rcell, par = _cells_of_fine(Mc.row.astype(np.int64), fine_shape, factors)
+    cols_cell, vals = ccol[Mc.col], Mc.data
+    rows_fine = Mc.row.astype(np.int64)
+    tail = None
+    if tail_min:
+        low = _parity_tail_mask(rcell, cols_cell, par, ncells, tail_min)
+        if low is not None:
+            tail = _build_tail(rows_fine[low], cols_cell[low], vals[low],
+                               dtype, device)
+            rcell, cols_cell, par, vals = (
+                rcell[~low], cols_cell[~low], par[~low], vals[~low]
+            )
+    mats = _per_parity_dia(rcell, cols_cell, par, vals, ncells, fx * fy * fz,
+                           dtype, device)
+    return ParityInterpOp(mats=mats, fine_shape=tuple(fine_shape),
+                          factors=tuple(factors), tail=tail)
+
+
+def parity_offset_count(ops) -> int:
+    return sum(len(m.offsets) for m in ops.mats)
+
+
+def parity_offset_count_plan(
+    M, point_cell, fine_shape, factors, restrict: bool, tail_min: int = 0
+) -> int:
+    """Total DIA offsets a parity restrict/interp build would produce,
+    WITHOUT building it (setup planning).  restrict=True: M rows are
+    points (cells via point_cell), cols are fine lattice indices;
+    restrict=False: the transpose convention (build_parity_interp)."""
+    Mc = M.tocoo()
+    if Mc.nnz == 0:
+        return 0
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    ncells = (nx // fx) * (ny // fy) * (nz // fz)
+    if restrict:
+        ccell, par = _cells_of_fine(Mc.col.astype(np.int64), fine_shape, factors)
+        r, c = point_cell[Mc.row], ccell
+    else:
+        rcell, par = _cells_of_fine(Mc.row.astype(np.int64), fine_shape, factors)
+        r, c = rcell, point_cell[Mc.col]
+    key = par.astype(np.int64) * (2 * ncells + 1) + (c - r + ncells)
+    if tail_min:
+        _, inv = np.unique(key, return_inverse=True)
+        cnt = np.bincount(inv)
+        kept = int((cnt >= tail_min).sum())
+        return kept if kept else len(cnt)  # all-tail degenerates to keep
+    return len(np.unique(key))
+
+
+def relocate_to_cells(pos, fine_shape, factors, max_load=0.9):
+    """Assign each point (fine flat lattice index) a DISTINCT cell of the
+    factor-coarsened lattice near its own position (host, deterministic;
+    the JAX package's function unchanged).
+
+    This is the setup step that makes algebraically-chosen (PMIS/...)
+    coarse grids lattice-regular again: the assignment is a permutation,
+    so the relocated coarse operator is similarity-equivalent (identical
+    spectrum, identical AMG convergence) while its diagonals become few.
+
+    Collision resolution is displacement-COHERENT: within each (cy, cz)
+    row of cells, x-sorted points receive strictly increasing cx via a
+    push-right-then-clamp isotonic pass, so nearby points share nearly
+    equal displacements and graph-edge cell differences collapse onto
+    few diagonals.  Row overflow (points in a cell row exceeding cxn)
+    is carried to the next row in (z, y) scan order -- rare at
+    load <= max_load for PMIS-style quasi-uniform point sets.
+
+    Returns int64 cells or None if npts > max_load * ncells.
+    """
+    pos = np.asarray(pos, dtype=np.int64)
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    cxn, cyn, czn = nx // fx, ny // fy, nz // fz
+    ncells = cxn * cyn * czn
+    m = len(pos)
+    if m > max_load * ncells:
+        return None
+    ix = pos % nx
+    iy = (pos // nx) % ny
+    iz = pos // (nx * ny)
+    cx = ix // fx
+    row = iy // fy + cyn * (iz // fz)  # (cy, cz) flat row id
+    nrows = cyn * czn
+
+    # ---- stage 1: carry row overflow along the (z, y) scan ----------
+    order = np.lexsort((pos, ix, row))
+    counts = np.bincount(row[order], minlength=nrows)
+    if counts.max() > cxn:
+        idx_by_row = np.split(order, np.cumsum(counts)[:-1])
+        carry: list = []
+        for r in range(nrows):
+            cur = list(idx_by_row[r]) + carry
+            carry = []
+            if len(cur) > cxn:
+                cur.sort(key=lambda i: ix[i])
+                over = len(cur) - cxn
+                carry = cur[-over:]
+                cur = cur[:cxn]
+            for i in cur:
+                row[i] = r
+        if carry:  # wrapped past the last row: nearest row with space
+            counts2 = np.bincount(row[np.setdiff1d(order, carry)],
+                                  minlength=nrows)
+            desired_row = iy // fy + cyn * (iz // fz)
+            for i in carry:
+                free = np.flatnonzero(counts2 < cxn)
+                r = free[np.argmin(np.abs(free - desired_row[i]))]
+                row[i] = r
+                counts2[r] += 1
+        order = np.lexsort((pos, ix, row))
+        counts = np.bincount(row[order], minlength=nrows)
+
+    # ---- stage 2: per-row isotonic x assignment ----------------------
+    # push-right (a_i = max(a_{i-1} + 1, cx_i) within the row) via a
+    # segmented prefix max of (cx_i - rank_i), then clamp from the right
+    # so the row fits: a_i <= cxn - m_row + rank_i.  Both bounds are
+    # strictly increasing in rank, so the result is a valid distinct
+    # in-range assignment whenever m_row <= cxn.
+    d = cx[order]
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    rank = np.arange(m) - np.repeat(starts, counts)
+    seg_id = np.repeat(np.arange(nrows), counts)
+    BIG = np.int64(1) << 40
+    run = np.maximum.accumulate(d - rank + seg_id * BIG)
+    a = run - seg_id * BIG + rank
+    m_row = np.repeat(counts, counts)
+    a = np.minimum(a, cxn - m_row + rank)
+    out = np.empty(m, dtype=np.int64)
+    out[order] = a + cxn * row[order]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The polymorphic matvec
+# ---------------------------------------------------------------------------
+
+def _parity_restrict(A: ParityRestrictOp, x: torch.Tensor) -> torch.Tensor:
+    """One strided copy splits x into [B, ncells]; then one K1 launch
+    per non-empty parity matrix, chained through K1's axpy form (the JAX
+    package sums over the union of offsets instead: another order)."""
+    X = parity_split(x, A.fine_shape, A.factors)
+    acc = None
+    for b, m in enumerate(A.mats):
+        if not m.offsets:
+            continue
+        acc = (dia_spmv(m, X[b]) if acc is None
+               else dia_spmv(m, X[b], "axpy", u=acc))
+    if acc is None:
+        acc = torch.zeros(A.num_rows, dtype=x.dtype, device=x.device)
+    if A.tail is not None:  # rows = cells, cols = flat fine
+        tail_apply(A.tail, x, acc)
+    return acc
+
+
+def _parity_interp(A: ParityInterpOp, x: torch.Tensor) -> torch.Tensor:
+    """One K1 launch per non-empty parity matrix into a [B, ncells]
+    buffer, then one permuted copy merges it onto the fine lattice."""
+    Y = torch.empty(len(A.mats), A.num_cols, dtype=x.dtype, device=x.device)
+    for b, m in enumerate(A.mats):
+        if m.offsets:
+            dia_spmv(m, x, out=Y[b])
+        else:
+            Y[b].zero_()
+    y = parity_merge(Y, A.fine_shape, A.factors)
+    if A.tail is not None:  # rows = flat fine, cols = cells
+        tail_apply(A.tail, x, y)
+    return y
+
+
+def _matvec(A, x: torch.Tensor) -> torch.Tensor:
+    """A x for the operators that have no fused kernel form."""
+    if isinstance(A, DenseMatrix):
+        return dense_spmv(A, x)
+    if isinstance(A, DIAWithTail):
+        return tail_apply(A.tail, x, dia_spmv(A.dia, x))
+    if isinstance(A, GatherOp):
+        return spmv(A.inner, flat_take(x, A.pos))
+    if isinstance(A, ScatterOp):
+        y = spmv(A.inner, x)
+        return torch.zeros(A.n_out, dtype=y.dtype, device=y.device
+                           ).index_copy_(0, A.pos, y)
+    if isinstance(A, ParityRestrictOp):
+        return _parity_restrict(A, x)
+    if isinstance(A, ParityInterpOp):
+        return _parity_interp(A, x)
+    raise TypeError(f"spmv: unsupported operator {type(A).__name__}")
+
+
+def kernel_launches(A) -> dict:
+    """{kernel name: launches} of one application of A to a CUDA vector,
+    in any form (a form adds torch elementwise ops, never a launch of
+    these kernels)."""
+    if isinstance(A, DIAMatrix):
+        return {"dia_spmv": 1}
+    if isinstance(A, ELLMatrix):
+        return {"ell_spmv": 1}
+    if isinstance(A, DenseMatrix):
+        return {}
+    if isinstance(A, DIAWithTail):
+        return {"dia_spmv": 1, "coo_tail": 1}
+    if isinstance(A, ScatterOp):
+        return kernel_launches(A.inner)
+    if isinstance(A, GatherOp):
+        inner = kernel_launches(A.inner)
+        return {**inner, "flat_take": inner.get("flat_take", 0) + 1}
+    if isinstance(A, (ParityRestrictOp, ParityInterpOp)):
+        n = {"dia_spmv": sum(1 for m in A.mats if m.offsets)}
+        return {**n, "coo_tail": 1} if A.tail is not None else n
+    raise TypeError(f"kernel_launches: unsupported operator {type(A).__name__}")
+
+
 def _spmv_form(A, x: torch.Tensor, form: str, **operands) -> torch.Tensor:
     if isinstance(A, DIAMatrix):
         return dia_spmv(A, x, form, **operands)
     if isinstance(A, ELLMatrix):
         return ell_spmv(A, x, form, **operands)
-    if isinstance(A, DenseMatrix):
-        return epilogue(form, dense_spmv(A, x), x, **operands)
-    raise TypeError(f"spmv: unsupported operator {type(A).__name__}")
+    return epilogue(form, _matvec(A, x), x, **operands)
 
 
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
-    """Polymorphic matvec over DIA / dense / ELL."""
+    """Polymorphic matvec over DIA / ELL / dense and the lattice forms
+    (DIA with tail, gather, scatter, parity restrict / interp)."""
     return _spmv_form(A, x, "plain")
 
 

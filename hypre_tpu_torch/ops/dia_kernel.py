@@ -8,8 +8,11 @@ into a shared library with a plain C interface at first use (into
 with ctypes.  It takes (data, vectors) as (f32, f32), (bf16, f32) or
 (f64, f64) and raises on anything else.  The offsets come as a tuple
 of ints: up to 8 go to the kernel by value, more through a cached
-int64 copy on the card (`launch_plan`).  Each launch, whatever the form,
-adds one to `dia_spmv_cuda.launches`.
+int64 copy on the card (`launch_plan`).  Many offsets on few rows (the
+relocated lattice operators) are split over `offset_lanes` lanes a row.
+Each launch, whatever the form, adds one to `dia_spmv_cuda.launches`.  `out=` names the tensor the
+kernel writes (a row of a [B, n] buffer, for the parity operators of
+ops/dia.py); without it the wrapper allocates the result.
 
 `dia_spmv_reference` is the torch form of the JAX package's XLA shift
 path (hypre_tpu/ops/dia.py:267-278): x is zero-padded, each diagonal
@@ -38,12 +41,18 @@ _DTYPES = {
 MAX_BY_VALUE = 8
 
 # (data, offsets on the card, offsets on the host, noff, x, f, u, d, w,
-#  y, n, vec, wide, stream), every entry point alike
+#  y, n, vec, wide, lanes, stream), every entry point alike
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p,
               ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
              + [ctypes.c_void_p] * 4 + [ctypes.c_double, ctypes.c_void_p,
                                         ctypes.c_int64, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p])
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p])
+# the offset-lane kernel: at most this many lanes a row, each with at
+# least MIN_TAPS_A_LANE taps, until the card has FILL_THREADS threads
+MAX_LANES = 32
+MIN_TAPS_A_LANE = 2
+FILL_THREADS = 132 * 2048
 
 
 def load():
@@ -54,17 +63,23 @@ def load():
                                   for dt in _DTYPES.values()})
 
 
-@functools.lru_cache(maxsize=64)
+# one entry per distinct offset tuple: a lattice hierarchy holds some
+# dozens of operators (8 parity matrices a transfer), each launched every
+# cycle, and an evicted device copy would be re-uploaded at each launch
+_OFFSET_CACHE = 1024
+
+
+@functools.lru_cache(maxsize=_OFFSET_CACHE)
 def _host_offsets(offsets: tuple):
     return (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=_OFFSET_CACHE)
 def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(offsets, dtype=torch.int64, device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=_OFFSET_CACHE)
 def launch_plan(n: int, offsets: tuple) -> tuple[bool, bool]:
     """(offsets by value, 64-bit index math) of a K1 launch: up to
     MAX_BY_VALUE offsets go by value, more through the device array;
@@ -75,6 +90,20 @@ def launch_plan(n: int, offsets: tuple) -> tuple[bool, bool]:
     reach = max(len(offsets) * n,
                 n + max((abs(o) for o in offsets), default=0) + 1024)
     return len(offsets) <= MAX_BY_VALUE, reach >= 2**31
+
+
+def offset_lanes(n: int, noff: int) -> int:
+    """S, the lanes that share one row's offsets: 1 (one thread takes R
+    rows and every offset in turn) while the offsets go by value or the
+    rows alone fill the card; else doubled until n * S threads fill it,
+    each lane keeping at least MIN_TAPS_A_LANE taps."""
+    if noff <= MAX_BY_VALUE:
+        return 1
+    lanes = 1
+    while (lanes < MAX_LANES and n * lanes < FILL_THREADS
+           and noff >= 2 * lanes * MIN_TAPS_A_LANE):
+        lanes *= 2
+    return lanes
 
 
 def rows_per_thread(data: torch.Tensor) -> int:
@@ -92,12 +121,16 @@ def vector_path(n: int, data: torch.Tensor, *vectors) -> bool:
 
 def dia_spmv_cuda(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
                   form: str = "plain", *, f=None, u=None, d=None,
-                  w: float = 1.0) -> torch.Tensor:
+                  w: float = 1.0, out=None, lanes=None) -> torch.Tensor:
     """The form (ops/forms.py) of y = A x, A[i, i + offsets[k]] =
     data[k, i], on the card (K1), one launch.
 
     data [noff, n], x [n] and the form's vectors [n] are contiguous
-    CUDA tensors on one device; offsets is a tuple of noff ints."""
+    CUDA tensors on one device; offsets is a tuple of noff ints.  `out`,
+    when given, is a contiguous [n] tensor like x that aliases no
+    operand; the kernel writes the result there.  `lanes` overrides
+    `offset_lanes` (a power of two up to MAX_LANES; for the sweep of
+    lane_sweep.py)."""
     if data.dim() != 2 or x.dim() != 1:
         raise ValueError("data must be [noff, n], x [n]")
     noff, n = data.shape
@@ -118,10 +151,20 @@ def dia_spmv_cuda(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
             f"dia_spmv_cuda: unsupported (data, x) dtypes {(data.dtype, x.dtype)}")
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmv_cuda needs contiguous tensors")
+    if out is not None and not (
+            out.shape == x.shape and out.dtype == x.dtype
+            and out.device == x.device and out.is_contiguous()):
+        raise ValueError("dia_spmv_cuda: out must be a contiguous tensor of "
+                         "x's shape, dtype and device")
     lib, _ = load()
-    y = torch.empty_like(x)
+    y = torch.empty_like(x) if out is None else out
     by_value, wide = launch_plan(n, tuple(offsets))
-    offs_dev = (None if by_value else
+    if lanes is None:
+        lanes = offset_lanes(n, noff)
+    elif lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"dia_spmv_cuda: lanes must be a power of two up to "
+                         f"{MAX_LANES}, got {lanes}")
+    offs_dev = (None if by_value and lanes == 1 else
                 _device_offsets(tuple(offsets), x.device).data_ptr())
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     vec = vector_path(n, data, x, f, u, d, y)
@@ -130,7 +173,7 @@ def dia_spmv_cuda(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
         rc = getattr(lib, f"dia_spmv_{form}_{dt}")(
             data.data_ptr(), offs_dev, _host_offsets(tuple(offsets)), noff,
             x.data_ptr(), ptr(f), ptr(u), ptr(d), float(w), y.data_ptr(),
-            n, int(vec), int(wide), stream)
+            n, int(vec), int(wide), lanes, stream)
     if rc != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {rc}")
     dia_spmv_cuda.launches += 1
@@ -142,9 +185,10 @@ dia_spmv_cuda.launches = 0
 
 def dia_spmv_reference(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
                        form: str = "plain", *, f=None, u=None, d=None,
-                       w: float = 1.0) -> torch.Tensor:
+                       w: float = 1.0, out=None) -> torch.Tensor:
     """Plain torch DIA SpMV, the same sum as K1 (taps outside [0, n)
-    read the zero padding), then the form's epilogue."""
+    read the zero padding), then the form's epilogue; copied into `out`
+    when that is given."""
     n = x.shape[0]
     if not offsets:
         acc = torch.zeros_like(x)
@@ -155,4 +199,5 @@ def dia_spmv_reference(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
         for k, off in enumerate(offsets):
             t = data[k].to(x.dtype) * xp[lo + off: lo + off + n]
             acc = t if acc is None else acc + t
-    return epilogue(form, acc, x, f=f, u=u, d=d, w=w)
+    y = epilogue(form, acc, x, f=f, u=u, d=d, w=w)
+    return y if out is None else out.copy_(y)

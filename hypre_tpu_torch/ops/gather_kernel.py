@@ -8,15 +8,18 @@ hand-written CUDA kernels, and their plain torch versions.
 x is [R, C]; along axis 1 idx's rows are a multiple of R (K3 gathers
 8 blocks of 512 rows from one resident [512, 512] x block), along
 axis 0 idx's columns are a multiple of C.  With idx the shape of x this
-is `np.take_along_axis`.  Values are f32, indices int32 in range.
+is `np.take_along_axis`.  Values are f32 (flat_take: f32 or f64), indices
+int32 in range.
 
 `take_along_axis_cuda` and `flat_take_cuda` launch `csrc/gather.cu`
 (nvcc, sm_90a, ctypes, built at first use into `hypre_tpu_torch/_build/`)
 and count their launches; a CPU tensor is refused.  Their plain
 versions (`torch.take_along_dim`, `torch.index_select`) run on any
 device: the CPU tests hold them against numpy, and chip_smoke.py holds
-the kernels against them on the card.  Nothing in the solver calls
-these gathers: the ELL SpMV kernel is the gather the solver runs.
+the kernels against them on the card.  `flat_take` is the solver's
+entry: GatherOp's x[pos] (ops/dia.py) goes through it, to the kernel
+for a CUDA tensor and to the plain version for a CPU tensor.  The
+take_along_axis gathers are on no solver path.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ _ARGTYPES = {
     + [ctypes.c_int, ctypes.c_void_p],
     # (table, idx, out, count, stream)
     "flat_take_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
+    "flat_take_f64": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
 }
+_FLAT_TAKE = {torch.float32: "flat_take_f32", torch.float64: "flat_take_f64"}
 
 
 def load():
@@ -42,14 +47,15 @@ def load():
     return load_cuda("gather", _ARGTYPES)
 
 
-def _check(name: str, src: torch.Tensor, idx: torch.Tensor) -> None:
+def _check(name: str, src: torch.Tensor, idx: torch.Tensor,
+           dtypes=(torch.float32,)) -> None:
     if src.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {src.device}")
     if idx.device != src.device:
         raise ValueError(f"device mismatch: {src.device}, idx {idx.device}")
-    if src.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f"{name}: needs f32 values and int32 indices, got "
-                        f"{src.dtype} and {idx.dtype}")
+    if src.dtype not in dtypes or idx.dtype != torch.int32:
+        raise TypeError(f"{name}: needs values in {dtypes} and int32 "
+                        f"indices, got {src.dtype} and {idx.dtype}")
     if not (src.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{name} needs contiguous tensors")
 
@@ -92,14 +98,15 @@ take_along_axis_cuda.launches = 0
 
 
 def flat_take_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] on the card (K2 (c)); table is 1-D, idx any shape."""
-    _check("flat_take_cuda", table, idx)
+    """table[idx] on the card (K2 (c)); table is 1-D f32 or f64, idx
+    any shape."""
+    _check("flat_take_cuda", table, idx, tuple(_FLAT_TAKE))
     if table.dim() != 1:
         raise ValueError("flat_take needs a 1-D table")
     lib, _ = load()
     out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
     with torch.cuda.device(table.device):
-        _launch(lib.flat_take_f32(
+        _launch(getattr(lib, _FLAT_TAKE[table.dtype])(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(),
             torch.cuda.current_stream().cuda_stream), "flat_take")
     flat_take_cuda.launches += 1
@@ -127,3 +134,12 @@ def flat_take_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain torch table[idx]."""
     return torch.index_select(table, 0, idx.reshape(-1)).view(idx.shape)
 
+
+def flat_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx]: the kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if table.device.type == "cuda":
+        return flat_take_cuda(table, idx)
+    if table.device.type == "cpu":
+        return flat_take_reference(table, idx)
+    raise ValueError(f"flat_take: no path for device {table.device}")

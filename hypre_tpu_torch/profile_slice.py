@@ -1,13 +1,17 @@
 """Where the time of one slice solve goes on the card.
 
-    python -m hypre_tpu_torch.profile_slice [--dtype float64|float32]
+    python -m hypre_tpu_torch.profile_slice [--dtype float64|float32] [--lattice]
 
-Sets up BoomerAMG-PCG on the 96^3 Poisson problem (the slice's
-configuration), runs one warm-up solve, times 20 solves with CUDA
-events (median and spread), then runs one solve under
+Sets up BoomerAMG-PCG on the 96^3 Poisson problem with the plain forms
+(ELL / dense coarse levels), runs one warm-up solve, times 20 solves
+with CUDA events (median and spread), then runs one solve under
 torch.profiler and prints the device time by kernel, that solve's wall
 time and the device's busy and idle shares of it.  float32 runs use
 bfloat16 matrices and nongalerkin_tol 0.02, as the production config.
+With --lattice the lattice path (the JAX package's option defaults:
+level-1 embedding, relocation with tails, coarse collapse) is set up
+beside the plain one and the two are measured in turns, plain, lattice,
+lattice, plain, each with its setup and FREEZE seconds.
 Needs a CUDA device.
 """
 
@@ -23,27 +27,45 @@ from .models import laplacian_7pt
 from .ops import spmv
 from .solvers.amg import BoomerAMG, BoomerAMGOptions
 from .solvers.krylov import PCGOptions, pcg
+from .utils.timing import GLOBAL_TIMER
 
 
 NX = 96
 REPEATS = 20
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--dtype", choices=("float64", "float32"), default="float64")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_slice needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    extra = ({} if args.dtype == "float64"
+def _options(dtype: str, lattice: bool) -> BoomerAMGOptions:
+    extra = ({} if dtype == "float64"
              else dict(mat_dtype="bfloat16", nongalerkin_tol=0.02))
-    opts = BoomerAMGOptions(
+    if lattice:
+        # the JAX package's own option defaults, embedded level-1 values
+        # from the host
+        extra.update(lattice_shape=(NX, NX, NX), device_rap=False)
+    else:
+        extra.update(embed_level1=False, relocate_level2=False,
+                     collapse_coarse_n=0)
+    return BoomerAMGOptions(
         coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
-        relax_down=18, relax_up=18, embed_level1=False, relocate_level2=False,
-        collapse_coarse_n=0, dtype=args.dtype, **extra)
-    amg = BoomerAMG(laplacian_7pt(NX, NX, NX), opts, device=dev)
-    b = torch.ones(NX**3, dtype=getattr(torch, args.dtype), device=dev)
+        relax_down=18, relax_up=18, dtype=dtype, **extra)
+
+
+def _setup(dtype: str, lattice: bool, dev):
+    """(amg, setup seconds, FREEZE + COLLAPSE seconds), host clock, the
+    card synchronized."""
+    GLOBAL_TIMER.clear()
+    t0 = time.perf_counter()
+    amg = BoomerAMG(laplacian_7pt(NX, NX, NX), _options(dtype, lattice),
+                    device=dev)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    freeze_s = sum(GLOBAL_TIMER.seconds(k) for k in ("FREEZE", "COLLAPSE"))
+    return amg, setup_s, freeze_s
+
+
+def _measure(amg, tag: str, table: bool) -> None:
+    """Time REPEATS warm solves, then profile one."""
+    dev = amg.device
+    b = torch.ones(NX**3, dtype=amg.levels[0].dinv.dtype, device=dev)
     A0 = amg.levels[0].A
 
     def solve():
@@ -61,7 +83,7 @@ def main() -> None:
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
     med = statistics.median(times)
-    print(f"{NX}^3 {args.dtype}: solve {med * 1e3:.2f} ms median of "
+    print(f"{tag}: solve {med * 1e3:.2f} ms median of "
           f"{len(times)} (min {min(times) * 1e3:.2f}, max "
           f"{max(times) * 1e3:.2f}), {res.num_iterations} iterations, "
           f"{NX**3 / med:.4g} DOF/s, "
@@ -76,19 +98,51 @@ def main() -> None:
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in events])
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-    print(f"{NX}^3 {args.dtype}: {res.num_iterations} iterations; "
+    if table:
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    print(f"{tag}: {res.num_iterations} iterations; "
           f"solve wall {wall * 1e3:.2f} ms under the profiler; device busy "
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall:.1f}%), idle "
           f"{100 * (1 - busy_us / 1e6 / wall):.1f}%; {len(events)} device "
           f"events ({len(events) / max(res.num_iterations, 1):.0f} per iteration)")
-    for label, key in (("K1 dia_spmv", "dia_spmv_kernel"),
-                       ("ELL ell_spmv", "ell_spmv_kernel")):
+    # "dia_spmv_" covers K1's row kernel and its offset-lane kernel
+    for label, key in (("K1 dia_spmv", "dia_spmv_"),
+                       ("K1, the offset-lane kernel alone", "dia_spmv_lanes_kernel"),
+                       ("ELL ell_spmv", "ell_spmv_kernel"),
+                       ("flat_take", "flat_take_kernel"),
+                       ("coo_tail", "coo_tail_kernel")):
         mine = [e for e in events if key in e.name]
         us = sum(e.time_range.end - e.time_range.start for e in mine)
-        print(f"{NX}^3 {args.dtype}: {label}: {len(mine)} launches, "
+        print(f"{tag}: {label}: {len(mine)} launches, "
               f"{us / 1e3:.3f} ms, {100 * us / max(busy_us, 1e-9):.1f}% of "
               f"device busy time")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=("float64", "float32"), default="float64")
+    ap.add_argument("--lattice", action="store_true",
+                    help="also the lattice path, measured in turns with "
+                         "the plain one: plain, lattice, lattice, plain")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    hierarchies = {}
+    for name in ("plain", "lattice") if args.lattice else ("plain",):
+        amg, setup_s, freeze_s = _setup(args.dtype, name == "lattice", dev)
+        hierarchies[name] = amg
+        print(f"{NX}^3 {args.dtype} {name}: setup {setup_s:.2f} s, of it "
+              f"FREEZE + COLLAPSE {freeze_s:.2f} s; {len(amg.levels)} levels "
+              f"frozen, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+              f"allocated on the card so far")
+    turns = (("plain", "lattice", "lattice", "plain") if args.lattice
+             else ("plain",))
+    seen = set()
+    for name in turns:
+        _measure(hierarchies[name], f"{NX}^3 {args.dtype} {name}",
+                 table=name not in seen)
+        seen.add(name)
 
 
 def _union_us(ranges) -> float:

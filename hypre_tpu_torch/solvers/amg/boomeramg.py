@@ -1,4 +1,4 @@
-"""BoomerAMG: hierarchy setup + V-cycle (port of the slice's part of
+"""BoomerAMG: hierarchy setup + V-cycle (port of the host-setup part of
 hypre_tpu/solvers/amg/boomeramg.py).
 
 Reference: parcsr_ls/par_amg_setup.c (hypre_BoomerAMGSetup), par_cycle.c
@@ -9,13 +9,25 @@ package: PMIS coarsening, modified classical interpolation, truncation,
 Galerkin RAP and the optional non-Galerkin filter.  Each level is then
 frozen into torch tensors on an explicit device, and the V-cycle runs
 eagerly on that device.  The fine operator is DIA (its matvec is the
-hand-written kernel K1 on CUDA), coarse levels are ELL or dense.
+hand-written kernel K1 on CUDA).
 
-The slice implements the options of the bench protocol (relax 0/5/7/18
-with relax_coarse 9, V-cycles).  Every other option must keep its
-default, and the lattice forms the JAX package adds on top
-(embed_level1, relocate_level2, collapse_coarse_n) must be off:
-`check_options` raises NotImplementedError otherwise.
+With the lattice forms off (embed_level1=False, relocate_level2=False,
+collapse_coarse_n=0) coarse levels are ELL or dense.  With the JAX
+package's defaults the lattice forms of ops/dia.py apply wherever that
+package's gates let them: level 1 is embedded on the fine lattice as
+DIA (`_build_embed_level1`), deeper levels are relocated onto compact
+cell lattices with parity-factored transfers and exact COO tails
+(`_plan_reloc`, `_build_relocated`; needs `lattice_shape`), and the
+sub-cycle below the first small level is collapsed into one dense
+operator (`_build_coarse_collapse`).  A hierarchy that fails a gate
+keeps the plain forms, as in the JAX package.
+
+The port implements the options of the bench protocol (relax 0/5/7/18
+with relax_coarse 9, V-cycles) and the host-value lattice path; every
+other option must keep its default (the device setup chain, the offset
+budgets): `check_options` raises NotImplementedError otherwise, and for
+embed_level1 with device_rap=True (the level-1 values would come from
+the device RAP, which is not ported: pass device_rap=False).
 """
 
 from __future__ import annotations
@@ -27,8 +39,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ... import native
 from ...ops.csr import CSRMatrix, to_device, torch_dtype
-from ...ops.dia import freeze_auto, spmv, spmv_axpy, spmv_resid
+from ...ops.dia import (DENSE_MAX_ROWS, DIA_MAX_OFFSETS, DenseMatrix,
+                        GatherOp, ScatterOp, build_embedded_dia,
+                        build_parity_interp, build_parity_restrict,
+                        embedded_offset_count, freeze_auto,
+                        parity_offset_count_plan, relocate_to_cells, spmv,
+                        spmv_axpy, spmv_resid, tail_min_count)
 from ...utils.timing import timed
 from .coarsen import pmis_coarsen
 from .interp import classical_interp, truncate_interp
@@ -130,12 +148,10 @@ class BoomerAMGOptions:
     device_setup: bool = False
 
 
-# The lattice forms: not ported yet, so they must be switched off.
-_SLICE_VALUES = {"embed_level1": False, "relocate_level2": False,
-                 "collapse_coarse_n": 0}
-# Fields the slice implements (values checked below).  device_rap only
-# steers how the level-1 embedding is built, which is off in the port,
-# so either value means the same thing in both packages.
+# Fields the port implements (values checked below).  device_rap picks
+# where the embedded level-1 values are computed: the port has the host
+# branch only, so with embed_level1 it must be False; without the
+# embedding either value means the same thing in both packages.
 _IMPLEMENTED = frozenset({
     "max_levels", "max_coarse_size", "strong_threshold", "max_row_sum",
     "coarsen_type", "interp_type", "trunc_factor", "P_max_elmts",
@@ -143,7 +159,9 @@ _IMPLEMENTED = frozenset({
     "relax_coarse", "relax_order", "relax_weight", "level_relax_weights",
     "num_sweeps", "num_sweeps_down", "num_sweeps_up", "num_sweeps_coarse",
     "min_coarse_size", "cycle_type", "seed", "dtype", "mat_dtype",
-    "device_rap",
+    "device_rap", "embed_level1", "max_embedded_offsets", "relocate_level2",
+    "lattice_shape", "relocate_min_n2", "relocate_max_bytes",
+    "max_relocated_offsets", "relocate_tail", "collapse_coarse_n",
 })
 _JACOBI = (0, 5, 7, 18)
 # (vector dtype, matrix dtype) pairs; K1 takes exactly these
@@ -152,16 +170,11 @@ _DTYPES = {("float64", "float64"), ("float32", "float32"),
 
 
 def check_options(o: BoomerAMGOptions) -> None:
-    """Raise NotImplementedError for any option the slice does not
+    """Raise NotImplementedError for any option the port does not
     implement; nothing is silently ignored."""
     for f in dataclasses.fields(o):
         v = getattr(o, f.name)
-        if f.name in _SLICE_VALUES:
-            if v != _SLICE_VALUES[f.name]:
-                raise NotImplementedError(
-                    f"{f.name}={v!r}: the lattice forms are not ported; "
-                    f"set {f.name}={_SLICE_VALUES[f.name]!r}")
-        elif f.name not in _IMPLEMENTED:
+        if f.name not in _IMPLEMENTED:
             changed = v is not None if f.default is None else v != f.default
             if changed:
                 raise NotImplementedError(
@@ -182,17 +195,24 @@ def check_options(o: BoomerAMGOptions) -> None:
         if not ok:
             raise NotImplementedError(
                 f"{name}={getattr(o, name)!r} is not implemented in the port")
+    if o.embed_level1 and o.device_rap:
+        raise NotImplementedError(
+            "embed_level1=True with device_rap=True takes the embedded "
+            "level-1 values from the device RAP, which is not ported: pass "
+            "device_rap=False (or embed_level1=False for the plain forms)")
 
 
 @dataclasses.dataclass(frozen=True)
 class AMGLevel:
-    A: object  # DIAMatrix | ELLMatrix | DenseMatrix
+    A: object  # DIAMatrix | ELLMatrix | DenseMatrix | a lattice form
     dinv: torch.Tensor
     l1inv: torch.Tensor
     cmask: torch.Tensor  # bool: CF_marker > 0 (all False on coarsest)
     P: Optional[object]  # None on coarsest
     R: Optional[object]  # P^T
-    coarse_inv: Optional[torch.Tensor]  # dense pinv on coarsest
+    # on the coarsest level: the dense pinv (a tensor), or the collapsed
+    # sub-cycle as an operator (DenseMatrix, or that behind Scatter/Gather)
+    coarse_inv: Optional[object]
 
 
 class BoomerAMG:
@@ -208,6 +228,7 @@ class BoomerAMG:
         self._host_A: list[sp.csr_matrix] = []
         self._host_P: list[sp.csr_matrix] = []
         self._cf: list[np.ndarray] = []
+        self._reloc_cells: dict = {}  # level -> (cells of its points, ncells)
         self._setup(A)
         self._freeze_hierarchy()
 
@@ -222,6 +243,7 @@ class BoomerAMG:
         self.device = torch.device(device)
         self.levels = list(levels)
         self._host_A, self._host_P, self._cf = [], [], []
+        self._reloc_cells = {}
         return self
 
     # ------------------------------------------------------------------
@@ -286,7 +308,18 @@ class BoomerAMG:
     # freeze (host -> device)
     # ------------------------------------------------------------------
     def _freeze_hierarchy(self) -> None:
+        """Plan the lattice embedding / relocation, freeze every level
+        once into its final form on the device, then collapse the coarse
+        sub-cycle."""
         L = len(self._host_A)
+        cpos0 = self._plan_embed()
+        reloc = self._plan_reloc(cpos0) if cpos0 is not None else []
+        # forms the lattice build steps replace are never frozen
+        skip_A = {1} if cpos0 is not None else set()
+        skip_PR = {0} if cpos0 is not None else set()
+        for ent in reloc:
+            skip_A.add(ent["k"])
+            skip_PR.add(ent["k"] - 1)
         with timed("FREEZE", device=self.device):
             for k in range(L):
                 coarsest = k == L - 1
@@ -294,8 +327,15 @@ class BoomerAMG:
                     self._host_A[k],
                     None if coarsest else self._host_P[k],
                     None if coarsest else self._cf[k],
-                    fine=(k == 0),
+                    fine=(k == 0), skip_A=k in skip_A, skip_PR=k in skip_PR,
                 ))
+            if cpos0 is not None:
+                self._build_embed_level1(
+                    cpos0, any(ent["k"] == 2 for ent in reloc))
+            if reloc:
+                self._build_relocated(reloc)
+        with timed("COLLAPSE", device=self.device):
+            self._build_coarse_collapse()
 
     @staticmethod
     def _l1_norms(A) -> np.ndarray:
@@ -307,37 +347,402 @@ class BoomerAMG:
         red = np.add.reduceat(np.abs(A.data), starts)
         return np.where(np.diff(A.indptr) > 0, red, 0.0)
 
-    def _freeze_level(self, A, P, cf, fine: bool) -> AMGLevel:
+    @staticmethod
+    def _inverses(A) -> tuple[np.ndarray, np.ndarray]:
+        """(1 / diagonal, 1 / l1 row norm) of A in f64, 0 where that is 0."""
+        diag = A.diagonal()
+        dinv = np.where(diag == 0, 0.0, 1.0 / np.where(diag == 0, 1.0, diag))
+        l1 = BoomerAMG._l1_norms(A)
+        l1inv = np.where(l1 == 0, 0.0, 1.0 / np.where(l1 == 0, 1.0, l1))
+        return dinv, l1inv
+
+    def _freeze_compact(self, M):
+        """A compact (not lattice) operator in `mat_dtype`."""
+        o = self.opts
+        return freeze_auto(CSRMatrix.from_scipy(M),
+                           torch_dtype(o.mat_dtype or o.dtype), self.device)
+
+    def _freeze_level(self, A, P, cf, fine: bool, skip_A: bool = False,
+                      skip_PR: bool = False) -> AMGLevel:
         """dinv, l1inv and the coarsest pinv are computed in numpy f64
         and then cast.  The fine A keeps `dtype` (it defines the
-        residual PCG minimizes); coarse A, P and R use `mat_dtype`."""
+        residual PCG minimizes); coarse A, P and R use `mat_dtype`.
+        skip_A / skip_PR leave out forms a lattice build step replaces."""
         o = self.opts
         dev = self.device
         dt = torch_dtype(o.dtype)
-        pdt = torch_dtype(o.mat_dtype or o.dtype)
-        mdt = dt if fine else pdt
         n = A.shape[0]
-        diag = A.diagonal()
-        safe = np.where(diag == 0, 1.0, diag)
-        dinv = np.where(diag == 0, 0.0, 1.0 / safe)
-        l1 = self._l1_norms(A)
-        l1inv = np.where(l1 == 0, 0.0, 1.0 / np.where(l1 == 0, 1.0, l1))
+        dinv, l1inv = self._inverses(A)
         coarsest = P is None
         coarse_inv = None
         if coarsest:
             coarse_inv = to_device(
                 np.linalg.pinv(A.toarray(), rcond=1e-12), dt, dev)
+        if skip_A:
+            A_frozen = None
+        elif fine:
+            A_frozen = freeze_auto(CSRMatrix.from_scipy(A), dt, dev)
+        else:
+            A_frozen = self._freeze_compact(A)
+        no_PR = coarsest or skip_PR
         return AMGLevel(
-            A=freeze_auto(CSRMatrix.from_scipy(A), mdt, dev),
+            A=A_frozen,
             dinv=to_device(dinv, dt, dev),
             l1inv=to_device(l1inv, dt, dev),
             cmask=torch.from_numpy(
                 cf > 0 if cf is not None else np.zeros(n, bool)).to(dev),
-            P=None if coarsest else freeze_auto(CSRMatrix.from_scipy(P), pdt, dev),
-            R=None if coarsest else freeze_auto(
-                CSRMatrix.from_scipy(P.T.tocsr()), pdt, dev),
+            P=None if no_PR else self._freeze_compact(P),
+            R=None if no_PR else self._freeze_compact(P.T.tocsr()),
             coarse_inv=coarse_inv,
         )
+
+    # ------------------------------------------------------------------
+    # the lattice forms (host planning, device build)
+    # ------------------------------------------------------------------
+    def _jacobi_updown(self) -> bool:
+        """The lattice levels smooth with the Jacobi family only."""
+        o = self.opts
+        return not ({o.relax_down, o.relax_up} - {0, 7, 18})
+
+    def _embedded_level_vectors(self, A, cf, pos, n_emb):
+        """(dinv, l1inv, cmask) of a level whose points sit at lattice
+        positions `pos` of an n_emb-point lattice: zero / False off them."""
+        dt = torch_dtype(self.opts.dtype)
+        out = []
+        for v in self._inverses(A):
+            e = np.zeros(n_emb)
+            e[pos] = v
+            out.append(to_device(e, dt, self.device))
+        cmask = np.zeros(n_emb, dtype=bool)
+        cmask[pos[cf > 0]] = True
+        return (*out, torch.from_numpy(cmask).to(self.device))
+
+    def _wrap_compact_transfers(self, k, lvl, pos, n_emb):
+        """(P, R) of level k, whose points sit at `pos` of an n_emb-point
+        lattice while level k+1 stays compact: the frozen compact forms
+        behind one scatter / gather."""
+        innerP, innerR = lvl.P, lvl.R
+        if innerP is None:  # was skipped in the freeze loop
+            innerP = self._freeze_compact(self._host_P[k])
+            innerR = self._freeze_compact(self._host_P[k].T.tocsr())
+        dev = self.device
+        return (ScatterOp(inner=innerP, pos=torch.from_numpy(pos).to(dev),
+                          n_out=n_emb),
+                GatherOp(inner=innerR,
+                         pos=torch.from_numpy(pos.astype(np.int32)).to(dev)))
+
+    def _plan_embed(self):
+        """Return cpos0 (level-1 point positions on the fine lattice) if
+        the level-1 embedding applies, else None.  Pure planning: the
+        gates mirror what the build needs, nothing is built."""
+        o = self.opts
+        if not o.embed_level1 or len(self._host_A) < 3:
+            return None
+        if not self._jacobi_updown():
+            return None  # embedded smoothing is for the Jacobi family only
+        # the fine operator must itself freeze to DIA (freeze_auto's
+        # criteria: square, above the dense threshold, few diagonals)
+        A0 = self._host_A[0]
+        n0, m0 = A0.shape
+        if n0 != m0 or n0 <= DENSE_MAX_ROWS or A0.nnz == 0:
+            return None
+        if len(native.dia_offsets_only(A0)) > DIA_MAX_OFFSETS:
+            return None
+        cpos0 = np.flatnonzero(self._cf[0] > 0).astype(np.int64)
+        if (embedded_offset_count(self._host_A[1], cpos0, cpos0)
+                > o.max_embedded_offsets):
+            return None
+        return cpos0
+
+    def _build_embed_level1(self, cpos0, will_reloc_l2: bool) -> None:
+        """Lift level-1 A and the level-0 transfers onto the fine lattice
+        as DIA (the JAX package's host-value branch)."""
+        o = self.opts
+        mdt = torch_dtype(o.mat_dtype or o.dtype)
+        dev = self.device
+        n0 = self._host_A[0].shape[0]
+        A1, P0 = self._host_A[1], self._host_P[0]
+        idx = np.arange(n0, dtype=np.int64)
+        self.levels[0] = dataclasses.replace(
+            self.levels[0],
+            P=build_embedded_dia(P0, idx, cpos0, n0, mdt, dev),
+            R=build_embedded_dia(P0.T.tocsr(), cpos0, idx, n0, mdt, dev),
+        )
+        dinv_e, l1inv_e, cmask_e = self._embedded_level_vectors(
+            A1, self._cf[1], cpos0, n0)
+        # level-1 transfers: the compact frozen P1/R1 behind scatter /
+        # gather, unless the relocation of level 2 replaces them with
+        # parity operators
+        new_P = new_R = None
+        if self._host_P[1:] and not will_reloc_l2:
+            new_P, new_R = self._wrap_compact_transfers(
+                1, self.levels[1], cpos0, n0)
+        self.levels[1] = dataclasses.replace(
+            self.levels[1],
+            A=build_embedded_dia(A1, cpos0, cpos0, n0, mdt, dev),
+            dinv=dinv_e, l1inv=l1inv_e, cmask=cmask_e, P=new_P, R=new_R,
+        )
+
+    def _plan_reloc(self, cpos0) -> list:
+        """Plan the relocation chain (see _build_relocated): per level k,
+        the distinct-cell assignment rcell and lattice/factor geometry,
+        with all offset gates evaluated, but no DIA data built.
+        Returns a list of dicts (possibly empty)."""
+        o = self.opts
+        if not o.relocate_level2 or o.lattice_shape is None or cpos0 is None:
+            return []
+        shape = tuple(int(s) for s in o.lattice_shape)
+        if len(shape) == 2:
+            shape = (*shape, 1)
+        if len(shape) != 3:
+            return []
+        L = len(self._host_A)
+        n0 = self._host_A[0].shape[0]
+        if int(np.prod(shape)) != n0:
+            return []
+        if L < 4:
+            return []
+        # small level-2 operators freeze dense: faster than a lattice form
+        if self._host_A[2].shape[0] <= o.relocate_min_n2:
+            return []
+        if not self._jacobi_updown():
+            return []
+
+        itemsize = torch_dtype(o.mat_dtype or o.dtype).itemsize
+
+        def pick_factors(lat_shape, npts):
+            # The JAX package never splits the x axis unless forced: x is
+            # the minor (lane) dimension on the TPU, where a stride-2
+            # slice is a costly relayout.  That reason is the TPU's, but
+            # the choice is kept so both packages build one hierarchy.
+            # Among the candidates, the FITTING one with the FEWEST
+            # cells: the lattice load factor multiplies every relocated
+            # operator's stored width.
+            best = None
+            for fx in (1, 2):
+                for fy in (1, 2, 4):
+                    for fz in (1, 2, 4):
+                        if fx * fy * fz == 1:
+                            continue
+                        if any(s % f for s, f in zip(lat_shape, (fx, fy, fz))):
+                            continue
+                        nc = (
+                            (lat_shape[0] // fx)
+                            * (lat_shape[1] // fy)
+                            * (lat_shape[2] // fz)
+                        )
+                        if npts > 0.85 * nc:
+                            continue
+                        if best is None or (fx, nc) < (best[0][0], best[1]):
+                            best = ((fx, fy, fz), nc)
+            return best[0] if best else None
+
+        # state: level k-1 lives on `lat_shape` with its points at
+        # `pos_prev` (level-1 points sit at their true positions)
+        plan = []
+        lat_shape = shape
+        pos_prev = cpos0
+        for k in range(2, L - 1):
+            n_k = self._host_A[k].shape[0]
+            if n_k <= 64:
+                break
+            pos_k = pos_prev[self._cf[k - 1] > 0]
+            factors = pick_factors(lat_shape, n_k)
+            if factors is None:
+                break
+            cell_shape = tuple(s // f for s, f in zip(lat_shape, factors))
+            ncells = int(np.prod(cell_shape))
+            rcell = relocate_to_cells(pos_k, lat_shape, factors)
+            if rcell is None:
+                break
+            A_k = self._host_A[k]
+            tmin = tail_min_count(ncells, itemsize) if o.relocate_tail else 0
+            if n_k > DENSE_MAX_ROWS:
+                cnt = embedded_offset_count(A_k, rcell, rcell, tail_min=tmin)
+                if cnt > o.max_relocated_offsets or (
+                    cnt * ncells * itemsize > o.relocate_max_bytes
+                ):
+                    break
+            # parity transfer budget, counted without building the data
+            Pk1 = self._host_P[k - 1].tocoo()
+            ncells_prev = int(np.prod(lat_shape))
+            Pf = sp.csr_matrix(
+                (Pk1.data, (pos_prev[Pk1.row], Pk1.col)),
+                shape=(ncells_prev, n_k),
+            )
+            pr_offs = max(
+                parity_offset_count_plan(
+                    Pf, rcell, lat_shape, factors, False, tail_min=tmin
+                ),
+                parity_offset_count_plan(
+                    Pf.T.tocsr(), rcell, lat_shape, factors, True,
+                    tail_min=tmin,
+                ),
+            )
+            if pr_offs > o.max_relocated_offsets or (
+                pr_offs * ncells * itemsize > o.relocate_max_bytes
+            ):
+                break
+            plan.append(dict(
+                k=k, rcell=rcell, lat_shape=lat_shape, factors=factors,
+                cell_shape=cell_shape, ncells=ncells, Pf=Pf, tail_min=tmin,
+            ))
+            lat_shape = cell_shape
+            pos_prev = rcell
+        return plan
+
+    def _build_relocated(self, plan: list) -> None:
+        """Relocate coarse levels onto per-level compact lattices.
+        Level k's points (an irregular algebraic subset of level k-1's)
+        are assigned DISTINCT cells of level k-1's lattice coarsened by
+        per-axis factors: a pure permutation, so AMG convergence is
+        unchanged.  A_k becomes a DIA operator (with its rare diagonals
+        in a COOTail) on its compact lattice while n_k is large, or a
+        dense operator behind one gather / scatter; P_{k-1} / R_{k-1}
+        become parity-factored DIA sums.  The chain stops where
+        _plan_reloc stopped; the level below a stop keeps its compact
+        forms behind one gather / scatter."""
+        o = self.opts
+        mdt = torch_dtype(o.mat_dtype or o.dtype)
+        dev = self.device
+        relocated_ks = {ent["k"] for ent in plan}
+        self._reloc_cells = {
+            ent["k"]: (ent["rcell"], ent["ncells"]) for ent in plan
+        }
+        for ent in plan:
+            k, rcell, ncells = ent["k"], ent["rcell"], ent["ncells"]
+            lat_shape, factors, Pf = ent["lat_shape"], ent["factors"], ent["Pf"]
+            tmin = ent["tail_min"]
+            A_k = self._host_A[k]
+            n_k = A_k.shape[0]
+            if n_k > DENSE_MAX_ROWS:
+                A_new = build_embedded_dia(A_k, rcell, rcell, ncells, mdt, dev,
+                                           tail_min=tmin)
+            else:
+                # dense core behind one gather / scatter
+                dense = DenseMatrix(data=to_device(A_k.toarray(), mdt, dev),
+                                    num_rows=n_k, num_cols=n_k)
+                A_new = self._on_cells(dense, rcell, ncells)
+            # parity transfer operators between lattice k-1 and k
+            self.levels[k - 1] = dataclasses.replace(
+                self.levels[k - 1],
+                P=build_parity_interp(Pf, rcell, lat_shape, factors, mdt, dev,
+                                      tail_min=tmin),
+                R=build_parity_restrict(Pf.T.tocsr(), rcell, lat_shape,
+                                        factors, mdt, dev, tail_min=tmin),
+            )
+            lvl_k = self.levels[k]
+            new_P, new_R = lvl_k.P, lvl_k.R
+            if k + 1 in relocated_ks:
+                # the next chain step installs parity operators here
+                new_P = new_R = None
+            elif k < len(self._host_P):
+                new_P, new_R = self._wrap_compact_transfers(
+                    k, lvl_k, rcell, ncells)
+            dinv_e, l1inv_e, cmask_e = self._embedded_level_vectors(
+                A_k, self._cf[k], rcell, ncells)
+            self.levels[k] = dataclasses.replace(
+                lvl_k, A=A_new, dinv=dinv_e, l1inv=l1inv_e, cmask=cmask_e,
+                P=new_P, R=new_R,
+            )
+
+    def _on_cells(self, dense: DenseMatrix, rcell, ncells: int) -> ScatterOp:
+        """A compact square operator applied on the cell lattice its
+        points were relocated to: gather, apply, scatter."""
+        dev = self.device
+        return ScatterOp(
+            inner=GatherOp(inner=dense, pos=torch.from_numpy(
+                rcell.astype(np.int32)).to(dev)),
+            pos=torch.from_numpy(rcell).to(dev), n_out=ncells)
+
+    def _build_coarse_collapse(self) -> None:
+        """Materialize the sub-V-cycle below the first small level as one
+        dense operator and truncate the frozen hierarchy there (see the
+        JAX package's BoomerAMGOptions.collapse_coarse_n).
+
+        The V-cycle below level ls, applied to a zero initial guess, is
+        the fixed linear map
+            M_l = post(I - A X) . [X + P M_{l+1} R (I - A X)],
+            X = pre-smooth polynomial, bottom M_{L-1} = pinv(A)
+        for the linear smoothers (relax 0/5/7/18: x += w*div*(f - Ax)).
+        The recurrence is evaluated bottom-up with dense `torch.matmul`
+        products on the device (A, P, R densified there from their
+        nonzeros) and installed as levels[ls].coarse_inv, which the
+        cycle's relax_coarse=9 branch applies as the coarse solve.
+        Exact linear algebra: the preconditioner changes only by
+        rounding; what it removes is the deep levels' launches."""
+        o = self.opts
+        if (o.collapse_coarse_n <= 0 or o.cycle_type != 1 or o.fcycle
+                or max(o.additive, o.mult_additive, o.simple) >= 0
+                or o.seq_threshold > 0
+                or o.relax_order == 1
+                or o.relax_coarse != 9 or o.smooth_num_levels > 0
+                or o.grid_relax_type is not None
+                or o.grid_relax_points is not None
+                or not {o.relax_down, o.relax_up} <= {0, 5, 7, 18}
+                or (o.num_sweeps_down or o.num_sweeps) != o.num_sweeps
+                or (o.num_sweeps_up or o.num_sweeps) != o.num_sweeps):
+            return
+        L = len(self._host_A)
+
+        def _ls_ok(l: int) -> bool:
+            if self._host_A[l].shape[0] > o.collapse_coarse_n:
+                return False
+            if l in self._reloc_cells:
+                return True  # handled by the gather / scatter wrap below
+            lv = self.levels[l]
+            # the collapsed map is built in HOST indexing: a frozen level
+            # living on an embedded lattice cannot take it directly
+            if lv.A is not None and lv.A.num_rows != self._host_A[l].shape[0]:
+                return False
+            Rprev = self.levels[l - 1].R
+            if (Rprev is not None
+                    and getattr(Rprev, "num_rows", None)
+                    not in (None, self._host_A[l].shape[0])):
+                return False
+            return True
+
+        ls = next((l for l in range(1, L - 1) if _ls_ok(l)), None)
+        if ls is None or self.levels[-1].coarse_inv is None:
+            return
+        dt = torch_dtype(o.dtype)
+        dev = self.device
+        sweeps = o.num_sweeps
+
+        def dense(S) -> torch.Tensor:
+            # ship the nonzeros, build the dense image on the device
+            C = S.tocoo()
+            n, m = S.shape
+            out = torch.zeros(n * m, dtype=dt, device=dev)
+            flat = C.row.astype(np.int64) * m + C.col
+            out[torch.from_numpy(flat).to(dev)] = to_device(C.data, dt, dev)
+            return out.view(n, m)
+
+        M = self.levels[-1].coarse_inv.to(dt)
+        for l in range(L - 2, ls - 1, -1):
+            Ah, Ph = self._host_A[l], self._host_P[l]
+            dinv, l1inv = self._inverses(Ah)
+            wl = self._level_weight(l)
+            wdn = to_device(wl * (l1inv if o.relax_down == 18 else dinv),
+                            dt, dev)[:, None]
+            wup = to_device(wl * (l1inv if o.relax_up == 18 else dinv),
+                            dt, dev)[:, None]
+            A, P, R = dense(Ah), dense(Ph), dense(Ph.T.tocsr())
+            eye = torch.eye(Ah.shape[0], dtype=dt, device=dev)
+            X = wdn * eye  # zero-guess first sweep
+            for _ in range(sweeps - 1):
+                X = X + wdn * (eye - A @ X)
+            X = X + P @ (M @ (R @ (eye - A @ X)))
+            for _ in range(sweeps):
+                X = X + wup * (eye - A @ X)
+            M = X
+        n_ls = self._host_A[ls].shape[0]
+        op = DenseMatrix(data=M, num_rows=n_ls, num_cols=n_ls)
+        if ls in self._reloc_cells:
+            op = self._on_cells(op, *self._reloc_cells[ls])
+        self.levels = self.levels[:ls] + [dataclasses.replace(
+            self.levels[ls], coarse_inv=op, P=None, R=None,
+        )]
 
     # ------------------------------------------------------------------
     # cycle (device)
@@ -368,7 +773,9 @@ class BoomerAMG:
         then skip the A @ 0 matvec with a bitwise-identical result."""
         w = self._level_weight(level)
         if relax_type == 9:
-            return lvl.coarse_inv @ f
+            ci = lvl.coarse_inv
+            # the dense pinv, or the collapsed sub-cycle as an operator
+            return ci @ f if isinstance(ci, torch.Tensor) else spmv(ci, f)
         # 0/7 weighted Jacobi; 5 chaotic GS (== Jacobi on a data-parallel
         # machine); 18 l1-Jacobi
         div = lvl.l1inv if relax_type == 18 else lvl.dinv

@@ -52,6 +52,10 @@ class Timer:
         finally:
             self.end(name, device)
 
+    def seconds(self, name: str) -> float:
+        """Accumulated wall seconds of a named phase (0 if never timed)."""
+        return self._acc.get(name, 0.0)
+
     def summary(self) -> str:
         lines = ["=" * 50, f"{'phase':<24}{'wall (s)':>12}{'calls':>8}", "-" * 50]
         for name, acc in sorted(self._acc.items(), key=lambda kv: -kv[1]):

@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1, the ELL SpMV, each in its four forms, and the
-gathers) on the card against their plain versions (marker `cuda`; each
+"""The CUDA kernels (K1, the ELL SpMV, each in its four forms, the
+gathers and the COO tail) and the lattice operators that run on them, on
+the card against their plain versions (marker `cuda`; each
 test skips where torch sees no CUDA device).  This file imports
 neither jax nor hypre_tpu, so it runs on a GPU machine without them:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -15,10 +16,11 @@ from torch_ragged import ragged
 
 from hypre_tpu_torch.models import laplacian_7pt
 from hypre_tpu_torch.ops import CSRMatrix, spmv, spmv_axpy, spmv_resid
+from hypre_tpu_torch.ops import dia as tdia
 from hypre_tpu_torch.ops.dia import csr_to_dia
 from hypre_tpu_torch.ops.dia_kernel import (
-    dia_spmv_cuda, dia_spmv_reference, launch_plan, rows_per_thread,
-    vector_path)
+    dia_spmv_cuda, dia_spmv_reference, launch_plan, offset_lanes,
+    rows_per_thread, vector_path)
 from hypre_tpu_torch.ops.ell_kernel import (
     ell_spmv_cuda, ell_spmv_reference, slot_lanes)
 from hypre_tpu_torch.ops.forms import FORMS
@@ -26,6 +28,7 @@ from hypre_tpu_torch.solvers.amg.relax import jacobi
 from hypre_tpu_torch.ops.gather_kernel import (
     flat_take_cuda, flat_take_reference, take_along_axis_cuda,
     take_along_axis_reference)
+from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda, coo_tail_reference
 
 
 @pytest.fixture
@@ -319,3 +322,185 @@ def test_jacobi_residual_prolongation_are_one_launch(cuda, fmt):
         fn()
         assert counted.launches == before + 1
         assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 1
+
+
+# -- the lattice forms: the COO tail, GatherOp on flat_take, the parity
+# -- operators on K1 ----------------------------------------------------
+
+def _tail_entries(seed, n_rows, n_cols, nnz):
+    """COO entries; three rows hold 300 entries each, most a few."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n_rows, size=nnz)
+    rows[:900] = np.repeat(rng.choice(n_rows, 3, False), 300)
+    return (rows.astype(np.int64), rng.integers(0, n_cols, size=nnz),
+            rng.standard_normal(nnz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,n_cols,nnz", [(110_592, 884_736, 60_000),
+                                               (900, 700, 4000)])
+@pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
+def test_coo_tail_matches_plain_on_card(cuda, n_rows, n_cols, nnz, dtype,
+                                        xdtype, tol):
+    T = tdia._build_tail(*_tail_entries(nnz, n_rows, n_cols, nnz), dtype, cuda)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(n_cols)).to(cuda, xdtype)
+    y0 = torch.from_numpy(rng.standard_normal(n_rows)).to(cuda, xdtype)
+    before = coo_tail_cuda.launches
+    y = tdia.tail_apply(T, x, y0.clone())
+    assert coo_tail_cuda.launches == before + 1
+    ref = coo_tail_reference(T.vals, T.cols, T.seg_ptr, T.rows_u, x, y0.clone())
+    torch.cuda.synchronize()
+    assert _rel(y, ref) <= tol
+    # no atomics: the same bits on every run
+    assert torch.equal(tdia.tail_apply(T, x, y0.clone()), y)
+    # against the CPU's plain version, which sums each row in stored order
+    cpu = coo_tail_reference(T.vals.cpu(), T.cols.cpu(), T.seg_ptr.cpu(),
+                             T.rows_u.cpu(), x.cpu(), y0.cpu())
+    assert _rel(y.cpu(), cpu) <= tol
+
+
+@pytest.mark.cuda
+def test_coo_tail_rejects_what_it_does_not_take(cuda):
+    T = tdia._build_tail(*_tail_entries(2, 900, 700, 4000), "float32", cuda)
+    x, y = torch.ones(700, device=cuda), torch.zeros(900, device=cuda)
+    args = (T.vals, T.cols, T.seg_ptr, T.rows_u)
+    with pytest.raises(TypeError, match="unsupported"):
+        coo_tail_cuda(T.vals.double(), *args[1:], x, y)
+    with pytest.raises(TypeError, match="int32"):
+        coo_tail_cuda(T.vals, T.cols.long(), *args[2:], x, y)
+    with pytest.raises(ValueError, match="device"):
+        coo_tail_cuda(*args, x, y.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        coo_tail_cuda(*args, torch.ones(1400, device=cuda)[::2], y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
+def test_gather_op_runs_flat_take_on_card(cuda, dtype, xdtype, tol):
+    """GatherOp's x[pos] is one flat_take launch, f32 or f64, bitwise
+    the plain take; ScatterOp(GatherOp(dense)) is the relocated dense
+    level and the collapsed coarse operator."""
+    rng = np.random.default_rng(12)
+    n_out, k = 13_824, 1500
+    pos = np.sort(rng.choice(n_out, size=k, replace=False))
+    D = tdia.DenseMatrix(torch.from_numpy(rng.standard_normal((k, k))).to(
+        cuda, getattr(torch, dtype)), k, k)
+    p32 = torch.from_numpy(pos.astype(np.int32)).to(cuda)
+    p64 = torch.from_numpy(pos).to(cuda)
+    x = torch.from_numpy(rng.standard_normal(n_out)).to(cuda, xdtype)
+    before = flat_take_cuda.launches
+    taken = flat_take_cuda(x, p32)
+    assert torch.equal(taken, flat_take_reference(x, p32))
+    A = tdia.ScatterOp(tdia.GatherOp(D, p32), p64, n_out)
+    y = spmv(A, x)
+    assert flat_take_cuda.launches == before + 2
+    assert tdia.kernel_launches(A) == {"flat_take": 1}
+    ref = torch.zeros(n_out, dtype=xdtype, device=cuda)
+    ref[p64] = D.data.to(xdtype) @ x[p64]
+    assert _rel(y, ref) <= max(tol, 1e-4 if dtype == "bfloat16" else 0)
+    off = torch.ones(n_out, dtype=torch.bool, device=cuda)
+    off[p64] = False
+    assert not bool(y[off].any())
+
+
+def _parity_problem(seed=5):
+    """An interpolation-like M (fine lattice rows, point columns near the
+    row) on a 32^3 lattice coarsened by (1, 2, 2)."""
+    rng = np.random.default_rng(seed)
+    shape, factors = (32, 32, 32), (1, 2, 2)
+    nf, npts = 32**3, 4000
+    pts_pos = np.sort(rng.choice(nf, size=npts, replace=False))
+    ccol = tdia.relocate_to_cells(pts_pos, shape, factors)
+    rows = rng.integers(0, nf, size=24_000)
+    near = np.clip(np.searchsorted(pts_pos, rows), 0, npts - 1)
+    cols = np.clip(near + rng.integers(-1, 2, size=rows.size), 0, npts - 1)
+    M = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                      shape=(nf, npts))
+    M.sum_duplicates()
+    xc = np.zeros(32 * 16 * 16)
+    xc[ccol] = rng.standard_normal(npts)
+    return shape, factors, ccol, M, xc, rng.standard_normal(nf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail_min", [0, 6])
+@pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
+def test_parity_operators_run_k1_on_card(cuda, tail_min, dtype, xdtype, tol):
+    """ParityInterpOp: one K1 launch a non-empty parity matrix into the
+    [B, ncells] buffer; ParityRestrictOp: the same count, chained through
+    K1's axpy form; each tail one coo_tail launch.  Held against the same
+    operators on the CPU (the plain versions)."""
+    shape, factors, ccol, M, xc, xf = _parity_problem()
+    for build, Mx, xin in ((tdia.build_parity_interp, M, xc),
+                           (tdia.build_parity_restrict, M.T.tocsr(), xf)):
+        A = build(Mx, ccol, shape, factors, dtype, cuda, tail_min=tail_min)
+        C = build(Mx, ccol, shape, factors, dtype, "cpu", tail_min=tail_min)
+        assert (A.tail is not None) == bool(tail_min)
+        want = tdia.kernel_launches(A)
+        assert want["dia_spmv"] == sum(1 for m in A.mats if m.offsets) == 4
+        # more than 8 offsets somewhere: K1's device-array path
+        assert max(len(m.offsets) for m in A.mats) > 8
+        counts = (dia_spmv_cuda.launches, coo_tail_cuda.launches)
+        x = torch.from_numpy(xin).to(xdtype)
+        y = spmv(A, x.to(cuda))
+        assert dia_spmv_cuda.launches == counts[0] + want["dia_spmv"]
+        assert coo_tail_cuda.launches == counts[1] + want.get("coo_tail", 0)
+        assert y.is_contiguous() and y.shape == (A.num_rows,)
+        assert _rel(y.cpu(), spmv(C, x)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
+def test_dia_with_tail_runs_k1_and_coo_tail_on_card(cuda, dtype, xdtype, tol):
+    """An embedded operator with hundreds of offsets and a tail: one K1
+    launch (offsets through the device array) and one coo_tail launch."""
+    rng = np.random.default_rng(3)
+    npts, n_emb = 6000, 32_768
+    pos = np.sort(rng.choice(n_emb, size=npts, replace=False))
+    rows = rng.integers(0, npts, size=npts * 12)
+    cols = np.clip(rows + rng.integers(-40, 41, size=rows.size), 0, npts - 1)
+    M = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                      shape=(npts, npts))
+    A = tdia.build_embedded_dia(M, pos, pos, n_emb, dtype, cuda, tail_min=60)
+    C = tdia.build_embedded_dia(M, pos, pos, n_emb, dtype, "cpu", tail_min=60)
+    assert isinstance(A, tdia.DIAWithTail) and len(A.dia.offsets) > 64
+    assert launch_plan(n_emb, A.dia.offsets) == (False, False)
+    x = torch.from_numpy(rng.standard_normal(n_emb)).to(xdtype)
+    counts = (dia_spmv_cuda.launches, coo_tail_cuda.launches)
+    y = spmv(A, x.to(cuda))
+    assert (dia_spmv_cuda.launches, coo_tail_cuda.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert _rel(y.cpu(), spmv(C, x)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,noff,lanes", [
+    (13_824, 413, None), (13_824, 413, 2), (13_824, 35, None),
+    (13_825, 120, 8), (110_592, 289, None), (3456, 28, 32), (1000, 9, 16)])
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
+def test_k1_offset_lanes_match_plain_on_card(cuda, n, noff, lanes, form,
+                                             dtype, xdtype, tol):
+    """Many offsets on few rows: S lanes share a row's taps (the
+    wrapper's pick with lanes=None, else forced), every form; the
+    out-of-range taps are left nonzero in the data."""
+    rng = np.random.default_rng(n + noff)
+    offsets = tuple(int(o) for o in np.sort(rng.choice(
+        np.arange(-n // 2, n // 2), size=noff, replace=False)))
+    data = torch.from_numpy(rng.standard_normal((noff, n))).to(
+        cuda, getattr(torch, dtype))
+    x = torch.from_numpy(rng.standard_normal(n)).to(cuda, xdtype)
+    if lanes is None:
+        assert offset_lanes(n, noff) > 1
+    ops = _operands(form, n, xdtype, cuda, seed=n)
+    before = dia_spmv_cuda.launches
+    y = dia_spmv_cuda(data, offsets, x, form, lanes=lanes, **ops)
+    assert dia_spmv_cuda.launches == before + 1
+    ref = dia_spmv_reference(data, offsets, x, form, **ops)
+    torch.cuda.synchronize()
+    # sums of hundreds of O(1) products that cancel: scale by their size
+    scale = float(ref.abs().max()) + noff ** 0.5
+    assert float((y - ref).abs().max()) / scale <= tol
+    assert torch.equal(dia_spmv_cuda(data, offsets, x, form, lanes=lanes,
+                                     **ops), y)  # a fixed order
