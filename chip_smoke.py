@@ -7,8 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (csrc/dia_spmv.cu, csrc/ell_spmv.cu,
-     csrc/gather.cu, csrc/coo_tail.cu; one nvcc each, all at once) and
-     the host setup library (csrc/host_kernels.c, cc) from the sources;
+     csrc/gather.cu, csrc/coo_tail.cu, csrc/cell_dense.cu; one nvcc
+     each, all at once) and the host setup library
+     (csrc/host_kernels.c, cc) from the sources;
   3. hold K1 (the DIA SpMV) against its plain torch version on the card
      at the shapes of the main path and on wide/edge offset sets; time
      both at 96^3, and the cuSPARSE CSR product on the same operator;
@@ -23,7 +24,8 @@ Phases (any failure raises and the script exits non-zero):
   6. the slice in float64 at 96^3: BoomerAMG setup, freeze on the card,
      PCG (two-norm, tol 1e-6, b = ones) -- exactly 25 iterations, the
      hypre oracle count, with K1 carrying the fine-level matvecs and the
-     ELL kernel every coarse-level and grid-transfer matvec; then the ELL
+     ELL kernel every coarse-level and grid-transfer matvec, counted
+     exactly; then the ELL
      kernel against its plain version on every ELL operator of that
      hierarchy, each timed beside its floor and the cuSPARSE call, and
      every form of it against its plain version on every operator, the
@@ -35,11 +37,19 @@ Phases (any failure raises and the script exits non-zero):
      levels relocated onto cell lattices with parity transfers and COO
      tails, the coarse sub-cycle collapsed), lattice_shape given and
      device_rap=False -- 25 and 21 +- 1 iterations again, every DIA part
-     a K1 launch, every tail a coo_tail launch, every gather a flat_take
-     launch, counted exactly; then each lattice operator against its
-     plain evaluation, timed beside its bound, each tail (coo_tail)
-     against its plain version and the three-call torch form, and each
-     gather (flat_take) against its plain version, bitwise.
+     a K1 launch, every tail riding in a K1 launch, the collapsed coarse
+     solve one cell_dense launch, no coo_tail or flat_take launch,
+     counted exactly; then K1 with its tail on every tailed operator in
+     the forms the cycle runs against the composition it replaced (K1,
+     coo_tail, the torch epilogue: bitwise in f64, the restriction to
+     1e-13) and against the plain version, timed beside that
+     composition; the cell_dense kernel against its plain version,
+     timed beside its bound, torch.matmul and the four calls it
+     replaced; each lattice operator against its plain evaluation,
+     timed beside its bound and one cuSPARSE CSR product; each tail
+     (coo_tail, no longer on the path) against its plain version and
+     the three-call torch form, and each gather (flat_take) at the
+     path's shapes against its plain version, bitwise.
 The last two lines are the kernel report and {"ok": true, ...}.
 """
 
@@ -521,7 +531,7 @@ def expected_launches(amg, iterations: int) -> dict:
     fine-level matvecs of PCG's own (K1)."""
     from hypre_tpu_torch.ops.dia import kernel_launches
 
-    per_cycle = {name: 0 for name in counted_wrappers()}
+    per_cycle = {name: 0 for name in read_counts()}
     for _, op, _, _, k in cycle_operators(amg):
         for name, c in kernel_launches(op).items():
             per_cycle[name] += k * c
@@ -554,6 +564,9 @@ def describe(A):
     if isinstance(A, (D.GatherOp, D.ScatterOp)):
         fmt, noff, nt, ne, nb, g = describe(A.inner)
         word = "gather" if isinstance(A, D.GatherOp) else "scatter"
+        if getattr(A, "row_of_cell", None) is not None:
+            word = "on_cells"
+            nb += tensor_bytes(A.row_of_cell)
         if isinstance(A, D.GatherOp):
             g = A.pos.numel()
         return f"{word}({fmt})", noff, nt, ne, nb + tensor_bytes(A.pos), g
@@ -615,6 +628,60 @@ def plain_spmv(A, x):
     raise TypeError(f"plain_spmv: unexpected operator {type(A).__name__}")
 
 
+def operator_coo(A):
+    """(rows, cols, values) of an operator's stored nonzeros, int64 on
+    its device: DIA taps inside [0, n), tails, dense entries, positions
+    of gathers / scatters, parity parts on the fine lattice."""
+    from hypre_tpu_torch.ops import dia as D
+
+    if isinstance(A, D.DIAMatrix):
+        k, i = torch.nonzero(A.data, as_tuple=True)
+        j = i + torch.tensor(A.offsets, dtype=torch.int64,
+                             device=A.data.device)[k]
+        keep = (j >= 0) & (j < A.num_cols)
+        return i[keep], j[keep], A.data[k[keep], i[keep]]
+    if isinstance(A, D.DenseMatrix):
+        r, c = torch.nonzero(A.data, as_tuple=True)
+        return r, c, A.data[r, c]
+    if isinstance(A, D.GatherOp):
+        r, c, v = operator_coo(A.inner)
+        return r, A.pos.long()[c], v
+    if isinstance(A, D.ScatterOp):
+        r, c, v = operator_coo(A.inner)
+        return A.pos.long()[r], c, v
+    parts = []
+    if isinstance(A, D.DIAWithTail):
+        parts.append(operator_coo(A.dia))
+    elif isinstance(A, (D.ParityRestrictOp, D.ParityInterpOp)):
+        nfine = int(np.prod(A.fine_shape))
+        dev = A.mats[0].data.device
+        fine = D.parity_split(torch.arange(nfine, device=dev), A.fine_shape,
+                              A.factors)  # [B, ncells]: the fine index
+        for b, m in enumerate(A.mats):
+            r, c, v = operator_coo(m)
+            parts.append((r, fine[b][c], v)
+                         if isinstance(A, D.ParityRestrictOp)
+                         else (fine[b][r], c, v))
+    else:
+        raise TypeError(f"operator_coo: unexpected {type(A).__name__}")
+    t = A.tail
+    if t is not None:
+        parts.append((t.rows_u.long()[t.seg.long()], t.cols.long(), t.vals))
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+
+
+def operator_csr(A, n_in, n_out, dtype):
+    """The operator as one torch CSR tensor (cuSPARSE's SpMV, the library
+    yardstick) with values in `dtype`: a parity transfer is one
+    rectangular CSR."""
+    r, c, v = operator_coo(A)
+    with warnings.catch_warnings():  # torch's "sparse CSR is beta" notice
+        warnings.simplefilter("ignore", UserWarning)
+        coo = torch.sparse_coo_tensor(torch.stack([r, c]), v.to(dtype),
+                                      size=(n_out, n_in)).coalesce()
+        return coo.to_sparse_csr()
+
+
 PLAIN_REPS = 10  # a plain lattice matvec is hundreds of torch calls
 
 
@@ -622,9 +689,10 @@ def phase_lattice_ops(amg, tol, flush, card, label):
     """Every operator of a lattice hierarchy through the kernels (`spmv`)
     against its plain evaluation, timed with the L2 flushed beside its
     bound: stored bytes, the input rows it reads and the output rows it
-    writes once, two operations a stored entry.  Returns the rows
-    [{operator, format, offsets, tail_entries, bytes, per_cycle, ms,
-    plain_ms, bound_ms, rel_err}]."""
+    writes once, two operations a stored entry, and one cuSPARSE CSR
+    product of its nonzeros (f32 values for bf16 storage).  Returns the
+    rows [{operator, format, offsets, tail_entries, bytes, per_cycle,
+    ms, plain_ms, library_ms, bound_ms, rel_err}]."""
     from hypre_tpu_torch.ops import spmv
 
     rng = np.random.default_rng(17)
@@ -646,23 +714,193 @@ def phase_lattice_ops(amg, tol, flush, card, label):
                                f"plain evaluation: rel {rel:.3e}")
         total = nbytes + vsz * ((gathered or n_in) + n_out)
         bms, _ = bound_ms(total, 2 * entries, vdt)
+        csr = operator_csr(A, n_in, n_out, vdt)
+        lib_err = float((csr @ x - y_ref).abs().max()) / max(
+            float(y_ref.abs().max()), 1e-300)
+        require(lib_err <= op_tol, f"{label} {name}: the CSR yardstick is not "
+                                   f"the operator: rel {lib_err:.3e}")
         ms = time_cuda_ms(lambda: spmv(A, x), flush)
         plain_ms = time_cuda_ms(lambda: plain_spmv(A, x), flush, PLAIN_REPS)
+        lib_ms = time_cuda_ms(lambda: csr @ x, flush)
         rows.append({"operator": name, "format": fmt, "offsets": noff,
                      "tail_entries": ntail, "bytes": nbytes, "per_cycle": k,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                     "rel_err": rel})
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bms, "rel_err": rel})
         log(f"lattice [{label} {name}: {fmt}, {n_out}x{n_in}, {noff} offsets, "
             f"{ntail} tail entries, {nbytes / 1e6:.2f} MB stored, {k}/cycle; "
             f"{card}]: rel err {rel:.2e}; kernels {ms * 1e3:.1f} us, plain "
-            f"{plain_ms * 1e3:.1f} us, floor {bms * 1e3:.1f} us")
+            f"{plain_ms * 1e3:.1f} us, cuSPARSE CSR ({csr._nnz()} nnz) "
+            f"{lib_ms * 1e3:.1f} us, floor {bms * 1e3:.1f} us")
+        del csr
     tot = {key: sum(r["per_cycle"] * r[key] for r in rows)
-           for key in ("ms", "plain_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     log(f"lattice [{label}] per V-cycle ({card}), every operator timed alone "
         f"and summed: kernels {tot['ms'] * 1e3:.1f} us, plain "
-        f"{tot['plain_ms'] * 1e3:.1f} us, floor {tot['bound_ms'] * 1e3:.1f} us; "
-        f"{sum(r['bytes'] for r in rows) / 1e9:.3f} GB stored")
+        f"{tot['plain_ms'] * 1e3:.1f} us, cuSPARSE CSR "
+        f"{tot['library_ms'] * 1e3:.1f} us, floor {tot['bound_ms'] * 1e3:.1f} "
+        f"us; {sum(r['bytes'] for r in rows) / 1e9:.3f} GB stored")
     return rows
+
+
+# the forms the V-cycle runs each tailed operator in: A the residual and
+# the up-smooth (the down-smooth's A @ 0 is skipped), P the
+# prolongation u + P e, R the plain restriction
+CYCLE_FORMS = {"A": ("resid", "jacobi"), "P": ("axpy",), "R": ("plain",)}
+
+
+def row_kernel_tails(A) -> int:
+    """K1 launches of A that carry a tail on the row kernel (one offset
+    lane): those take its one-row-a-thread instances, which round the
+    DIA sum otherwise than the 16-byte instances the same launch without
+    a tail takes."""
+    from hypre_tpu_torch.ops import dia as D
+    from hypre_tpu_torch.ops.dia_kernel import offset_lanes
+
+    if isinstance(A, D.DIAWithTail):
+        return int(offset_lanes(A.num_rows, len(A.dia.offsets)) == 1)
+    if isinstance(A, D.ParityInterpOp) and A.class_tails is not None:
+        return sum(1 for m, t in zip(A.mats, A.class_tails) if t is not None
+                   and offset_lanes(m.num_rows, len(m.offsets)) == 1)
+    if isinstance(A, D.ParityRestrictOp) and A.tail is not None:
+        m = A.mats[D._restrict_launches(A)[0]]
+        return int(offset_lanes(m.num_rows, len(m.offsets)) == 1)
+    return 0
+
+
+def phase_fused_tails(amg, tol, flush, card, label):
+    """K1 with the tail in its launch on every tailed operator of a
+    lattice hierarchy, in the forms the cycle runs: against the
+    composition it replaced (K1 without the tail, then coo_tail, then
+    the torch epilogue; `spmv_tail_after`) bitwise in f64 but for the
+    restriction, whose tail is summed first (1e-13), and for a tail on
+    the row kernel (`row_kernel_tails`: 1e-13), tol in f32; against
+    the plain version (`plain_spmv`, then the epilogue) to tol; the same
+    bits on a second run; its launches as `kernel_launches` says.  Timed
+    beside the composition and its bound (stored bytes, x, y and the
+    form's vectors once).  Returns per-V-cycle sums (ms, composed_ms,
+    bound_ms) and the largest abs error against the plain version."""
+    from hypre_tpu_torch.ops import dia as D
+    from hypre_tpu_torch.ops.forms import OPERANDS, epilogue
+
+    rng = np.random.default_rng(31)
+    vdt = amg.levels[0].dinv.dtype
+    dev = amg.levels[0].dinv.device
+    vsz = torch.empty((), dtype=vdt).element_size()
+    tot, worst = np.zeros(3), 0.0
+    for name, A, n_in, n_out, _ in cycle_operators(amg):
+        if getattr(A, "tail", None) is None:
+            continue
+        _, _, _, _, nbytes, _ = describe(A)
+        x = torch.from_numpy(rng.standard_normal(n_in)).to(dev, vdt)
+        for form in CYCLE_FORMS[name.split()[-1]]:
+            ops = form_operands(form, n_out, vdt, dev, rng)
+            fused = lambda: D._spmv_form(A, x, form, **ops)  # noqa: E731
+            composed = lambda: epilogue(  # noqa: E731
+                form, D.spmv_tail_after(A, x), x, **ops)
+            zero_counts()
+            y = fused()
+            counts = read_counts()
+            want = {k: v for k, v in D.kernel_launches(A).items() if v}
+            require({k: v for k, v in counts.items() if v} == want,
+                    f"{label} {name} {form}: launches {counts}, the operator "
+                    f"says {want}")
+            y_old = composed()
+            y_ref = epilogue(form, plain_spmv(A, x), x, **ops)
+            torch.cuda.synchronize()
+            scale = max(float(y_ref.abs().max()), 1e-300)
+            rel_old = float((y - y_old).abs().max()) / scale
+            err = float((y - y_ref).abs().max())
+            restrict = isinstance(A, D.ParityRestrictOp)
+            if (vdt == torch.float64 and not restrict
+                    and not row_kernel_tails(A)):
+                require(torch.equal(y, y_old), f"{label} {name} {form}: K1 "
+                        f"with its tail is not bitwise K1, coo_tail, epilogue "
+                        f"(rel {rel_old:.3e})")
+            require(rel_old <= (1e-13 if vdt == torch.float64 else tol),
+                    f"{label} {name} {form}: K1 with its tail differs from "
+                    f"the composition it replaced: rel {rel_old:.3e}")
+            require(err / scale <= tol, f"{label} {name} {form}: K1 with its "
+                    f"tail differs from the plain version: rel "
+                    f"{err / scale:.3e}")
+            require(torch.equal(fused(), y), f"{label} {name} {form}: other "
+                                             f"bits on a second run")
+            worst = max(worst, err)
+            total = nbytes + vsz * (n_in + n_out * (1 + len(OPERANDS[form])))
+            bms, _ = bound_ms(total, 2 * describe(A)[3], vdt)
+            ms = time_cuda_ms(fused, flush)
+            old_ms = time_cuda_ms(composed, flush)
+            tot += [ms, old_ms, bms]
+            log(f"K1 + tail [{label} {name} {form}: {describe(A)[0]}, "
+                f"{A.tail.nnz} tail entries, {want}, on the row kernel "
+                f"{row_kernel_tails(A)}; {card}]: vs the "
+                f"composition rel {rel_old:.2e} (bitwise "
+                f"{torch.equal(y, y_old)}), vs plain rel {err / scale:.2e}; "
+                f"fused {ms * 1e3:.1f} us, K1 + coo_tail + epilogue "
+                f"{old_ms * 1e3:.1f} us; floor {bms * 1e3:.1f} us")
+    log(f"K1 + tail [{label}] per V-cycle ({card}), the tailed operators in "
+        f"the cycle's forms: fused {tot[0] * 1e3:.1f} us, composition "
+        f"{tot[1] * 1e3:.1f} us, floor {tot[2] * 1e3:.1f} us")
+    return tot, worst
+
+
+def phase_cell_dense(amg, tol, flush, card, label):
+    """The collapsed coarse solve (an `on_cells` operator) through the
+    cell_dense kernel against its plain version (the gather, torch's
+    product, the scatter into zeros): to tol, zeros on the empty cells,
+    the same bits on a second run.  Timed beside its bound (M once, the
+    indices, the gathered x and y), torch.matmul of M with the gathered
+    vector (the library call) and the four calls it replaced (flat_take,
+    the product, zeros, index_copy_).  Returns (ms, plain_ms,
+    library_ms, bound_ms, bound_by, max_abs_err, unfused_ms, shape)."""
+    from hypre_tpu_torch.ops import dia as D
+    from hypre_tpu_torch.ops.cell_dense_kernel import (
+        cell_dense_cuda, cell_dense_reference)
+    from hypre_tpu_torch.ops.gather_kernel import flat_take_cuda
+
+    A = amg.levels[-1].coarse_inv
+    require(isinstance(A, D.ScatterOp) and A.row_of_cell is not None,
+            f"{label}: the coarse solve is {type(A).__name__}, not an "
+            f"on_cells operator")
+    M, pos, roc = A.inner.inner.data, A.inner.pos, A.row_of_cell
+    vdt = amg.levels[0].dinv.dtype
+    rng = np.random.default_rng(37)
+    x = torch.from_numpy(rng.standard_normal(A.n_out)).to(M.device, vdt)
+    y = cell_dense_cuda(M, pos, roc, x)
+    y_ref = cell_dense_reference(M, pos, roc, x)
+    torch.cuda.synchronize()
+    err = float((y - y_ref).abs().max())
+    rel = err / max(float(y_ref.abs().max()), 1e-300)
+    require(rel <= tol, f"{label}: cell_dense disagrees with its plain "
+                        f"version: rel {rel:.3e}")
+    require(not bool(y[roc < 0].any()), f"{label}: cell_dense wrote an "
+                                        f"empty cell")
+    require(torch.equal(cell_dense_cuda(M, pos, roc, x), y),
+            f"{label}: cell_dense gave other bits on a second run")
+    rows, cols = M.shape
+    vsz = x.element_size()
+    nbytes = (tensor_bytes(M, pos, roc) + vsz * (cols + A.n_out))
+    bms, by = bound_ms(nbytes, 2 * rows * cols, x.dtype)
+    xg = x[pos.long()]
+    Mv = M.to(vdt)  # the library's product takes one dtype
+
+    def unfused():
+        z = Mv @ flat_take_cuda(x, pos)
+        return torch.zeros(A.n_out, dtype=z.dtype, device=z.device
+                           ).index_copy_(0, A.pos, z)
+
+    ms = time_cuda_ms(lambda: cell_dense_cuda(M, pos, roc, x), flush)
+    plain_ms = time_cuda_ms(lambda: cell_dense_reference(M, pos, roc, x), flush)
+    lib_ms = time_cuda_ms(lambda: torch.matmul(Mv, xg), flush)
+    un_ms = time_cuda_ms(unfused, flush)
+    log(f"cell_dense [{label}: M {rows}x{cols} {M.dtype}, {A.n_out} cells; "
+        f"{card}]: rel err {rel:.2e}, empty cells zero; kernel {ms * 1e3:.2f} "
+        f"us, plain {plain_ms * 1e3:.2f} us, torch.matmul on the gathered "
+        f"vector {lib_ms * 1e3:.2f} us, flat_take + product + zeros + "
+        f"index_copy_ {un_ms * 1e3:.2f} us; floor {bms * 1e3:.2f} us "
+        f"({nbytes / 1e6:.2f} MB)")
+    return (ms, plain_ms, lib_ms, bms, by, err, un_ms,
+            {"rows": rows, "cols": cols, "cells": A.n_out,
+             "dtype": str(M.dtype).split(".")[-1]})
 
 
 def hierarchy_tails(amg):
@@ -827,11 +1065,20 @@ def run_lattice(nx, opts, dev, card, label, iters_ok, plain_k1: int):
     require(counts == expected,
             f"lattice {label}: launches {counts} are not the path's "
             f"operators' {expected}: a matvec left its kernel")
-    require(counts["dia_spmv"] > plain_k1 and counts["flat_take"] > 0
-            and counts["coo_tail"] > 0,
+    require(counts["dia_spmv"] > plain_k1 and counts["dia_spmv_tail"] > 0
+            and counts["cell_dense"] > 0,
             f"lattice {label}: K1 {counts['dia_spmv']} (plain path "
-            f"{plain_k1}), flat_take {counts['flat_take']}, coo_tail "
-            f"{counts['coo_tail']}: the lattice forms did not engage")
+            f"{plain_k1}), K1 with a tail {counts['dia_spmv_tail']}, "
+            f"cell_dense {counts['cell_dense']}: the lattice forms did not "
+            f"engage")
+    require(counts["coo_tail"] == 0 and counts["flat_take"] == 0,
+            f"lattice {label}: coo_tail {counts['coo_tail']}, flat_take "
+            f"{counts['flat_take']}: a tail or the coarse solve's gather "
+            f"left the fused kernels")
+    cycles = res.num_iterations + 1
+    log(f"lattice {label}: per V-cycle K1 {counts['dia_spmv'] / cycles:g}, "
+        f"of them with a tail {counts['dia_spmv_tail'] / cycles:g}, "
+        f"cell_dense {counts['cell_dense'] / cycles:g}")
     return amg, res, counts, setup_s, solve_s
 
 
@@ -842,19 +1089,29 @@ def counted_wrappers():
     from hypre_tpu_torch.ops.ell_kernel import ell_spmv_cuda
     from hypre_tpu_torch.ops.gather_kernel import flat_take_cuda, take_along_axis_cuda
     from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda
+    from hypre_tpu_torch.ops.cell_dense_kernel import cell_dense_cuda
 
     return {"dia_spmv": dia_spmv_cuda, "ell_spmv": ell_spmv_cuda,
             "take_along_axis": take_along_axis_cuda, "flat_take": flat_take_cuda,
-            "coo_tail": coo_tail_cuda}
+            "coo_tail": coo_tail_cuda, "cell_dense": cell_dense_cuda}
 
 
 def zero_counts() -> None:
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda
+
     for fn in counted_wrappers().values():
         fn.launches = 0
+    dia_spmv_cuda.tail_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counted_wrappers().items()}
+    """Each kernel's launches, and "dia_spmv_tail": K1's launches that
+    carried a tail (counted by K1's wrapper beside its launches)."""
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda
+
+    counts = {name: fn.launches for name, fn in counted_wrappers().items()}
+    counts["dia_spmv_tail"] = dia_spmv_cuda.tail_launches
+    return counts
 
 
 def ptxas_summary(out: str) -> str:
@@ -875,8 +1132,8 @@ def build_all():
     """Build every library from the sources, nvcc and cc at once.
     Returns [(name, seconds, compiler log)]."""
     from hypre_tpu_torch import native
-    from hypre_tpu_torch.ops import (dia_kernel, ell_kernel, gather_kernel,
-                                     tail_kernel)
+    from hypre_tpu_torch.ops import (cell_dense_kernel, dia_kernel, ell_kernel,
+                                     gather_kernel, tail_kernel)
 
     def timed_build(name, fn):
         t0 = time.perf_counter()
@@ -885,6 +1142,7 @@ def build_all():
 
     jobs = (("dia_spmv.cu", dia_kernel.load), ("ell_spmv.cu", ell_kernel.load),
             ("gather.cu", gather_kernel.load), ("coo_tail.cu", tail_kernel.load),
+            ("cell_dense.cu", cell_dense_kernel.load),
             ("host_kernels.c", native.load))
     with ThreadPoolExecutor(len(jobs)) as ex:
         return list(ex.map(lambda j: timed_build(*j), jobs))
@@ -945,7 +1203,7 @@ def main() -> int:
     require(res_g.num_iterations == res_c.num_iterations == 16 and dx < 1e-9,
             "24^3 lattice path differs between the card and the CPU")
     require(forms == [describe(l.A)[0] for l in amg_c.levels]
-            and any("scatter" in f for f in forms),
+            and any(f.startswith(("scatter", "on_cells")) for f in forms),
             f"24^3 lattice hierarchy {forms}: the relocation did not engage")
     del amg_g, amg_c
 
@@ -977,6 +1235,9 @@ def main() -> int:
     require(launches > 0, "the f64 slice did not launch K1")
     require(ell_launches == ell_expected > 0,
             "the f64 slice's ELL matvecs did not all launch the ELL kernel")
+    require(path64 == expected_launches(amg, res.num_iterations),
+            f"the f64 slice's launches {path64} are not its operators' "
+            f"{expected_launches(amg, res.num_iterations)}")
     ell64, ell_err, ell_forms64 = phase_ell(amg, 1e-12, flush, card, "f64")
     del amg, res
 
@@ -984,6 +1245,8 @@ def main() -> int:
     amg, res, lat64, _, _ = run_lattice(
         NX, lattice_options(NX, dtype="float64"), dev, card, "f64",
         {ORACLE_F64}, launches)
+    fused64, fused_err = phase_fused_tails(amg, 1e-12, flush, card, "f64")
+    cell64 = phase_cell_dense(amg, 1e-12, flush, card, "f64")
     tail64, tail_err, tail_entries = phase_tail(amg, 1e-12, flush, card, "f64")
     take64, take_shapes = phase_path_gathers(amg, flush, card, "f64")
     lat_rows64 = phase_lattice_ops(amg, 1e-12, flush, card, "f64")
@@ -1014,6 +1277,9 @@ def main() -> int:
     require(launches32 > 0, "the f32/bf16 slice did not launch K1")
     require(ell_launches32 == per_cycle * (res.num_iterations + 1) > 0,
             "the f32/bf16 slice's ELL matvecs did not all launch the ELL kernel")
+    require(path32 == expected_launches(amg, res.num_iterations),
+            f"the f32/bf16 slice's launches {path32} are not its operators' "
+            f"{expected_launches(amg, res.num_iterations)}")
     phase_ell(amg, 1e-5, flush, card, "bf16/f32")
     del amg, res
 
@@ -1022,6 +1288,8 @@ def main() -> int:
         NX, lattice_options(NX, dtype="float32", mat_dtype="bfloat16",
                             nongalerkin_tol=0.02), dev, card, "f32/bf16",
         {PRODUCTION_F32 - 1, PRODUCTION_F32, PRODUCTION_F32 + 1}, launches32)
+    fused32, _ = phase_fused_tails(amg, 1e-5, flush, card, "bf16/f32")
+    cell32 = phase_cell_dense(amg, 1e-4, flush, card, "f32")
     phase_tail(amg, 1e-5, flush, card, "bf16/f32")
     phase_path_gathers(amg, flush, card, "bf16/f32")
     lat_rows32 = phase_lattice_ops(amg, 1e-5, flush, card, "bf16/f32")
@@ -1044,8 +1312,13 @@ def main() -> int:
 
     def lattice_rows(rows):
         keys = ("operator", "format", "offsets", "tail_entries", "bytes",
-                "per_cycle", "ms", "bound_ms")
+                "per_cycle", "ms", "library_ms", "bound_ms")
         return [{k: r[k] for k in keys} for r in rows]
+
+    def fused_cycle(tot):
+        """The tailed operators of one lattice V-cycle in its forms."""
+        return dict(zip(("ms", "unfused_ms", "bound_ms"), tot),
+                    bound_by="bytes", per="v_cycle")
 
     def form_times(forms, per):
         """{form: {ms, unfused_ms, bound_ms, bound_by, max_abs_err, per}}"""
@@ -1059,6 +1332,13 @@ def main() -> int:
               "hypre_tpu/ops/pallas_dia.py:104", err, ms, plain_ms, lib_ms,
               bms, by, per="launch",
               forms=form_times(k1_forms["96^3 f64"], "launch"),
+              # K1 launches that carried a tail, and the tailed operators
+              # of a lattice V-cycle against K1 + coo_tail + epilogue
+              tail_launches={"lattice f64": lat64["dia_spmv_tail"],
+                             "lattice f32/bf16": lat32["dia_spmv_tail"]},
+              tail_max_abs_err=fused_err,
+              tail_forms={"f64": fused_cycle(fused64),
+                          "f32_bf16": fused_cycle(fused32)},
               # the lattice hierarchies' operators, each whole (its K1
               # launches, its tail, its gather), L2 flushed
               lattice_f64=lattice_rows(lat_rows64),
@@ -1088,6 +1368,17 @@ def main() -> int:
     kernels.append(entry("coo_tail", "hypre_tpu_torch/csrc/coo_tail.cu",
                          "hypre_tpu/ops/dia.py:87", tail_err, *tail64[:5],
                          per="v_cycle", entries=tail_entries))
+    # the collapsed coarse solve of the f64 lattice path, one launch; the
+    # gather it holds is K2 (c)'s in the system (GatherOp,
+    # hypre_tpu/ops/dia.py:876-880)
+    ms, plain_ms, lib_ms, bms, by, err, un_ms, shape = cell64
+    kernels.append(entry("cell_dense", "hypre_tpu_torch/csrc/cell_dense.cu",
+                         "scripts/exp_mosaic_gather.py:52", err, ms, plain_ms,
+                         lib_ms, bms, by, per="launch", shape=shape,
+                         unfused_ms=un_ms, f32=dict(zip(
+                             ("ms", "plain_ms", "library_ms", "bound_ms"),
+                             cell32[:4]), unfused_ms=cell32[6],
+                             shape=cell32[7])))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,10 +15,13 @@ Layout changes:
     kernel takes them (`ELLMatrix` checks this).
   * bfloat16 leaves keep their bits.
   * Lattice forms (read by class name): a COOTail's `seg` becomes the
-    segment pointers the port keeps; GatherOp keeps int32 positions (the
-    flat_take kernel's), ScatterOp gets int64 ones (torch's indexed
-    write); parity matrices lose their padding like any DIA; a
-    `coarse_inv` that is an operator (the collapsed sub-cycle) is
+    segment pointers and the row pointer the port keeps, and an
+    interpolation's tail is also split by parity class (as the port's
+    build does); GatherOp keeps int32 positions (the flat_take
+    kernel's), ScatterOp gets int64 ones (torch's indexed write), and a
+    scatter of a gathered dense operator on one position map becomes the
+    port's `on_cells` form; parity matrices lose their padding like any
+    DIA; a `coarse_inv` that is an operator (the collapsed sub-cycle) is
     carried as one.
 """
 
@@ -28,8 +31,9 @@ import numpy as np
 import torch
 
 from .ops.csr import ELLMatrix
-from .ops.dia import (COOTail, DenseMatrix, DIAMatrix, DIAWithTail, GatherOp,
-                      ParityInterpOp, ParityRestrictOp, ScatterOp)
+from .ops.dia import (DenseMatrix, DIAMatrix, DIAWithTail, GatherOp,
+                      ParityInterpOp, ParityRestrictOp, ScatterOp, on_cells,
+                      split_interp_tail, tail_on_rows)
 from .solvers.amg.boomeramg import AMGLevel
 
 
@@ -40,16 +44,12 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tail(T, device):
+def _tail(T, n_rows: int, device):
     if T is None:
         return None
-    seg = np.asarray(T.seg)
-    nseg = int(np.asarray(T.rows_u).shape[0])
-    seg_ptr = np.concatenate(([0], np.cumsum(np.bincount(seg, minlength=nseg))))
-    return COOTail(rows_u=_tensor(np.asarray(T.rows_u, np.int32), device),
-                   seg_ptr=_tensor(seg_ptr.astype(np.int32), device),
-                   cols=_tensor(np.asarray(T.cols, np.int32), device),
-                   vals=_tensor(T.vals, device))
+    rows = np.asarray(T.rows_u, np.int64)[np.asarray(T.seg)]
+    return tail_on_rows(rows, _tensor(np.asarray(T.cols, np.int32), device),
+                        _tensor(T.vals, device), n_rows)
 
 
 def _matrix(M, device):
@@ -57,20 +57,33 @@ def _matrix(M, device):
         return None
     kind = type(M).__name__
     if kind == "DIAWithTail":
-        return DIAWithTail(dia=_matrix(M.dia, device), tail=_tail(M.tail, device))
+        return DIAWithTail(dia=_matrix(M.dia, device),
+                           tail=_tail(M.tail, int(M.dia.num_rows), device))
     if kind == "GatherOp":
         return GatherOp(inner=_matrix(M.inner, device),
                         pos=_tensor(np.asarray(M.pos, np.int32), device))
     if kind == "ScatterOp":
+        g, pos = M.inner, np.asarray(M.pos, np.int64)
+        if (type(g).__name__ == "GatherOp"
+                and type(g.inner).__name__ == "DenseMatrix"
+                and np.array_equal(np.asarray(g.pos), pos)):
+            return on_cells(_matrix(g.inner, device), pos, int(M.n_out), device)
         return ScatterOp(inner=_matrix(M.inner, device),
                          pos=_tensor(np.asarray(M.pos, np.int64), device),
                          n_out=int(M.n_out))
     if kind in ("ParityRestrictOp", "ParityInterpOp"):
-        cls = ParityRestrictOp if kind == "ParityRestrictOp" else ParityInterpOp
-        return cls(mats=tuple(_matrix(m, device) for m in M.mats),
-                   fine_shape=tuple(int(s) for s in M.fine_shape),
-                   factors=tuple(int(f) for f in M.factors),
-                   tail=_tail(M.tail, device))
+        mats = tuple(_matrix(m, device) for m in M.mats)
+        shape = tuple(int(s) for s in M.fine_shape)
+        factors = tuple(int(f) for f in M.factors)
+        if kind == "ParityRestrictOp":
+            return ParityRestrictOp(mats=mats, fine_shape=shape,
+                                    factors=factors, tail=_tail(
+                                        M.tail, mats[0].num_rows, device))
+        tail = _tail(M.tail, int(np.prod(shape)), device)
+        return ParityInterpOp(
+            mats=mats, fine_shape=shape, factors=factors, tail=tail,
+            class_tails=(None if tail is None
+                         else split_interp_tail(tail, shape, factors)))
     n, m = int(M.num_rows), int(M.num_cols)
     if hasattr(M, "offsets"):  # DIAMatrix
         return DIAMatrix(data=_tensor(np.asarray(M.data)[:, :n], device),

@@ -7,7 +7,9 @@
 // which XLA runs as separate ops on the TPU (no Pallas kernel there).  A
 // tail holds the entries of a relocated operator that sit on diagonals too
 // sparse to be worth a streamed DIA row; it is applied right after the DIA
-// part (K1) or the parity sum produced y.
+// part (K1) or the parity sum produced y.  On the solver path the tail now
+// rides in K1's own launch (csrc/dia_spmv.cu, the same sum in the same
+// order); this kernel is the form for a tail with no K1 launch beside it.
 //
 // Design:
 //   * Rows are sorted and distinct (rows_u), and the entries of one row

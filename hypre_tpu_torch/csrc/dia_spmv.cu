@@ -1,5 +1,7 @@
-// Square DIA SpMV for Hopper (sm_90a), with fused epilogues:
+// Square DIA SpMV for Hopper (sm_90a), with fused epilogues and an
+// optional COO tail:
 //   ax[i] = sum_k widen(data[k, i]) * x[i + off[k]]   (taps outside [0, n) skipped)
+//   ax[i] = ax[i] + sum_{e in [tail_ptr[i], tail_ptr[i+1])} widen(tail_vals[e]) * tail_x[tail_cols[e]]
 //   plain  y = ax        resid  y = f - ax        axpy  y = u + ax
 //   jacobi y = u + (w * d) * (f - ax), x = u
 //
@@ -9,7 +11,9 @@
 // 64-offset calls to fit VMEM; none of that carries over.  The epilogues
 // are the elementwise work that follows the fine-level matvec in the
 // V-cycle (hypre_tpu/solvers/amg/relax.py::jacobi, the residual), which
-// XLA fuses on the TPU.
+// XLA fuses on the TPU.  The tail is hypre_tpu/ops/dia.py::tail_apply
+// (:87), the exact remainder of a lattice operator on diagonals too rare
+// to stream, which the JAX package applies right after the DIA part.
 //
 // Design:
 //   * Offsets by value: up to 8 taps (the 96^3 fine level has 7) come in
@@ -51,12 +55,36 @@
 //     form.  The order is fixed, so the result is the same every run; it
 //     is not the offset order of the one-lane path.  The wrapper picks S
 //     from the row and offset counts (ops/dia_kernel.py::offset_lanes).
+//   * The tail rides in the launch that makes ax.  Alone it is bound by
+//     launches, not bytes: a 96^3 tail holds 10^3-10^4 entries (a few
+//     KB), under 1 us of traffic, against ~5 us for a launch of its own,
+//     and on the DIAWithTail levels the form's epilogue then ran as
+//     unfused torch ops after it.  Here the row pointer (int32 [n + 1],
+//     built at freeze time) gives each row its segment.  In the offset-
+//     lane kernel the last lane, which has the fewest taps, reads the
+//     row's pointers before its taps and sums the segment after them,
+//     and lane 0 adds it after the lane reduction.  In the row kernel a
+//     launch with a tail takes the one-row-a-thread instances (its
+//     pointers read before the taps): the 16-byte instances, the plain
+//     path's, carry no tail code, which kept their registers and their
+//     time.  The segment is summed from zero in stored order with
+//     mul_rn / add_rn, four entries' loads in flight, and added to ax
+//     before the epilogue (rows with an empty segment are left as they
+//     are), so in f64 the result is bitwise K1, then the separate tail
+//     kernel (csrc/coo_tail.cu), then the torch epilogue.  tail_x is K1's
+//     x unless the caller names another vector (the parity restriction:
+//     its tail gathers from the flat fine vector, not from the parity
+//     part K1 reads).  A null tail_ptr is a branch that is the same for
+//     every thread, not another template instance.  noff == 0 with a
+//     tail is legal (ax = 0 plus the tail).
 //
 // What bounds it: device-memory bytes.  One call needs data, x, y and
 // the form's vectors once: (noff * sizeof(D) + 2 * sizeof(V)) * n for
 // the plain form, 31.9 MB in f32 and 63.7 MB in f64 for the 96^3
 // 7-point operator, a floor of ~9.5 us (f32) and ~19 us (f64) at the
-// data-sheet 3.35 TB/s (derived; PERF.md records the measured time).
+// data-sheet 3.35 TB/s (derived; PERF.md records the measured time).  A
+// tail adds its entries (value, column, one gathered x) and 4 * (n + 1)
+// bytes of row pointer.
 //
 // Plain C interface, loaded with ctypes (hypre_tpu_torch/ops/dia_kernel.py):
 // one entry point per form and dtype pair, each launches on the given
@@ -138,7 +166,38 @@ struct Args {
   const V* d;
   V w;
   V* y;
+  // the COO tail, or tail_ptr == nullptr: entries of row i are
+  // [tail_ptr[i], tail_ptr[i + 1]), each tail_vals[e] * tail_x[tail_cols[e]]
+  const int32_t* tail_ptr;
+  const int32_t* tail_cols;
+  const D* tail_vals;
+  const V* tail_x;
 };
+
+constexpr int kTailBatch = 4;  // tail entries whose loads are in flight at once
+
+// The tail entries [e0, e1) summed from zero in stored order.  The
+// products of a batch are formed before they are added, so their loads
+// overlap; the adds keep the order.
+template <typename D, typename V>
+__device__ __forceinline__ V tail_sum(const Args<D, V>& a, int32_t e0,
+                                      int32_t e1) {
+  V t = V(0);
+  int32_t e = e0;
+  for (; e + kTailBatch <= e1; e += kTailBatch) {
+    V p[kTailBatch];
+#pragma unroll
+    for (int u = 0; u < kTailBatch; ++u)
+      p[u] = mul_rn((V)widen(__ldg(a.tail_vals + e + u)),
+                    __ldg(a.tail_x + __ldg(a.tail_cols + e + u)));
+#pragma unroll
+    for (int u = 0; u < kTailBatch; ++u) t = add_rn(t, p[u]);
+  }
+  for (; e < e1; ++e)
+    t = add_rn(t, mul_rn((V)widen(__ldg(a.tail_vals + e)),
+                         __ldg(a.tail_x + __ldg(a.tail_cols + e))));
+  return t;
+}
 
 template <typename D, typename V, int F, bool VEC, typename I>
 __global__ void __launch_bounds__(kThreads)
@@ -149,6 +208,15 @@ dia_spmv_kernel(Args<D, V> a, Taps<I> taps, int noff, I n, I lo, I hi) {
   V acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = V(0);
+  // the row's tail segment, its pointers read before the taps so the
+  // reads overlap them (the 16-byte instances take no tail)
+  int32_t e0 = 0, e1 = 0;
+  if constexpr (!VEC) {
+    if (a.tail_ptr != nullptr) {
+      e0 = __ldg(a.tail_ptr + i0);
+      e1 = __ldg(a.tail_ptr + i0 + 1);
+    }
+  }
 
   // one tap: data[k, i0..i0+R) times x[i0 + r + off].  On the 16-byte
   // path an interior tap whose offset is a multiple of R (0, +-nx,
@@ -191,6 +259,10 @@ dia_spmv_kernel(Args<D, V> a, Taps<I> taps, int noff, I n, I lo, I hi) {
   } else {
     for (int k = 0; k < noff; ++k) tap(k, (I)__ldg(a.offsets + k), true);
   }
+  if constexpr (!VEC) {
+    if (a.tail_ptr != nullptr && e1 != e0)
+      acc[0] = add_rn(acc[0], tail_sum(a, e0, e1));
+  }
 
   V ef[R], eu[R], ed[R], out[R];
   if constexpr (F == kResid || F == kJacobi) load_rows<false>(a.f + i0, ef);
@@ -219,12 +291,23 @@ constexpr int kMaxLanes = 32;
 
 // blockDim = (kLaneRows, S): thread (rx, s) sums the taps k = s, s + S,
 // ... of row blockIdx.x * kLaneRows + rx; lane 0 reduces and writes.
+// The last lane, which has the fewest taps, reads the row's tail
+// pointers before its taps (their latency overlaps the taps) and sums
+// the segment after them; lane 0 adds it after the lane reduction.
 template <typename D, typename V, int F, typename I>
 __global__ void __launch_bounds__(kLaneRows * kMaxLanes)
 dia_spmv_lanes_kernel(Args<D, V> a, int noff, I n) {
   __shared__ V part[kMaxLanes * kLaneRows];
+  __shared__ V tail_part[kLaneRows];
+  __shared__ bool has_tail[kLaneRows];
   const int rx = threadIdx.x, s = threadIdx.y, S = blockDim.y;
   const I i = (I)blockIdx.x * kLaneRows + rx;
+  const bool tail_lane = a.tail_ptr != nullptr && s == S - 1 && i < n;
+  int32_t e0 = 0, e1 = 0;
+  if (tail_lane) {
+    e0 = __ldg(a.tail_ptr + i);
+    e1 = __ldg(a.tail_ptr + i + 1);
+  }
   V acc = V(0);
   if (i < n) {
 #pragma unroll 4
@@ -234,11 +317,16 @@ dia_spmv_lanes_kernel(Args<D, V> a, int noff, I n) {
         acc += (V)widen(__ldcs(a.data + (I)k * n + i)) * __ldg(a.x + j);
     }
   }
+  if (tail_lane) {
+    has_tail[rx] = e1 != e0;
+    if (e1 != e0) tail_part[rx] = tail_sum(a, e0, e1);
+  }
   part[s * kLaneRows + rx] = acc;
   __syncthreads();
   if (s != 0 || i >= n) return;
   V ax = part[rx];
   for (int t = 1; t < S; ++t) ax = add_rn(ax, part[t * kLaneRows + rx]);
+  if (a.tail_ptr != nullptr && has_tail[rx]) ax = add_rn(ax, tail_part[rx]);
   V out;
   if constexpr (F == kPlain) {
     out = ax;
@@ -277,15 +365,19 @@ template <typename D, typename V, int F>
 int launch(const void* data, const void* offsets_dev, const int64_t* offs,
            int64_t noff, const void* x, const void* f, const void* u,
            const void* d, double w, void* y, int64_t n, int vec, int wide,
-           int lanes, void* stream) {
+           int lanes, const void* tail_ptr, const void* tail_cols,
+           const void* tail_vals, const void* tail_x, void* stream) {
   const Args<D, V> a{(const D*)data, (const int64_t*)offsets_dev,
                      (const V*)x, (const V*)f, (const V*)u, (const V*)d,
-                     (V)w, (V*)y};
+                     (V)w, (V*)y, (const int32_t*)tail_ptr,
+                     (const int32_t*)tail_cols, (const D*)tail_vals,
+                     (const V*)(tail_x != nullptr ? tail_x : x)};
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
   if ((noff > kMaxByValue || lanes > 1) && offsets_dev == nullptr)
     return (int)cudaErrorInvalidValue;
   if (lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
+  if (tail_ptr != nullptr) vec = 0;  // the 16-byte instances take no tail
   if (lanes > 1) {
     if (wide) go_lanes<D, V, F, int64_t>(a, noff, n, lanes, st);
     else go_lanes<D, V, F, int32_t>(a, noff, n, lanes, st);
@@ -316,9 +408,11 @@ int launch(const void* data, const void* offsets_dev, const int64_t* offs,
       const void* data, const void* offsets_dev, const int64_t* offsets,      \
       int64_t noff, const void* x, const void* f, const void* u,              \
       const void* d, double w, void* y, int64_t n, int vec, int wide,       \
-      int lanes, void* stream) {                                              \
+      int lanes, const void* tail_ptr, const void* tail_cols,                 \
+      const void* tail_vals, const void* tail_x, void* stream) {              \
     return launch<D, V, F>(data, offsets_dev, offsets, noff, x, f, u, d, w,   \
-                           y, n, vec, wide, lanes, stream);                   \
+                           y, n, vec, wide, lanes, tail_ptr, tail_cols,       \
+                           tail_vals, tail_x, stream);                        \
   }
 
 #define DIA_FORMS(DT, D, V)              \

@@ -24,11 +24,16 @@ relocated onto a regular cell lattice (`relocate_to_cells`) gets its
 grid transfers as sums of square DIA operators, one per fine-parity
 class (`ParityRestrictOp`, `ParityInterpOp`); `GatherOp` / `ScatterOp`
 wrap a compact operator below the last relocated level.  On the card
-every DIA part is a K1 launch, every tail one `coo_tail` launch
-(ops/tail_kernel.py) and every GatherOp's x[pos] one `flat_take` launch
-(ops/gather_kernel.py).  Unlike the JAX package there is no width
-padding and no deferred host image: a DIA image is `torch.zeros` on the
-device filled by one indexed write of its compact (index, value) pairs.
+every DIA part is a K1 launch and every tail rides in the K1 launch
+beside it (`dia_spmv(..., tail=)`): a DIAWithTail in any form is one
+launch, each parity class of an interpolation carries its share of the
+tail, a restriction's tail rides on its first launch.  A dense operator
+on relocated cells (`on_cells`, the collapsed coarse solve) is one
+`cell_dense` launch (ops/cell_dense_kernel.py); every other GatherOp's
+x[pos] is one `flat_take` launch (ops/gather_kernel.py).  Unlike the
+JAX package there is no width padding and no deferred host image: a DIA
+image is `torch.zeros` on the device filled by one indexed write of its
+compact (index, value) pairs.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 from .. import native
 from .csr import CSRMatrix, ELLMatrix, to_device, torch_dtype
+from .cell_dense_kernel import cell_dense
 from .dia_kernel import dia_spmv_cuda, dia_spmv_reference
 from .forms import epilogue
 from .gather_kernel import flat_take
@@ -138,12 +144,15 @@ class COOTail:
     evaluation is split by diagonal frequency.
 
     The JAX package keeps `seg` (entry -> index into rows_u); the port
-    keeps the segment pointers the kernel walks, and derives `seg`."""
+    keeps the segment pointers `coo_tail` walks, and derives `seg`.  K1
+    carries a tail in its own launch through `row_ptr`, the same
+    segments over every output row of the operator."""
 
     rows_u: torch.Tensor   # int32 [nseg]      distinct output rows, sorted
     seg_ptr: torch.Tensor  # int32 [nseg + 1]  entries of row s: [seg_ptr[s], seg_ptr[s+1])
     cols: torch.Tensor     # int32 [T]
     vals: torch.Tensor     # [T]
+    row_ptr: torch.Tensor  # int32 [n_rows + 1] entries of output row i: [row_ptr[i], row_ptr[i+1])
 
     @property
     def nnz(self) -> int:
@@ -157,6 +166,11 @@ class COOTail:
             torch.arange(n, dtype=torch.int32, device=self.rows_u.device),
             torch.diff(self.seg_ptr).long())
 
+    def k1(self, x=None) -> tuple:
+        """The tail as K1 takes it (`dia_spmv(..., tail=)`), gathering
+        from x, or from K1's own x when None."""
+        return (self.row_ptr, self.cols, self.vals, x)
+
 
 def tail_apply(tail: COOTail, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """y += tail @ x, in place on y (the tensor the DIA part just made):
@@ -164,14 +178,34 @@ def tail_apply(tail: COOTail, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return coo_tail(tail.vals, tail.cols, tail.seg_ptr, tail.rows_u, x, y)
 
 
-def _build_tail(rows, cols, vals, dtype, device) -> COOTail:
-    order = np.argsort(rows, kind="stable")
-    rows, cols, vals = rows[order], cols[order], vals[order]
+def tail_on_rows(rows: np.ndarray, cols: torch.Tensor, vals: torch.Tensor,
+                 n_rows: int) -> COOTail:
+    """The COOTail of entries (cols, vals: int32 and value tensors on the
+    device) whose host output rows `rows` are sorted, on an operator of
+    n_rows output rows."""
+    rows = np.asarray(rows, dtype=np.int64)
+    if len(rows) and (np.diff(rows) < 0).any():
+        raise ValueError("tail_on_rows: rows must be sorted")
     rows_u, counts = np.unique(rows, return_counts=True)
     seg_ptr = np.concatenate(([0], np.cumsum(counts)))
-    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)  # noqa: E731
-    return COOTail(rows_u=i32(rows_u), seg_ptr=i32(seg_ptr), cols=i32(cols),
-                   vals=to_device(vals, torch_dtype(dtype), device))
+    row_ptr = np.concatenate(
+        ([0], np.cumsum(np.bincount(rows, minlength=n_rows))))
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(vals.device)  # noqa: E731
+    return COOTail(rows_u=i32(rows_u), seg_ptr=i32(seg_ptr), cols=cols,
+                   vals=vals, row_ptr=i32(row_ptr))
+
+
+def _build_tail(rows, cols, vals, dtype, device, n_rows=None) -> COOTail:
+    """The tail of COO entries on an operator of n_rows output rows (by
+    default one past the largest row), each row's entries in the order
+    given."""
+    order = np.argsort(rows, kind="stable")
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    if n_rows is None:
+        n_rows = int(rows[-1]) + 1 if len(rows) else 0
+    return tail_on_rows(
+        rows, torch.from_numpy(cols.astype(np.int32)).to(device),
+        to_device(vals, torch_dtype(dtype), device), n_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,15 +252,42 @@ class GatherOp:
 
 @dataclasses.dataclass(frozen=True)
 class ScatterOp:
-    """Apply-then-embed: y = zeros(n_out); y[pos] = inner @ x."""
+    """Apply-then-embed: y = zeros(n_out); y[pos] = inner @ x.
+
+    `row_of_cell` is set (by `on_cells`) on a ScatterOp(GatherOp(dense))
+    that gathers from and scatters to the same positions: output entry
+    c takes the dense operator's row row_of_cell[c], -1 for none.  That
+    operator is one `cell_dense` launch on the card."""
 
     inner: object
     pos: torch.Tensor  # int64 [inner.num_rows], as torch's indexed write takes it
     n_out: int
+    row_of_cell: torch.Tensor | None = None  # int32 [n_out]
 
     @property
     def num_rows(self) -> int:
         return self.n_out
+
+
+def on_cells(dense: DenseMatrix, cells: np.ndarray, n_cells: int,
+             device) -> ScatterOp:
+    """A square dense operator on points that sit at the distinct
+    positions `cells` of an n_cells lattice: y[cells[r]] = sum_j
+    dense[r, j] * x[cells[j]], zero off `cells`."""
+    cells = np.asarray(cells, dtype=np.int64)
+    if dense.num_rows != dense.num_cols or len(cells) != dense.num_rows:
+        raise ValueError(f"on_cells: a square operator with one cell a row, "
+                         f"got {dense.num_rows}x{dense.num_cols} on "
+                         f"{len(cells)} cells")
+    row_of_cell = np.full(n_cells, -1, dtype=np.int32)
+    row_of_cell[cells] = np.arange(len(cells), dtype=np.int32)
+    if (row_of_cell >= 0).sum() != len(cells):
+        raise ValueError("on_cells: the cells are not distinct")
+    return ScatterOp(
+        inner=GatherOp(inner=dense, pos=torch.from_numpy(
+            cells.astype(np.int32)).to(device)),
+        pos=torch.from_numpy(cells).to(device), n_out=n_cells,
+        row_of_cell=torch.from_numpy(row_of_cell).to(device))
 
 
 def _uniq_offsets(offs: np.ndarray, n: int, m: int):
@@ -282,7 +343,7 @@ def build_embedded_dia(M, rpos: np.ndarray, cpos: np.ndarray, n_emb: int,
         if low.any() and not low.all():
             in_tail = low[k]
             tail = _build_tail(rows_emb[in_tail], cols_emb[in_tail],
-                               vals[in_tail], dtype, device)
+                               vals[in_tail], dtype, device, n_rows=n_emb)
             # the kept diagonals, renumbered
             renum = np.cumsum(~low) - 1
             rows_emb, vals, k = (rows_emb[~in_tail], vals[~in_tail],
@@ -385,6 +446,14 @@ class ParityInterpOp:
     factors: tuple
     # exact rare-diagonal remainder: rows = FLAT fine, cols = cells
     tail: COOTail | None = None
+    # the same entries split by the parity class of their row, on cell
+    # rows (one COOTail or None a class), as the classes' K1 launches
+    # carry them; set whenever `tail` is
+    class_tails: tuple | None = None
+
+    def __post_init__(self):
+        if (self.tail is None) != (self.class_tails is None):
+            raise ValueError("ParityInterpOp: class_tails goes with tail")
 
     @property
     def num_rows(self) -> int:
@@ -456,7 +525,7 @@ def build_parity_restrict(M, rcell, fine_shape, factors, dtype, device,
         low = _parity_tail_mask(rows_cell, ccell, par, ncells, tail_min)
         if low is not None:
             tail = _build_tail(rows_cell[low], cols_fine[low], vals[low],
-                               dtype, device)
+                               dtype, device, n_rows=ncells)
             rows_cell, ccell, par, vals = (
                 rows_cell[~low], ccell[~low], par[~low], vals[~low]
             )
@@ -477,19 +546,46 @@ def build_parity_interp(M, ccol, fine_shape, factors, dtype, device,
     rcell, par = _cells_of_fine(Mc.row.astype(np.int64), fine_shape, factors)
     cols_cell, vals = ccol[Mc.col], Mc.data
     rows_fine = Mc.row.astype(np.int64)
-    tail = None
+    nparity = fx * fy * fz
+    tail = class_tails = None
     if tail_min:
         low = _parity_tail_mask(rcell, cols_cell, par, ncells, tail_min)
         if low is not None:
             tail = _build_tail(rows_fine[low], cols_cell[low], vals[low],
-                               dtype, device)
+                               dtype, device, n_rows=nx * ny * nz)
+            class_tails = split_interp_tail(tail, fine_shape, factors)
             rcell, cols_cell, par, vals = (
                 rcell[~low], cols_cell[~low], par[~low], vals[~low]
             )
-    mats = _per_parity_dia(rcell, cols_cell, par, vals, ncells, fx * fy * fz,
+    mats = _per_parity_dia(rcell, cols_cell, par, vals, ncells, nparity,
                            dtype, device)
     return ParityInterpOp(mats=mats, fine_shape=tuple(fine_shape),
-                          factors=tuple(factors), tail=tail)
+                          factors=tuple(factors), tail=tail,
+                          class_tails=class_tails)
+
+
+def split_interp_tail(tail: COOTail, fine_shape, factors) -> tuple:
+    """An interpolation's tail (rows = flat fine) split by the parity
+    class of its rows, on cell rows: one COOTail (or None) a class.  A
+    fine row is one (cell, class) pair, and within a class the cells rise
+    with the fine rows, so each class's tail holds its rows' entries in
+    the order the whole tail does, values untouched."""
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    ncells = (nx // fx) * (ny // fy) * (nz // fz)
+    counts = torch.diff(tail.seg_ptr).long().cpu()
+    rows = torch.repeat_interleave(tail.rows_u.long().cpu(), counts).numpy()
+    cells, parity = _cells_of_fine(rows, fine_shape, factors)
+    out = []
+    for p in range(fx * fy * fz):
+        m = np.flatnonzero(parity == p)
+        if not len(m):
+            out.append(None)
+            continue
+        idx = torch.from_numpy(m).to(tail.vals.device)
+        out.append(tail_on_rows(cells[m], tail.cols[idx], tail.vals[idx],
+                                ncells))
+    return tuple(out)
 
 
 def parity_offset_count(ops) -> int:
@@ -611,48 +707,85 @@ def relocate_to_cells(pos, fine_shape, factors, max_load=0.9):
 # The polymorphic matvec
 # ---------------------------------------------------------------------------
 
+def _restrict_launches(A: ParityRestrictOp) -> list:
+    """The parity classes a restriction launches K1 for: those with
+    diagonals, or the first class alone when only a tail is left."""
+    live = [b for b, m in enumerate(A.mats) if m.offsets]
+    return live or ([0] if A.tail is not None else [])
+
+
+def _interp_tails(A: ParityInterpOp) -> tuple:
+    return A.class_tails or (None,) * len(A.mats)
+
+
 def _parity_restrict(A: ParityRestrictOp, x: torch.Tensor) -> torch.Tensor:
     """One strided copy splits x into [B, ncells]; then one K1 launch
     per non-empty parity matrix, chained through K1's axpy form (the JAX
-    package sums over the union of offsets instead: another order)."""
+    package sums over the union of offsets instead: another order).  The
+    tail (rows = cells, cols = flat fine) rides on the first launch and
+    gathers from x itself: it is summed first, where the JAX package
+    adds it last."""
     X = parity_split(x, A.fine_shape, A.factors)
     acc = None
-    for b, m in enumerate(A.mats):
-        if not m.offsets:
-            continue
-        acc = (dia_spmv(m, X[b]) if acc is None
-               else dia_spmv(m, X[b], "axpy", u=acc))
+    for b in _restrict_launches(A):
+        if acc is None:
+            acc = dia_spmv(A.mats[b], X[b], tail=(
+                None if A.tail is None else A.tail.k1(x)))
+        else:
+            acc = dia_spmv(A.mats[b], X[b], "axpy", u=acc)
     if acc is None:
         acc = torch.zeros(A.num_rows, dtype=x.dtype, device=x.device)
-    if A.tail is not None:  # rows = cells, cols = flat fine
-        tail_apply(A.tail, x, acc)
     return acc
 
 
 def _parity_interp(A: ParityInterpOp, x: torch.Tensor) -> torch.Tensor:
-    """One K1 launch per non-empty parity matrix into a [B, ncells]
-    buffer, then one permuted copy merges it onto the fine lattice."""
+    """One K1 launch per parity class with diagonals or tail entries
+    into a [B, ncells] buffer, each carrying its class's share of the
+    tail, then one permuted copy merges it onto the fine lattice."""
     Y = torch.empty(len(A.mats), A.num_cols, dtype=x.dtype, device=x.device)
-    for b, m in enumerate(A.mats):
-        if m.offsets:
-            dia_spmv(m, x, out=Y[b])
+    for b, (m, t) in enumerate(zip(A.mats, _interp_tails(A))):
+        if m.offsets or t is not None:
+            dia_spmv(m, x, out=Y[b], tail=None if t is None else t.k1())
         else:
             Y[b].zero_()
-    y = parity_merge(Y, A.fine_shape, A.factors)
-    if A.tail is not None:  # rows = flat fine, cols = cells
-        tail_apply(A.tail, x, y)
-    return y
+    return parity_merge(Y, A.fine_shape, A.factors)
+
+
+def spmv_tail_after(A, x: torch.Tensor) -> torch.Tensor:
+    """A x for a tailed operator (DIAWithTail, ParityRestrictOp,
+    ParityInterpOp) as the port ran it before its tails rode in K1: the
+    DIA parts through dia_spmv alone, then the whole tail through
+    `tail_apply` (`coo_tail` on the card).  The reference the fused
+    path is held against; on no solver path."""
+    if isinstance(A, DIAWithTail):
+        return tail_apply(A.tail, x, dia_spmv(A.dia, x))
+    if isinstance(A, ParityRestrictOp):
+        X = parity_split(x, A.fine_shape, A.factors)
+        y = torch.zeros(A.num_rows, dtype=x.dtype, device=x.device)
+        live = [b for b, m in enumerate(A.mats) if m.offsets]
+        for k, b in enumerate(live):
+            y = (dia_spmv(A.mats[b], X[b]) if k == 0
+                 else dia_spmv(A.mats[b], X[b], "axpy", u=y))
+    elif isinstance(A, ParityInterpOp):
+        Y = torch.zeros(len(A.mats), A.num_cols, dtype=x.dtype, device=x.device)
+        for b, m in enumerate(A.mats):
+            if m.offsets:
+                dia_spmv(m, x, out=Y[b])
+        y = parity_merge(Y, A.fine_shape, A.factors)
+    else:
+        raise TypeError(f"spmv_tail_after: no tail on {type(A).__name__}")
+    return y if A.tail is None else tail_apply(A.tail, x, y)
 
 
 def _matvec(A, x: torch.Tensor) -> torch.Tensor:
     """A x for the operators that have no fused kernel form."""
     if isinstance(A, DenseMatrix):
         return dense_spmv(A, x)
-    if isinstance(A, DIAWithTail):
-        return tail_apply(A.tail, x, dia_spmv(A.dia, x))
     if isinstance(A, GatherOp):
         return spmv(A.inner, flat_take(x, A.pos))
     if isinstance(A, ScatterOp):
+        if A.row_of_cell is not None:
+            return cell_dense(A.inner.inner.data, A.inner.pos, A.row_of_cell, x)
         y = spmv(A.inner, x)
         return torch.zeros(A.n_out, dtype=y.dtype, device=y.device
                            ).index_copy_(0, A.pos, y)
@@ -666,7 +799,9 @@ def _matvec(A, x: torch.Tensor) -> torch.Tensor:
 def kernel_launches(A) -> dict:
     """{kernel name: launches} of one application of A to a CUDA vector,
     in any form (a form adds torch elementwise ops, never a launch of
-    these kernels)."""
+    these kernels); "dia_spmv_tail" counts the K1 launches that carry a
+    tail (`dia_spmv_cuda.tail_launches`).  No operator launches
+    `coo_tail`: every tail rides in K1."""
     if isinstance(A, DIAMatrix):
         return {"dia_spmv": 1}
     if isinstance(A, ELLMatrix):
@@ -674,21 +809,31 @@ def kernel_launches(A) -> dict:
     if isinstance(A, DenseMatrix):
         return {}
     if isinstance(A, DIAWithTail):
-        return {"dia_spmv": 1, "coo_tail": 1}
+        return {"dia_spmv": 1, "dia_spmv_tail": 1}
     if isinstance(A, ScatterOp):
+        if A.row_of_cell is not None:
+            return {"cell_dense": 1}
         return kernel_launches(A.inner)
     if isinstance(A, GatherOp):
         inner = kernel_launches(A.inner)
         return {**inner, "flat_take": inner.get("flat_take", 0) + 1}
-    if isinstance(A, (ParityRestrictOp, ParityInterpOp)):
-        n = {"dia_spmv": sum(1 for m in A.mats if m.offsets)}
-        return {**n, "coo_tail": 1} if A.tail is not None else n
+    if isinstance(A, ParityRestrictOp):
+        n = {"dia_spmv": len(_restrict_launches(A))}
+        return {**n, "dia_spmv_tail": 1} if A.tail is not None else n
+    if isinstance(A, ParityInterpOp):
+        tails = _interp_tails(A)
+        n = {"dia_spmv": sum(1 for m, t in zip(A.mats, tails)
+                             if m.offsets or t is not None)}
+        k = sum(1 for t in tails if t is not None)
+        return {**n, "dia_spmv_tail": k} if k else n
     raise TypeError(f"kernel_launches: unsupported operator {type(A).__name__}")
 
 
 def _spmv_form(A, x: torch.Tensor, form: str, **operands) -> torch.Tensor:
     if isinstance(A, DIAMatrix):
         return dia_spmv(A, x, form, **operands)
+    if isinstance(A, DIAWithTail):
+        return dia_spmv(A.dia, x, form, tail=A.tail.k1(), **operands)
     if isinstance(A, ELLMatrix):
         return ell_spmv(A, x, form, **operands)
     return epilogue(form, _matvec(A, x), x, **operands)

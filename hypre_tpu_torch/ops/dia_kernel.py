@@ -12,12 +12,19 @@ int64 copy on the card (`launch_plan`).  Many offsets on few rows (the
 relocated lattice operators) are split over `offset_lanes` lanes a row.
 Each launch, whatever the form, adds one to `dia_spmv_cuda.launches`.  `out=` names the tensor the
 kernel writes (a row of a [B, n] buffer, for the parity operators of
-ops/dia.py); without it the wrapper allocates the result.
+ops/dia.py); without it the wrapper allocates the result.  `tail=(ptr,
+cols, vals, tail_x)` adds a COO tail to the sum before the form's
+epilogue, in the same launch (ops/dia.py::COOTail: `ptr` the int32 row
+pointer over the n output rows, `cols` int32, `vals` in data's dtype,
+`tail_x` the vector it gathers from, x when None); a launch that carries
+one also adds one to `dia_spmv_cuda.tail_launches`.
 
 `dia_spmv_reference` is the torch form of the JAX package's XLA shift
 path (hypre_tpu/ops/dia.py:267-278): x is zero-padded, each diagonal
 multiplies a shifted slice, and the products are summed in offset
-order; then the form's epilogue.  It runs on any device; the CPU tests
+order; then the tail's rows, each summed from zero in stored order and
+added to the rows it has entries on; then the form's epilogue.  It runs
+on any device; the CPU tests
 use it, and chip_smoke.py holds the kernel against it on the card.
 """
 
@@ -41,13 +48,14 @@ _DTYPES = {
 MAX_BY_VALUE = 8
 
 # (data, offsets on the card, offsets on the host, noff, x, f, u, d, w,
-#  y, n, vec, wide, lanes, stream), every entry point alike
+#  y, n, vec, wide, lanes, tail ptr, tail cols, tail vals, tail x,
+#  stream), every entry point alike
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p,
               ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
              + [ctypes.c_void_p] * 4 + [ctypes.c_double, ctypes.c_void_p,
                                         ctypes.c_int64, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p])
+                                        ctypes.c_int, ctypes.c_int]
+             + [ctypes.c_void_p] * 5)
 # the offset-lane kernel: at most this many lanes a row, each with at
 # least MIN_TAPS_A_LANE taps, until the card has FILL_THREADS threads
 MAX_LANES = 32
@@ -119,18 +127,46 @@ def vector_path(n: int, data: torch.Tensor, *vectors) -> bool:
         t.data_ptr() % 16 == 0 for t in (data, *vectors) if t is not None)
 
 
+def _tail_operands(tail, data: torch.Tensor, x: torch.Tensor, n: int):
+    """(ptr, cols, vals, tail_x) of a K1 tail, tail_x defaulting to x;
+    raises unless ptr is int32 [n + 1], cols int32 and vals of data's
+    dtype are one [T], tail_x is 1-D of x's dtype, all on x's device.
+    The indices are trusted: ptr rising from 0 to T, cols < len(tail_x)."""
+    ptr, cols, vals, tx = tail
+    tx = x if tx is None else tx
+    if ptr.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise TypeError(f"dia_spmv tail: ptr and cols must be int32, got "
+                        f"{ptr.dtype} and {cols.dtype}")
+    if ptr.shape != (n + 1,):
+        raise ValueError(f"dia_spmv tail: ptr {tuple(ptr.shape)} must be "
+                         f"[{n} + 1], one entry a row and one past the last")
+    if cols.dim() != 1 or vals.shape != cols.shape:
+        raise ValueError(f"dia_spmv tail: vals {tuple(vals.shape)} and cols "
+                         f"{tuple(cols.shape)} must be one [T]")
+    if vals.dtype != data.dtype or tx.dtype != x.dtype or tx.dim() != 1:
+        raise TypeError(f"dia_spmv tail: vals {vals.dtype} and tail_x "
+                        f"{tx.dtype} must be data's {data.dtype} and a 1-D "
+                        f"vector of x's {x.dtype}")
+    if any(t.device != x.device for t in (ptr, cols, vals, tx)):
+        raise ValueError("dia_spmv tail: device mismatch with x "
+                         f"{x.device}")
+    return ptr, cols, vals, tx
+
+
 def dia_spmv_cuda(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
                   form: str = "plain", *, f=None, u=None, d=None,
-                  w: float = 1.0, out=None, lanes=None) -> torch.Tensor:
+                  w: float = 1.0, out=None, lanes=None,
+                  tail=None) -> torch.Tensor:
     """The form (ops/forms.py) of y = A x, A[i, i + offsets[k]] =
     data[k, i], on the card (K1), one launch.
 
     data [noff, n], x [n] and the form's vectors [n] are contiguous
-    CUDA tensors on one device; offsets is a tuple of noff ints.  `out`,
-    when given, is a contiguous [n] tensor like x that aliases no
-    operand; the kernel writes the result there.  `lanes` overrides
-    `offset_lanes` (a power of two up to MAX_LANES; for the sweep of
-    lane_sweep.py)."""
+    CUDA tensors on one device; offsets is a tuple of noff ints (none
+    is legal).  `out`, when given, is a contiguous [n] tensor like x
+    that aliases no operand; the kernel writes the result there.
+    `lanes` overrides `offset_lanes` (a power of two up to MAX_LANES;
+    for the sweep of lane_sweep.py).  `tail` (see the module note) adds
+    a COO tail to A x before the epilogue; its tensors are contiguous."""
     if data.dim() != 2 or x.dim() != 1:
         raise ValueError("data must be [noff, n], x [n]")
     noff, n = data.shape
@@ -156,6 +192,10 @@ def dia_spmv_cuda(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
             and out.device == x.device and out.is_contiguous()):
         raise ValueError("dia_spmv_cuda: out must be a contiguous tensor of "
                          "x's shape, dtype and device")
+    if tail is not None:
+        tail = _tail_operands(tail, data, x, n)
+        if not all(t.is_contiguous() for t in tail):
+            raise ValueError("dia_spmv_cuda needs a contiguous tail")
     lib, _ = load()
     y = torch.empty_like(x) if out is None else out
     by_value, wide = launch_plan(n, tuple(offsets))
@@ -167,28 +207,35 @@ def dia_spmv_cuda(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
     offs_dev = (None if by_value and lanes == 1 else
                 _device_offsets(tuple(offsets), x.device).data_ptr())
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    vec = vector_path(n, data, x, f, u, d, y)
+    # a tail takes the one-row-a-thread instances (csrc/dia_spmv.cu)
+    vec = tail is None and vector_path(n, data, x, f, u, d, y)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"dia_spmv_{form}_{dt}")(
             data.data_ptr(), offs_dev, _host_offsets(tuple(offsets)), noff,
             x.data_ptr(), ptr(f), ptr(u), ptr(d), float(w), y.data_ptr(),
-            n, int(vec), int(wide), lanes, stream)
+            n, int(vec), int(wide), lanes,
+            *(ptr(t) for t in (tail or (None,) * 4)), stream)
     if rc != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {rc}")
     dia_spmv_cuda.launches += 1
+    if tail is not None:
+        dia_spmv_cuda.tail_launches += 1
     return y
 
 
 dia_spmv_cuda.launches = 0
+dia_spmv_cuda.tail_launches = 0
 
 
 def dia_spmv_reference(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
                        form: str = "plain", *, f=None, u=None, d=None,
-                       w: float = 1.0, out=None) -> torch.Tensor:
+                       w: float = 1.0, out=None, tail=None) -> torch.Tensor:
     """Plain torch DIA SpMV, the same sum as K1 (taps outside [0, n)
-    read the zero padding), then the form's epilogue; copied into `out`
-    when that is given."""
+    read the zero padding), plus the tail when one is given (each row's
+    segment summed from zero in stored order, `segment_reduce`, and
+    added where the segment is not empty), then the form's epilogue;
+    copied into `out` when that is given."""
     n = x.shape[0]
     if not offsets:
         acc = torch.zeros_like(x)
@@ -199,5 +246,10 @@ def dia_spmv_reference(data: torch.Tensor, offsets: tuple, x: torch.Tensor,
         for k, off in enumerate(offsets):
             t = data[k].to(x.dtype) * xp[lo + off: lo + off + n]
             acc = t if acc is None else acc + t
+    if tail is not None:
+        ptr, cols, vals, tx = _tail_operands(tail, data, x, n)
+        contrib = vals.to(x.dtype) * torch.index_select(tx, 0, cols)
+        per_row = torch.segment_reduce(contrib, "sum", offsets=ptr.long())
+        acc = torch.where(torch.diff(ptr) > 0, acc + per_row, acc)
     y = epilogue(form, acc, x, f=f, u=u, d=d, w=w)
     return y if out is None else out.copy_(y)

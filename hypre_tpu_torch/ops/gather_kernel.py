@@ -18,8 +18,10 @@ versions (`torch.take_along_dim`, `torch.index_select`) run on any
 device: the CPU tests hold them against numpy, and chip_smoke.py holds
 the kernels against them on the card.  `flat_take` is the solver's
 entry: GatherOp's x[pos] (ops/dia.py) goes through it, to the kernel
-for a CUDA tensor and to the plain version for a CPU tensor.  The
-take_along_axis gathers are on no solver path.
+for a CUDA tensor and to the plain version for a CPU tensor, but for
+the gather of a dense operator on cells (the collapsed coarse solve),
+which runs inside the cell_dense kernel.  The take_along_axis gathers
+are on no solver path.
 """
 
 from __future__ import annotations

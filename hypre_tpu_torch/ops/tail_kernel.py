@@ -16,13 +16,17 @@ each segment summed in stored order; every launch adds one to
 
 `coo_tail_reference` is the plain version: `index_select`, multiply, an
 ordered segment sum (`torch.segment_reduce`), `index_add_` on the
-distinct rows.  It runs on any device; the CPU path and the CPU tests use
-it, and chip_smoke.py holds the kernel against it on the card.  Why not
-this on the card's path: it is four launches where the levels that carry
-tails are bound by launches, and a segment sum by `index_add_` would use
-atomics, whose order changes from run to run.
+distinct rows.  It runs on any device; the CPU tests use it, and
+chip_smoke.py holds the kernel against it on the card.  Why not this on
+the card: it is four launches where the levels that carry tails are
+bound by launches, and a segment sum by `index_add_` would use atomics,
+whose order changes from run to run.
 
-`coo_tail` dispatches on the device of x alone.
+`coo_tail` dispatches on the device of x alone.  The solver's tails ride
+in K1's launch (ops/dia_kernel.py, `tail=`), the same sum in the same
+order; this kernel is the form for a tail with no K1 launch beside it
+(`ops/dia.py::tail_apply`, and `spmv_tail_after`, the composition the
+fused path is held against).
 """
 
 from __future__ import annotations

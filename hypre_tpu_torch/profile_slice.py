@@ -110,7 +110,8 @@ def _measure(amg, tag: str, table: bool) -> None:
                        ("K1, the offset-lane kernel alone", "dia_spmv_lanes_kernel"),
                        ("ELL ell_spmv", "ell_spmv_kernel"),
                        ("flat_take", "flat_take_kernel"),
-                       ("coo_tail", "coo_tail_kernel")):
+                       ("coo_tail", "coo_tail_kernel"),
+                       ("cell_dense", "cell_dense_kernel")):
         mine = [e for e in events if key in e.name]
         us = sum(e.time_range.end - e.time_range.start for e in mine)
         print(f"{tag}: {label}: {len(mine)} launches, "

@@ -44,7 +44,7 @@ from ...ops.csr import CSRMatrix, to_device, torch_dtype
 from ...ops.dia import (DENSE_MAX_ROWS, DIA_MAX_OFFSETS, DenseMatrix,
                         GatherOp, ScatterOp, build_embedded_dia,
                         build_parity_interp, build_parity_restrict,
-                        embedded_offset_count, freeze_auto,
+                        embedded_offset_count, freeze_auto, on_cells,
                         parity_offset_count_plan, relocate_to_cells, spmv,
                         spmv_axpy, spmv_resid, tail_min_count)
 from ...utils.timing import timed
@@ -648,12 +648,9 @@ class BoomerAMG:
 
     def _on_cells(self, dense: DenseMatrix, rcell, ncells: int) -> ScatterOp:
         """A compact square operator applied on the cell lattice its
-        points were relocated to: gather, apply, scatter."""
-        dev = self.device
-        return ScatterOp(
-            inner=GatherOp(inner=dense, pos=torch.from_numpy(
-                rcell.astype(np.int32)).to(dev)),
-            pos=torch.from_numpy(rcell).to(dev), n_out=ncells)
+        points were relocated to: gather, apply, scatter (one
+        `cell_dense` launch on the card)."""
+        return on_cells(dense, rcell, ncells, self.device)
 
     def _build_coarse_collapse(self) -> None:
         """Materialize the sub-V-cycle below the first small level as one

@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1, the ELL SpMV, each in its four forms, the
-gathers and the COO tail) and the lattice operators that run on them, on
+"""The CUDA kernels (K1, the ELL SpMV, each in its four forms, K1 with a
+COO tail in its launch, the gathers, the COO tail and the cell-dense
+kernel) and the lattice operators that run on them, on
 the card against their plain versions (marker `cuda`; each
 test skips where torch sees no CUDA device).  This file imports
 neither jax nor hypre_tpu, so it runs on a GPU machine without them:
@@ -29,6 +30,9 @@ from hypre_tpu_torch.ops.gather_kernel import (
     flat_take_cuda, flat_take_reference, take_along_axis_cuda,
     take_along_axis_reference)
 from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda, coo_tail_reference
+from hypre_tpu_torch.ops.cell_dense_kernel import (
+    cell_dense_cuda, cell_dense_reference)
+from hypre_tpu_torch.ops.forms import epilogue
 
 
 @pytest.fixture
@@ -428,9 +432,12 @@ def _parity_problem(seed=5):
 @pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
 def test_parity_operators_run_k1_on_card(cuda, tail_min, dtype, xdtype, tol):
     """ParityInterpOp: one K1 launch a non-empty parity matrix into the
-    [B, ncells] buffer; ParityRestrictOp: the same count, chained through
-    K1's axpy form; each tail one coo_tail launch.  Held against the same
-    operators on the CPU (the plain versions)."""
+    [B, ncells] buffer, each carrying its class's share of the tail;
+    ParityRestrictOp: the same count, chained through K1's axpy form,
+    its tail on the first launch; no coo_tail launch.  Held against the
+    same operators on the CPU (the plain versions), and in f64 against
+    the composition the fused tail replaced (bitwise for the interp,
+    1e-13 for the restriction, whose tail is summed first)."""
     shape, factors, ccol, M, xc, xf = _parity_problem()
     for build, Mx, xin in ((tdia.build_parity_interp, M, xc),
                            (tdia.build_parity_restrict, M.T.tocsr(), xf)):
@@ -439,22 +446,35 @@ def test_parity_operators_run_k1_on_card(cuda, tail_min, dtype, xdtype, tol):
         assert (A.tail is not None) == bool(tail_min)
         want = tdia.kernel_launches(A)
         assert want["dia_spmv"] == sum(1 for m in A.mats if m.offsets) == 4
+        assert "coo_tail" not in want
         # more than 8 offsets somewhere: K1's device-array path
         assert max(len(m.offsets) for m in A.mats) > 8
-        counts = (dia_spmv_cuda.launches, coo_tail_cuda.launches)
+        counts = (dia_spmv_cuda.launches, coo_tail_cuda.launches,
+                  dia_spmv_cuda.tail_launches)
         x = torch.from_numpy(xin).to(xdtype)
         y = spmv(A, x.to(cuda))
         assert dia_spmv_cuda.launches == counts[0] + want["dia_spmv"]
-        assert coo_tail_cuda.launches == counts[1] + want.get("coo_tail", 0)
+        assert coo_tail_cuda.launches == counts[1]
+        assert dia_spmv_cuda.tail_launches == counts[2] + want.get(
+            "dia_spmv_tail", 0)
         assert y.is_contiguous() and y.shape == (A.num_rows,)
         assert _rel(y.cpu(), spmv(C, x)) <= tol
+        assert torch.equal(spmv(A, x.to(cuda)), y)  # a fixed order
+        if tail_min and dtype == "float64":
+            old = tdia.spmv_tail_after(A, x.to(cuda))
+            if build is tdia.build_parity_interp:
+                assert torch.equal(y, old)
+            else:
+                assert _rel(y, old) <= 1e-13
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
 def test_dia_with_tail_runs_k1_and_coo_tail_on_card(cuda, dtype, xdtype, tol):
     """An embedded operator with hundreds of offsets and a tail: one K1
-    launch (offsets through the device array) and one coo_tail launch."""
+    launch (offsets through the device array) that carries the tail, in
+    every form, and no coo_tail launch; in f64 bitwise K1, then
+    coo_tail, then the torch epilogue."""
     rng = np.random.default_rng(3)
     npts, n_emb = 6000, 32_768
     pos = np.sort(rng.choice(n_emb, size=npts, replace=False))
@@ -467,11 +487,22 @@ def test_dia_with_tail_runs_k1_and_coo_tail_on_card(cuda, dtype, xdtype, tol):
     assert isinstance(A, tdia.DIAWithTail) and len(A.dia.offsets) > 64
     assert launch_plan(n_emb, A.dia.offsets) == (False, False)
     x = torch.from_numpy(rng.standard_normal(n_emb)).to(xdtype)
-    counts = (dia_spmv_cuda.launches, coo_tail_cuda.launches)
+    counts = (dia_spmv_cuda.launches, coo_tail_cuda.launches,
+              dia_spmv_cuda.tail_launches)
     y = spmv(A, x.to(cuda))
-    assert (dia_spmv_cuda.launches, coo_tail_cuda.launches) == (
-        counts[0] + 1, counts[1] + 1)
+    assert (dia_spmv_cuda.launches, coo_tail_cuda.launches,
+            dia_spmv_cuda.tail_launches) == (counts[0] + 1, counts[1],
+                                             counts[2] + 1)
     assert _rel(y.cpu(), spmv(C, x)) <= tol
+    xc = x.to(cuda)
+    for form in FORMS:
+        ops = _operands(form, n_emb, xdtype, cuda, seed=7)
+        got = tdia._spmv_form(A, xc, form, **ops)
+        want = epilogue(form, tdia.spmv_tail_after(A, xc), xc, **ops)
+        torch.cuda.synchronize()
+        assert (torch.equal(got, want) if dtype == "float64"
+                else _rel(got, want) <= tol), form
+        assert torch.equal(tdia._spmv_form(A, xc, form, **ops), got)
 
 
 @pytest.mark.cuda
@@ -504,3 +535,133 @@ def test_k1_offset_lanes_match_plain_on_card(cuda, n, noff, lanes, form,
     assert float((y - ref).abs().max()) / scale <= tol
     assert torch.equal(dia_spmv_cuda(data, offsets, x, form, lanes=lanes,
                                      **ops), y)  # a fixed order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noff,lanes", [(7, 1), (40, 1), (40, 4), (40, 16)])
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
+def test_k1_tail_in_each_kernel_is_the_composition_on_card(
+        cuda, noff, lanes, form, dtype, xdtype, tol):
+    """K1 with a tail, on the row kernel by value (7 offsets), on the row
+    kernel through the device array and on the offset-lane kernel, every
+    form: the composition it replaces (K1, coo_tail, the torch
+    epilogue), bitwise in f64; its plain version to tol; the same bits
+    on a second run; the tail from another vector.  A tailed launch on
+    the row kernel takes the one-row-a-thread instances, which round the
+    sum otherwise than the 16-byte ones, so x is one element off a
+    16-byte boundary here: the composition's K1 takes them too."""
+    rng = np.random.default_rng(noff + lanes)
+    A = csr_to_dia(laplacian_7pt(20, 20, 16), dtype, cuda)
+    n = A.num_rows
+    data, offsets = A.data, A.offsets
+    if noff > 8:  # the device array; out-of-range taps left nonzero
+        offsets = tuple(int(o) for o in np.sort(rng.choice(
+            np.arange(-500, 500), noff, replace=False)))
+        data = torch.from_numpy(rng.standard_normal((noff, n))).to(
+            cuda, getattr(torch, dtype))
+    T = tdia._build_tail(*_tail_entries(lanes, n, 2 * n, 9000), dtype, cuda,
+                         n_rows=n)
+    x = torch.empty(n + 1, dtype=xdtype, device=cuda)[1:]
+    x.copy_(torch.from_numpy(rng.standard_normal(n)))
+    assert not vector_path(n, data, x)
+    tx = torch.from_numpy(rng.standard_normal(2 * n)).to(cuda, xdtype)
+    ops = _operands(form, n, xdtype, cuda, seed=lanes)
+    before = (dia_spmv_cuda.launches, dia_spmv_cuda.tail_launches)
+    y = dia_spmv_cuda(data, offsets, x, form, lanes=lanes, tail=T.k1(tx), **ops)
+    assert (dia_spmv_cuda.launches, dia_spmv_cuda.tail_launches) == (
+        before[0] + 1, before[1] + 1)
+    ax = dia_spmv_cuda(data, offsets, x, lanes=lanes)
+    want = epilogue(form, tdia.tail_apply(T, tx, ax), x, **ops)
+    ref = dia_spmv_reference(data, offsets, x, form, tail=T.k1(tx), **ops)
+    torch.cuda.synchronize()
+    if dtype == "float64":
+        assert torch.equal(y, want)
+    scale = float(ref.abs().max()) + len(offsets) ** 0.5
+    assert float((y - want).abs().max()) / scale <= tol
+    assert float((y - ref).abs().max()) / scale <= tol
+    assert torch.equal(dia_spmv_cuda(data, offsets, x, form, lanes=lanes,
+                                     tail=T.k1(tx), **ops), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,xdtype,tol", DTYPES)
+def test_k1_with_no_diagonals_is_its_tail_on_card(cuda, dtype, xdtype, tol):
+    n = 3456
+    T = tdia._build_tail(*_tail_entries(3, n, n, 5000), dtype, cuda, n_rows=n)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(n)).to(
+        cuda, xdtype)
+    data = torch.zeros(0, n, dtype=T.vals.dtype, device=cuda)
+    y = dia_spmv_cuda(data, (), x, tail=T.k1())
+    want = tdia.tail_apply(T, x, torch.zeros_like(x))
+    torch.cuda.synchronize()
+    assert torch.equal(y, want) if dtype == "float64" else _rel(y, want) <= tol
+
+
+@pytest.mark.cuda
+def test_k1_refuses_a_bad_tail(cuda):
+    A = csr_to_dia(laplacian_7pt(6, 6, 6), "float32", cuda)
+    T = tdia._build_tail(*_tail_entries(1, 216, 216, 1000), "float32", cuda,
+                         n_rows=216)
+    x = torch.ones(216, device=cuda)
+    ptr, cols, vals, _ = T.k1()
+    with pytest.raises(ValueError, match="ptr"):
+        dia_spmv_cuda(A.data, A.offsets, x, tail=(ptr[:-1], cols, vals, None))
+    with pytest.raises(TypeError):
+        dia_spmv_cuda(A.data, A.offsets, x, tail=(ptr, cols, vals.double(), None))
+    with pytest.raises(ValueError, match="device"):
+        dia_spmv_cuda(A.data, A.offsets, x, tail=(ptr, cols.cpu(), vals, None))
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_spmv_cuda(A.data, A.offsets, x, tail=(
+            ptr, cols, vals, torch.ones(432, device=cuda)[::2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n_cells", [(1529, 3456), (1731, 3456), (7000, 9000),
+                                       (5, 40)])
+@pytest.mark.parametrize("dtype,xdtype,tol", [
+    ("float64", torch.float64, 1e-12), ("float32", torch.float32, 1e-4),
+    ("bfloat16", torch.float32, 1e-4)])
+def test_cell_dense_matches_plain_on_card(cuda, k, n_cells, dtype, xdtype, tol):
+    """One launch against the gather, the product and the scatter: to
+    tol, zeros off the cells, the same bits on a second run; 7,000
+    columns need more than 48 KB of shared memory in f64."""
+    rng = np.random.default_rng(k)
+    cells = np.sort(rng.choice(n_cells, size=k, replace=False))
+    D = tdia.DenseMatrix(torch.from_numpy(rng.standard_normal((k, k))).to(
+        cuda, getattr(torch, dtype)), k, k)
+    A = tdia.on_cells(D, cells, n_cells, cuda)
+    x = torch.from_numpy(rng.standard_normal(n_cells)).to(cuda, xdtype)
+    before = (cell_dense_cuda.launches, flat_take_cuda.launches)
+    y = spmv(A, x)
+    assert (cell_dense_cuda.launches, flat_take_cuda.launches) == (
+        before[0] + 1, before[1])
+    assert tdia.kernel_launches(A) == {"cell_dense": 1}
+    ref = cell_dense_reference(D.data, A.inner.pos, A.row_of_cell, x)
+    torch.cuda.synchronize()
+    assert _rel(y, ref) <= tol
+    off = torch.ones(n_cells, dtype=torch.bool, device=cuda)
+    off[A.pos] = False
+    assert not bool(y[off].any())
+    assert torch.equal(cell_dense_cuda(D.data, A.inner.pos, A.row_of_cell, x), y)
+
+
+@pytest.mark.cuda
+def test_cell_dense_refuses_what_it_does_not_take(cuda):
+    D = torch.ones(4, 4, device=cuda)
+    pos = torch.arange(4, dtype=torch.int32, device=cuda)
+    roc = torch.tensor([0, -1, 1, 2, 3], dtype=torch.int32, device=cuda)
+    x = torch.ones(5, device=cuda)
+    with pytest.raises(TypeError, match="unsupported"):
+        cell_dense_cuda(D.double(), pos, roc, x)
+    with pytest.raises(TypeError, match="int32"):
+        cell_dense_cuda(D, pos.long(), roc, x)
+    with pytest.raises(ValueError, match="device"):
+        cell_dense_cuda(D, pos, roc.cpu(), x)
+    with pytest.raises(ValueError, match="square"):
+        cell_dense_cuda(D[:3], pos, roc, x)
+    with pytest.raises(ValueError, match="shared"):  # 30,000 f64 values
+        big = torch.ones(1, 1, device=cuda, dtype=torch.float64).expand(
+            30_000, 30_000)
+        cell_dense_cuda(big, torch.zeros(30_000, dtype=torch.int32, device=cuda),
+                        roc, x.double())

@@ -16,6 +16,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.profile_slice",
     "hypre_tpu_torch.lane_sweep",
     "hypre_tpu_torch.models.laplacian",
+    "hypre_tpu_torch.ops.cell_dense_kernel",
     "hypre_tpu_torch.ops.csr",
     "hypre_tpu_torch.ops.dia",
     "hypre_tpu_torch.ops.dia_kernel",

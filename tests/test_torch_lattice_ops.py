@@ -20,6 +20,7 @@ import torch
 
 from hypre_tpu.ops import dia as jdia
 from hypre_tpu_torch.ops import dia as tdia
+from hypre_tpu_torch.ops.cell_dense_kernel import cell_dense_cuda
 from hypre_tpu_torch.ops.csr import to_device
 from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, offset_lanes
 from hypre_tpu_torch.ops.forms import epilogue
@@ -394,18 +395,30 @@ def test_forms_over_lattice_operators_are_matvec_then_epilogue(kind, form):
 
 
 def test_cpu_tensors_launch_no_kernel_and_counts_are_as_stated():
+    """Every tail rides in K1 (no coo_tail launch): a DIAWithTail is one
+    launch, each parity class of the interpolation carries its own share
+    of the tail, the restriction's tail rides on its first launch; a
+    dense operator on cells (`on_cells`) is one cell_dense launch."""
     dia_spmv_cuda.launches = flat_take_cuda.launches = coo_tail_cuda.launches = 0
+    dia_spmv_cuda.tail_launches = cell_dense_cuda.launches = 0
     ops = _lattice_operators()
+    rng = np.random.default_rng(5)
+    ops["on_cells"] = tdia.on_cells(ops["gather"].inner, np.sort(
+        rng.choice(4096, 700, replace=False)), 4096, "cpu")
     for kind, A in ops.items():
-        tdia.spmv(A, torch.ones(_KIND_COLS[kind], dtype=torch.float64))
-    assert (dia_spmv_cuda.launches, flat_take_cuda.launches,
-            coo_tail_cuda.launches) == (0, 0, 0)
+        tdia.spmv(A, torch.ones(_KIND_COLS.get(kind, 4096), dtype=torch.float64))
+    assert (dia_spmv_cuda.launches, dia_spmv_cuda.tail_launches,
+            flat_take_cuda.launches, coo_tail_cuda.launches,
+            cell_dense_cuda.launches) == (0, 0, 0, 0, 0)
     assert tdia.kernel_launches(ops["dia_with_tail"]) == {
-        "dia_spmv": 1, "coo_tail": 1}
+        "dia_spmv": 1, "dia_spmv_tail": 1}
     assert tdia.kernel_launches(ops["parity_interp"]) == {
-        "dia_spmv": 4, "coo_tail": 1}
+        "dia_spmv": 4, "dia_spmv_tail": 4}
+    assert tdia.kernel_launches(ops["parity_restrict"]) == {
+        "dia_spmv": 4, "dia_spmv_tail": 1}
     assert tdia.kernel_launches(ops["scatter_gather"]) == {"flat_take": 1}
     assert tdia.kernel_launches(ops["scatter"]) == {}
+    assert tdia.kernel_launches(ops["on_cells"]) == {"cell_dense": 1}
 
 
 def test_parity_ops_skip_empty_classes():
