@@ -20,7 +20,8 @@ Phases (any failure raises and the script exits non-zero):
      probes' four gathers through the kernels, hold each against its
      plain version bitwise, and time each;
   5. the 24^3 f64 slice on the card against the same on the CPU, with
-     the plain forms and with the lattice forms (relocate_min_n2=0);
+     the plain forms and with the lattice forms (relocate_min_n2=0, the
+     level-1 values from the host branch, device_rap=False);
   6. the slice in float64 at 96^3: BoomerAMG setup, freeze on the card,
      PCG (two-norm, tol 1e-6, b = ones) -- exactly 25 iterations, the
      hypre oracle count, with K1 carrying the fine-level matvecs and the
@@ -33,10 +34,11 @@ Phases (any failure raises and the script exits non-zero):
   7. the same with float32 vectors, bfloat16 matrices and
      nongalerkin_tol 0.02 at 96^3 -- 21 +- 1 iterations;
   8. the lattice path at 96^3 in both configurations: the JAX package's
-     own option defaults (level 1 embedded on the fine lattice, deeper
-     levels relocated onto cell lattices with parity transfers and COO
-     tails, the coarse sub-cycle collapsed), lattice_shape given and
-     device_rap=False -- 25 and 21 +- 1 iterations again, every DIA part
+     own option defaults (level 1 embedded on the fine lattice with its
+     values from the device RAP, deeper levels relocated onto cell
+     lattices with parity transfers and COO tails, the coarse sub-cycle
+     collapsed), lattice_shape given -- 25 and 21 +- 1 iterations
+     again, every DIA part
      a K1 launch, every tail riding in a K1 launch, the collapsed coarse
      solve one cell_dense launch, no coo_tail or flat_take launch,
      counted exactly; then K1 with its tail on every tailed operator in
@@ -49,12 +51,27 @@ Phases (any failure raises and the script exits non-zero):
      timed beside its bound and one cuSPARSE CSR product; each tail
      (coo_tail, no longer on the path) against its plain version and
      the three-call torch form, and each gather (flat_take) at the
-     path's shapes against its plain version, bitwise.
-The last two lines are the kernel report and {"ok": true, ...}.
+     path's shapes against its plain version, bitwise; then the device
+     RAP (`phase_device_rap`): level-1 A against the host product,
+     the pass against the host branch's build, and both branches'
+     FREEZE seconds, medians of 3;
+  9. (a) after step 5, `entry()` (hypre_tpu_torch/entry.py: ext+i,
+     f32/bf16, the lattice defaults at 24^3) on the card and on the CPU,
+     the same residual norm, the launches exactly as the hierarchy says;
+     (c) extended+i interpolation: at 48^3 f64 on the plain forms the
+     JAX package's count; at 96^3, f64 and f32/bf16, the plain forms and
+     the lattice forms with the device RAP, the same count (f32/bf16:
+     within one), each with its levels, gates, setup phases, device busy
+     time and kernels an iteration.  After each run of (a) and (c) every
+     operator of its hierarchy, in the forms the cycle runs it, through
+     the kernels against its plain version (`phase_hold_operators`).
+The last three lines are the slice's numbers (entry, device RAP, ext+i),
+the kernel report and {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -93,25 +110,37 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def slice_options(**kw):
+def slice_options(interp_type="classical", **kw):
     from hypre_tpu_torch.solvers.amg import BoomerAMGOptions
 
     return BoomerAMGOptions(
-        coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
+        coarsen_type="pmis", interp_type=interp_type, P_max_elmts=4,
         relax_down=18, relax_up=18, embed_level1=False,
         relocate_level2=False, collapse_coarse_n=0, **kw)
 
 
-def lattice_options(nx: int, **kw):
-    """The JAX package's own option defaults (embed_level1,
-    relocate_level2, relocate_tail, collapse_coarse_n=2048) on the nx^3
-    lattice, with the embedded level-1 values computed on the host."""
+def lattice_options(nx: int, interp_type="classical", **kw):
+    """The JAX package's own option defaults (embed_level1 with the
+    level-1 values from the device RAP, relocate_level2, relocate_tail,
+    collapse_coarse_n=2048) on the nx^3 lattice: the production pin's
+    options (tests/test_oracle_parity.py:70-84)."""
     from hypre_tpu_torch.solvers.amg import BoomerAMGOptions
 
     return BoomerAMGOptions(
-        coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
-        relax_down=18, relax_up=18, lattice_shape=(nx, nx, nx),
-        device_rap=False, **kw)
+        coarsen_type="pmis", interp_type=interp_type, P_max_elmts=4,
+        relax_down=18, relax_up=18, lattice_shape=(nx, nx, nx), **kw)
+
+
+def make_solve(amg, nx: int):
+    """The bench protocol's solve over a hierarchy: PCG, two-norm test,
+    tol 1e-6, b = ones."""
+    from hypre_tpu_torch.ops import spmv
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+
+    b = torch.ones(nx**3, dtype=amg.levels[0].dinv.dtype, device=amg.device)
+    A0 = amg.levels[0].A
+    return lambda: pcg(lambda x: spmv(A0, x), b, M=amg.precond,
+                       opts=PCGOptions(tol=1e-6, max_iter=200, two_norm=True))
 
 
 def run_slice(nx: int, opts, device):
@@ -119,9 +148,7 @@ def run_slice(nx: int, opts, device):
     calls it.  Returns (amg, result, setup_s, solve_s); on the card the
     solve is timed with CUDA events, setup with the host clock."""
     from hypre_tpu_torch.models import laplacian_7pt
-    from hypre_tpu_torch.ops import spmv
     from hypre_tpu_torch.solvers.amg import BoomerAMG
-    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
 
     dev = torch.device(device)
     t0 = time.perf_counter()
@@ -129,13 +156,7 @@ def run_slice(nx: int, opts, device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
-    b = torch.ones(nx**3, dtype=getattr(torch, opts.dtype), device=dev)
-    A0 = amg.levels[0].A
-
-    def solve():
-        return pcg(lambda x: spmv(A0, x), b, M=amg.precond,
-                   opts=PCGOptions(tol=1e-6, max_iter=200, two_norm=True))
-
+    solve = make_solve(amg, nx)
     if dev.type != "cuda":
         t0 = time.perf_counter()
         res = solve()
@@ -525,18 +546,21 @@ def cycle_operators(amg):
     return ops
 
 
-def expected_launches(amg, iterations: int) -> dict:
+def expected_launches(amg, iterations: int, two_norm: bool = True) -> dict:
     """Kernel launches of one PCG solve over this hierarchy, from the
-    operators' formats alone: iterations + 1 V-cycles and as many
-    fine-level matvecs of PCG's own (K1)."""
+    operators' formats alone: iterations + 1 V-cycles (one more without
+    the two-norm test: PCG's M(b)) and iterations + 1 fine-level matvecs
+    of PCG's own (K1)."""
     from hypre_tpu_torch.ops.dia import kernel_launches
 
     per_cycle = {name: 0 for name in read_counts()}
     for _, op, _, _, k in cycle_operators(amg):
         for name, c in kernel_launches(op).items():
             per_cycle[name] += k * c
-    per_cycle["dia_spmv"] += 1  # PCG's matvec with the fine DIA operator
-    return {name: c * (iterations + 1) for name, c in per_cycle.items()}
+    cycles = iterations + (1 if two_norm else 2)
+    out = {name: c * cycles for name, c in per_cycle.items()}
+    out["dia_spmv"] += iterations + 1  # PCG's matvecs, the fine DIA operator
+    return out
 
 
 def tensor_bytes(*tensors) -> int:
@@ -1025,6 +1049,64 @@ def phase_path_gathers(amg, flush, card, label):
     return (*tot, "bytes"), shapes
 
 
+def phase_hold_operators(amg, tol, label):
+    """Every operator of a frozen hierarchy (plain or lattice forms) in
+    each form the V-cycle runs it (CYCLE_FORMS; the coarse solve plain)
+    through its wrappers, against the plain version on the same inputs
+    (`plain_spmv`, then the torch epilogue): relative error within tol
+    (1e-4 for a dense product in float32, whose dot products run to
+    thousands of terms), the same bits on a second run, and the launches
+    of each application exactly what `kernel_launches` says of it.  So
+    K1 (with and without a tail), the ELL kernel, `flat_take` and
+    `cell_dense` are held at the shapes this hierarchy gives them.
+    Untimed.  Returns {"applications", "max_rel", "launches"}: the
+    launches of these comparisons, not of a solve."""
+    from hypre_tpu_torch.ops import dia as D
+    from hypre_tpu_torch.ops.forms import epilogue
+
+    rng = np.random.default_rng(41)
+    vdt = amg.levels[0].dinv.dtype
+    dev = amg.levels[0].dinv.device
+    n_apps, worst = 0, 0.0
+    total = {name: 0 for name in read_counts()}
+    for name, A, n_in, n_out, _ in cycle_operators(amg):
+        fmt = describe(A)[0]
+        x = torch.from_numpy(rng.standard_normal(n_in)).to(dev, vdt)
+        want = {k: v for k, v in D.kernel_launches(A).items() if v}
+        op_tol = (max(tol, 1e-4) if "dense" in fmt and vdt == torch.float32
+                  else tol)
+        for form in CYCLE_FORMS.get(name.split()[-1], ("plain",)):
+            ops = form_operands(form, n_out, vdt, dev, rng)
+            zero_counts()
+            y = D._spmv_form(A, x, form, **ops)
+            counts = read_counts()
+            y_ref = epilogue(form, plain_spmv(A, x), x, **ops)
+            torch.cuda.synchronize()
+            require(y.shape == (n_out,) and bool(torch.isfinite(y).all()),
+                    f"{label} {name} {form}: shape {tuple(y.shape)} or a "
+                    f"non-finite value")
+            rel = float((y - y_ref).abs().max()) / max(
+                float(y_ref.abs().max()), 1e-300)
+            require(rel <= op_tol, f"{label} {name} ({fmt}) {form} disagrees "
+                                   f"with its plain version: rel {rel:.3e} "
+                                   f"(tol {op_tol:g})")
+            got = {k: v for k, v in counts.items() if v}
+            require(got == want, f"{label} {name} {form}: launches {got}, the "
+                                 f"operator says {want}")
+            require(torch.equal(D._spmv_form(A, x, form, **ops), y),
+                    f"{label} {name} {form}: other bits on a second run")
+            for k, v in counts.items():
+                total[k] += v
+            n_apps += 1
+            worst = max(worst, rel)
+    log(f"operators [{label}]: {n_apps} applications (every operator in the "
+        f"cycle's forms) agree with their plain versions, max rel "
+        f"{worst:.2e} (tol {tol:g}), launches as `kernel_launches` says: "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return {"applications": n_apps, "max_rel": worst,
+            "launches": {k: v for k, v in total.items() if v}}
+
+
 def run_lattice(nx, opts, dev, card, label, iters_ok, plain_k1: int):
     """Drive the lattice path once at nx^3 with the counts set to 0 just
     before and read just after; require convergence in an allowed
@@ -1080,6 +1162,328 @@ def run_lattice(nx, opts, dev, card, label, iters_ok, plain_k1: int):
         f"of them with a tail {counts['dia_spmv_tail'] / cycles:g}, "
         f"cell_dense {counts['cell_dense'] / cycles:g}")
     return amg, res, counts, setup_s, solve_s
+
+
+# the JAX package's count on the CPU: ext+i, 48^3, f64, the plain forms,
+# the bench protocol (tests/test_torch_ext_interp.py pins the same)
+EXT48_F64 = 12
+
+
+def level_lines(amg):
+    """Per frozen level: A's form, rows, offsets, stored bytes, and the
+    forms of P and R."""
+    out = []
+    for l, lvl in enumerate(amg.levels):
+        fmt, noff, ntail, _, nb, _ = describe(lvl.A)
+        line = (f"L{l} A {fmt} {lvl.dinv.shape[0]} rows, {noff} offsets"
+                + (f" + {ntail} tail entries" if ntail else "")
+                + f", {nb / 1e6:.1f} MB")
+        for name in ("P", "R"):
+            M = getattr(lvl, name)
+            if M is not None:
+                f, o, _, _, b, _ = describe(M)
+                line += f"; {name} {f}, {o} offsets, {b / 1e6:.1f} MB"
+        out.append(line)
+    ci = amg.levels[-1].coarse_inv
+    out.append("coarse solve: " + ("dense pinv" if isinstance(ci, torch.Tensor)
+                                   else f"collapsed sub-cycle, {describe(ci)[0]}"))
+    return out
+
+
+def gates(amg) -> dict:
+    """Which of the lattice forms' gates fired in a frozen hierarchy."""
+    n0 = amg._host_A[0].shape[0]
+    embedded = len(amg.levels) > 1 and amg.levels[1].dinv.shape[0] == n0
+    l1 = describe(amg.levels[1].A) if embedded else None
+    return {
+        "embed_level1": embedded,
+        "level1_offsets": l1[1] if l1 else None,
+        "max_embedded_offsets": amg.opts.max_embedded_offsets,
+        "device_rap": embedded and amg.opts.device_rap,
+        "relocated_levels": sorted(amg._reloc_cells),
+        "relocate_max_bytes": amg.opts.relocate_max_bytes,
+        "collapsed": len(amg.levels) < len(amg._host_A),
+        "setup_levels": len(amg._host_A),
+    }
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 ulps, entrywise: the bit patterns as integers
+    ordered like the values."""
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def phase_entry(card):
+    """(a) `hypre_tpu_torch.entry.entry()` on the card and on the CPU:
+    the same relative residual norm within 1e-3 relative and x within
+    1e-4 (float32 vectors, reductions ordered otherwise on the two
+    devices); level-1 A from the device RAP within 1 bf16 ulp of the
+    CPU's (the differing entries printed); the step's ten PCG iterations (tol 1e-8 is not reached)
+    launch exactly what `kernel_launches` says of the hierarchy, K1 among
+    them.  Returns the card run's numbers."""
+    from hypre_tpu_torch.entry import entry
+
+    zero_counts()
+    t0 = time.perf_counter()
+    step, (b,) = entry(device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, r = step(b)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = read_counts()
+    amg = step.amg
+    step_c, (b_c,) = entry(device="cpu")
+    x_c, r_c = step_c(b_c)
+    r, r_c = float(r), float(r_c)
+    dx = float((x.cpu() - x_c).abs().max())
+    forms = [describe(l.A)[0] for l in amg.levels]
+    expected = expected_launches(amg, 10, two_norm=False)
+    for line in level_lines(amg):
+        log(f"entry() levels ({card}): {line}")
+    log(f"entry() ({card}): setup {setup_s:.2f} s, step {step_s * 1e3:.1f} ms; "
+        f"rel residual norm card {r:.6e}, CPU {r_c:.6e} (rel diff "
+        f"{abs(r - r_c) / r_c:.2e}); max diff of x {dx:.2e}; gates "
+        f"{gates(amg)}; launches {counts} (expected {expected})")
+    require(forms == [describe(l.A)[0] for l in step_c.amg.levels],
+            "entry(): the card's hierarchy differs from the CPU's")
+    # the device RAP's level-1 A: the same IEEE operations on both devices
+    a1, a1_c = amg.levels[1].A, step_c.amg.levels[1].A
+    ulps = bf16_ulps(a1.data.cpu(), a1_c.data)
+    log(f"entry(): device RAP L1 A ({len(a1.offsets)} offsets, bf16) card "
+        f"vs CPU: {int((ulps > 0).sum())} of {ulps.numel()} entries differ, "
+        f"at most {int(ulps.max())} ulp")
+    require(a1.offsets == a1_c.offsets and int(ulps.max()) <= 1,
+            "entry(): the device RAP differs between the card and the CPU")
+    require(1e-8 < r_c < 1e-6 and abs(r - r_c) <= 1e-3 * r_c and dx <= 1e-4,
+            "entry(): the card's step differs from the CPU's")
+    require(counts == expected and counts["dia_spmv"] > 0,
+            f"entry(): launches {counts} are not the hierarchy's {expected}")
+    held = phase_hold_operators(amg, 1e-5, "entry() f32/bf16")
+    return {"setup_s": setup_s, "step_s": step_s, "rel_residual_norm": r,
+            "cpu_rel_residual_norm": r_c, "forms": forms, "launches": counts,
+            "held": held}
+
+
+def median_s(fn, reps: int = 3) -> float:
+    """Median host seconds of fn() with the card synchronized."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def freeze_again(amg, device_rap: bool) -> dict:
+    """Freeze the same host hierarchy again with device_rap set: the
+    phases' seconds (GLOBAL_TIMER, the card synchronized)."""
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    amg.opts = dataclasses.replace(amg.opts, device_rap=device_rap)
+    amg.levels, amg._reloc_cells = [], {}
+    torch.cuda.empty_cache()
+    GLOBAL_TIMER.clear()
+    amg._freeze_hierarchy()
+    return {k: GLOBAL_TIMER.seconds(k)
+            for k in ("FREEZE", "DEVICE_RAP", "COLLAPSE")}
+
+
+def phase_device_rap(amg, card, label):
+    """(b) The device RAP on a frozen 96^3 lattice hierarchy.  Level-1 A
+    from the device pass against `build_embedded_dia` of the same host
+    A1 (what the host branch stores): the same offsets; in f64 each
+    off-diagonal entry within 1e-12 of the host value, relative, where
+    the host holds 0 within 8 eps of the largest entry, and the diagonal
+    row within 2^-24 (the pass reads the diagonal back through float32
+    before it adds the lumped mass, as the JAX package's does); in bf16
+    the entries that differ and by how many ulps, printed.  In both, the
+    same pass on the CPU over the same inputs gives the card's bits
+    (level-1 A and the transposed level-0 R).  Then the pass alone
+    (transpose + product) against the host branch's build of level-1 A
+    and level-0 R, medians of 3, the pass's peak memory beyond its
+    inputs (outputs and scratch, at most 2 GB), and FREEZE / DEVICE_RAP
+    / COLLAPSE seconds of both branches, medians of 3, from freezing the
+    same host hierarchy again (it ends frozen with the device RAP)."""
+    from hypre_tpu_torch.ops.device_rap import (dia_transpose_device,
+                                                embedded_rap_device)
+    from hypre_tpu_torch.ops.dia import build_embedded_dia
+
+    dev = amg.device
+    A1h, P0h = amg._host_A[1], amg._host_P[0]
+    n0 = amg._host_A[0].shape[0]
+    cpos0 = np.flatnonzero(amg._cf[0] > 0).astype(np.int64)
+    idx = np.arange(n0, dtype=np.int64)
+    p = amg._device_rap_plan(cpos0)
+    mdt = p["mdt"]
+    A1d, P0, A0 = amg.levels[1].A, amg.levels[0].P, amg.levels[0].A
+    host = build_embedded_dia(A1h, cpos0, cpos0, n0, mdt, dev)
+    require(A1d.offsets == host.offsets,
+            f"{label}: device RAP offsets differ from the host product's")
+    k0 = A1d.offsets.index(0)
+    d, h = A1d.data, host.data
+    out = {"offsets": len(A1d.offsets), "terms": int(p["plan"]["valid"].sum()),
+           "tmax": int(p["plan"]["tmax"])}
+    if mdt == torch.float64:
+        diff = (d - h).abs()
+        diag_rel = float((diff[k0] / h[k0].abs().clamp_min(1e-300)).max())
+        diff[k0] = 0
+        # per entry: relative to the host value where it is nonzero; where
+        # the host product holds 0 (a pattern entry summed to 0, or no
+        # entry) the pass may leave a cancellation residue of a few ulps
+        # of the operator's scale, no more
+        nz = h != 0
+        off_rel = float((diff[nz] / h[nz].abs()).max())
+        scale = float(h.abs().max())
+        resid = float(diff[~nz].max()) / scale if bool((~nz).any()) else 0.0
+        differ = int((d != h).sum())
+        log(f"device RAP [{label}] L1 A vs the host product: {out['offsets']} "
+            f"offsets, {differ} of {d.numel()} entries differ; off-diagonal "
+            f"entries max rel per entry {off_rel:.2e} (tol 1e-12), where the "
+            f"host holds 0 at most {resid:.2e} of the largest entry (tol "
+            f"8 eps = {8 * 2.0**-52:.2e}); diagonal row max rel {diag_rel:.2e} "
+            f"(tol 2^-24 = {2.0**-24:.2e})")
+        require(off_rel <= 1e-12 and resid <= 8 * 2.0**-52
+                and diag_rel <= 2.0**-24,
+                f"{label}: the device RAP's L1 A is not the host product")
+        out.update(differ=differ, offdiag_max_rel=off_rel,
+                   zero_residue_rel=resid, diag_max_rel=diag_rel)
+    else:
+        ulps = bf16_ulps(d, h)
+        hist = {u: int((ulps == u).sum()) for u in (1, 2)}
+        hist[">2"] = int((ulps > 2).sum())
+        differ = int((ulps > 0).sum())
+        log(f"device RAP [{label}] L1 A vs the host product: {out['offsets']} "
+            f"offsets, {differ} of {d.numel()} bf16 entries differ, by ulps "
+            f"{hist}, at most {int(ulps.max())}")
+        out.update(differ=differ, ulps=hist, max_ulps=int(ulps.max()))
+    del host, d, h
+    # the same pass on the CPU over the same inputs: the same gathers,
+    # IEEE products and sums in one order, so the same bits (level-1 A
+    # and level-0 R, the transpose)
+    t0 = time.perf_counter()
+    P0c, A0c = (dataclasses.replace(M, data=M.data.cpu()) for M in (P0, A0))
+    A1c, _, _ = embedded_rap_device(P0c, A0c, p["plan"], p["tol"], mdt)
+    R0c = dia_transpose_device(P0c)
+    cpu_s = time.perf_counter() - t0
+    R0 = amg.levels[0].R
+    same = (torch.equal(A1d.data.cpu(), A1c)
+            and R0.offsets == R0c.offsets and torch.equal(R0.data.cpu(), R0c.data))
+    log(f"device RAP [{label}] card vs the same pass on the CPU ({cpu_s:.1f} "
+        f"s there): L1 A and L0 R bitwise equal {same}")
+    require(same, f"{label}: the device RAP on the card differs from the "
+                  f"same pass on the CPU")
+    out["cpu_bitwise"] = same
+    del P0c, A0c, A1c, R0c
+
+    def device_pass():
+        dia_transpose_device(P0)
+        embedded_rap_device(P0, A0, p["plan"], p["tol"], mdt)
+
+    def host_build():
+        build_embedded_dia(A1h, cpos0, cpos0, n0, mdt, dev)
+        build_embedded_dia(P0h.T.tocsr(), cpos0, idx, n0, mdt, dev)
+
+    dev_s, host_s = median_s(device_pass), median_s(host_build)
+    torch.cuda.reset_peak_memory_stats(dev)
+    m0 = torch.cuda.memory_allocated(dev)
+    device_pass()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - m0
+    require(peak <= 2e9, f"{label}: the device RAP took {peak / 1e9:.2f} GB "
+                         f"beyond its inputs, more than 2 GB")
+    runs = {flag: [freeze_again(amg, flag) for _ in range(3)]
+            for flag in (False, True)}
+    med = {("device" if flag else "host"): {
+        k: float(np.median([r[k] for r in rs])) for k in rs[0]}
+        for flag, rs in runs.items()}
+    log(f"device RAP [{label}; {card}]: {out['terms']} terms (at most "
+        f"{out['tmax']} an offset) into {out['offsets']} offsets; the pass "
+        f"(transpose + product) {dev_s:.4f} s, the host branch's L1 A + L0 R "
+        f"build {host_s:.4f} s, medians of 3; peak memory of the pass beyond "
+        f"its inputs {peak / 1e9:.3f} GB; freezing again, medians of 3: "
+        f"{med}")
+    out.update(device_pass_s=dev_s, host_build_s=host_s, peak_bytes=peak,
+               freeze=med)
+    return out
+
+
+def run_ext(nx, opts, dev, card, label):
+    """(c) One ext+i run at nx^3 through run_slice, the counts set to 0
+    just before and read just after: convergence, a right solution,
+    launches exactly as `kernel_launches` says; then one more solve
+    under torch.profiler for device busy time and kernels an iteration.
+    Prints the levels, the gates and the setup phases.  Returns the
+    numbers."""
+    from hypre_tpu_torch.profile_slice import profile_solve
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    GLOBAL_TIMER.clear()
+    zero_counts()
+    amg, res, setup_s, solve_s = run_slice(nx, opts, dev)
+    counts = read_counts()
+    phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in (
+        "SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP", "FREEZE",
+        "DEVICE_RAP", "COLLAPSE")}
+    rel, bound = check_solution(amg, res, nx**3)
+    expected = expected_launches(amg, res.num_iterations)
+    _, wall, busy_us, events, _ = profile_solve(make_solve(amg, nx))
+    its = res.num_iterations
+    for line in level_lines(amg):
+        log(f"ext+i [{label}] levels: {line}")
+    g = gates(amg)
+    log(f"ext+i [{label} {nx}^3; {card}]: {its} iterations, final rel "
+        f"residual {float(res.rel_residual_norm):.3e} (true, in f64: "
+        f"{rel:.3e}, bound {bound:.1e}); setup {setup_s:.2f} s (phases "
+        f"{phases}); solve {solve_s * 1e3:.2f} ms; under the profiler wall "
+        f"{wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms (idle "
+        f"{100 * (1 - busy_us / 1e6 / wall):.1f}%), {len(events)} device "
+        f"events ({len(events) / max(its, 1):.0f} an iteration); gates {g}; "
+        f"launches {counts}")
+    require(res.converged, f"ext+i {label}: did not converge")
+    require(counts == expected, f"ext+i {label}: launches {counts} are not "
+                                f"the hierarchy's {expected}")
+    held = phase_hold_operators(
+        amg, 1e-12 if opts.dtype == "float64" else 1e-5, f"ext+i {label}")
+    return {"iterations": its, "setup_s": setup_s, "solve_s": solve_s,
+            "busy_ms": busy_us / 1e3, "wall_ms": wall * 1e3,
+            "kernels_per_iteration": len(events) / max(its, 1),
+            "phases": phases, "gates": g, "launches": counts, "held": held}
+
+
+def phase_ext(dev, card):
+    """(c) Extended+i interpolation on the card: at 48^3 f64 on the plain
+    forms exactly the JAX package's count (EXT48_F64); at 96^3 in f64
+    and in f32/bf16 (nongalerkin_tol 0.02) the plain forms and the
+    lattice forms with the device RAP, the same count in f64 and within
+    one in f32/bf16.  Returns {label: numbers}."""
+    out = {"48^3 plain f64": run_ext(
+        48, slice_options("ext+i", dtype="float64"), dev, card,
+        "48^3 plain f64")}
+    require(out["48^3 plain f64"]["iterations"] == EXT48_F64,
+            f"ext+i 48^3 f64: {out['48^3 plain f64']['iterations']} "
+            f"iterations, the JAX package's {EXT48_F64}")
+    for tag, kw in (("f64", dict(dtype="float64")),
+                    ("f32/bf16", dict(dtype="float32", mat_dtype="bfloat16",
+                                      nongalerkin_tol=0.02))):
+        for forms, opts in (("plain", slice_options("ext+i", **kw)),
+                            ("lattice", lattice_options(NX, "ext+i", **kw))):
+            label = f"96^3 {forms} {tag}"
+            out[label] = run_ext(NX, opts, dev, card, label)
+            torch.cuda.empty_cache()
+        its = (out[f"96^3 plain {tag}"]["iterations"],
+               out[f"96^3 lattice {tag}"]["iterations"])
+        require(abs(its[0] - its[1]) <= (tag != "f64"),
+                f"ext+i 96^3 {tag}: plain {its[0]} and lattice {its[1]} "
+                f"iterations")
+    return out
+
 
 
 def counted_wrappers():
@@ -1191,8 +1595,11 @@ def main() -> int:
     require(res_g.num_iterations == res_c.num_iterations == 16 and dx < 1e-9,
             "24^3 slice differs between the card and the CPU")
     # the same through the lattice forms (the relocation engages at this
-    # size only with relocate_min_n2=0)
-    l24 = lattice_options(24, dtype="float64", relocate_min_n2=0)
+    # size only with relocate_min_n2=0), with the level-1 values from the
+    # host branch (device_rap=False); the 96^3 lattice runs take the
+    # device RAP
+    l24 = lattice_options(24, dtype="float64", relocate_min_n2=0,
+                          device_rap=False)
     amg_g, res_g, _, _ = run_slice(24, l24, dev)
     amg_c, res_c, _, _ = run_slice(24, l24, "cpu")
     dx = float((res_g.x.cpu() - res_c.x).abs().max() / res_c.x.abs().max())
@@ -1206,6 +1613,8 @@ def main() -> int:
             and any(f.startswith(("scatter", "on_cells")) for f in forms),
             f"24^3 lattice hierarchy {forms}: the relocation did not engage")
     del amg_g, amg_c
+    # -- (a) entry()'s configuration: card vs CPU ---------------------------
+    entry_run = phase_entry(card)
 
     # -- 6. the slice in f64 at 96^3 ----------------------------------------
     n = NX**3
@@ -1250,6 +1659,7 @@ def main() -> int:
     tail64, tail_err, tail_entries = phase_tail(amg, 1e-12, flush, card, "f64")
     take64, take_shapes = phase_path_gathers(amg, flush, card, "f64")
     lat_rows64 = phase_lattice_ops(amg, 1e-12, flush, card, "f64")
+    rap64 = phase_device_rap(amg, card, "f64")
     del amg, res
     torch.cuda.empty_cache()
 
@@ -1293,7 +1703,12 @@ def main() -> int:
     phase_tail(amg, 1e-5, flush, card, "bf16/f32")
     phase_path_gathers(amg, flush, card, "bf16/f32")
     lat_rows32 = phase_lattice_ops(amg, 1e-5, flush, card, "bf16/f32")
+    rap32 = phase_device_rap(amg, card, "f32/bf16")
     del amg, res, flush
+    torch.cuda.empty_cache()
+
+    # -- (c) extended+i interpolation ---------------------------------------
+    ext = phase_ext(dev, card)
 
     # `launches` counts the two f64 96^3 runs, the plain path's and the
     # lattice path's, each driven with the counts at 0 just before and
@@ -1306,7 +1721,10 @@ def main() -> int:
                 "path_launches": {"plain f64": path64[name],
                                   "lattice f64": lat64[name],
                                   "plain f32/bf16": path32[name],
-                                  "lattice f32/bf16": lat32[name]},
+                                  "lattice f32/bf16": lat32[name],
+                                  "entry": entry_run["launches"][name],
+                                  **{f"ext+i {k}": v["launches"][name]
+                                     for k, v in ext.items()}},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -1354,6 +1772,12 @@ def main() -> int:
             ("flat_take", "K2 (c) flat", "scripts/exp_mosaic_gather.py:52")):
         ms, plain_ms, lib_ms, bms, by, err = gather_times[probe]
         extra = {}
+        if name == "take_along_axis":
+            # the probes' shapes: K2 (a), (b) and K3
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err")
+            extra = {"probes": {p: dict(zip(keys, gather_times[p])) for p in (
+                "K2 (a) lanes", "K2 (b) sublanes", "K3 grid")}}
         if name == "flat_take":
             # on the path: one f64 lattice V-cycle's gathers (bitwise
             # equal to the plain version), beside the probe's shape
@@ -1379,6 +1803,10 @@ def main() -> int:
                              ("ms", "plain_ms", "library_ms", "bound_ms"),
                              cell32[:4]), unfused_ms=cell32[6],
                              shape=cell32[7])))
+    # the slice's own numbers: entry(), the device RAP, ext+i
+    log(json.dumps({"entry": entry_run, "device_rap": {"f64": rap64,
+                                                       "f32_bf16": rap32},
+                    "ext_i": ext}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -231,6 +231,113 @@ int64_t classical_interp_fill(
     return nnz;
 }
 
+/* Extended+i interpolation fill (par_lr_interp.c:1041-1860, serial).
+ * Inputs: CSR of A (sorted), CSR pattern of S (sorted), cf markers
+ * (>=0 C, -1 F, -3 SF).  Outputs to preallocated COO arrays; returns
+ * nnz(P) (caller re-runs with a larger cap if exceeded). */
+int64_t ext_pi_interp(const int64_t *A_indptr, const int64_t *A_indices,
+                      const double *A_data, const int64_t *S_indptr,
+                      const int64_t *S_indices, const int64_t *cf,
+                      int64_t n, int64_t *out_rows, int64_t *out_cols,
+                      double *out_vals, int64_t cap)
+{
+    int64_t *cmap = (int64_t *)malloc(n * sizeof(int64_t));
+    int64_t nc = 0;
+    for (int64_t i = 0; i < n; ++i) cmap[i] = (cf[i] >= 0) ? nc++ : -1;
+
+    /* marker[x]: -1 untouched; >=0 slot in (cols,w); -9 strong-F of row */
+    int64_t *marker = (int64_t *)malloc(n * sizeof(int64_t));
+    for (int64_t x = 0; x < n; ++x) marker[x] = -1;
+    int64_t *cols = (int64_t *)malloc(n * sizeof(int64_t));
+    double *w = (double *)malloc(n * sizeof(double));
+    int64_t *ftouch = (int64_t *)malloc(n * sizeof(int64_t));
+
+    int64_t nnz = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        if (cf[i] >= 0) {
+            if (nnz < cap) {
+                out_rows[nnz] = i; out_cols[nnz] = cmap[i]; out_vals[nnz] = 1.0;
+            }
+            ++nnz;
+            continue;
+        }
+        if (cf[i] == -3) continue;
+
+        int64_t nw = 0, nf = 0;
+        /* pass 1: build C_i^ext (strong C of i, plus strong C of each
+           strong-F neighbor), interleaved in row order like the
+           reference count/fill loops */
+        for (int64_t p = S_indptr[i]; p < S_indptr[i + 1]; ++p) {
+            int64_t j = S_indices[p];
+            if (cf[j] >= 0) {
+                if (marker[j] == -1) { marker[j] = nw; cols[nw] = j; w[nw++] = 0.0; }
+            } else if (cf[j] == -1) {
+                if (marker[j] == -1) { marker[j] = -9; ftouch[nf++] = j; }
+                for (int64_t q = S_indptr[j]; q < S_indptr[j + 1]; ++q) {
+                    int64_t k = S_indices[q];
+                    if (cf[k] >= 0 && marker[k] == -1) {
+                        marker[k] = nw; cols[nw] = k; w[nw++] = 0.0;
+                    }
+                }
+            }
+        }
+        double diag = 0.0;
+        /* pass 2: accumulate over A row i (par_lr_interp.c:1663-1731) */
+        for (int64_t p = A_indptr[i]; p < A_indptr[i + 1]; ++p) {
+            int64_t j = A_indices[p];
+            double a = A_data[p];
+            if (j == i) { diag += a; continue; }
+            if (marker[j] >= 0) {
+                w[marker[j]] += a;
+            } else if (marker[j] == -9) {
+                double akk = 0.0;
+                for (int64_t q = A_indptr[j]; q < A_indptr[j + 1]; ++q)
+                    if (A_indices[q] == j) { akk = A_data[q]; break; }
+                double sgn = (akk < 0) ? -1.0 : 1.0;
+                double sum = 0.0;
+                for (int64_t q = A_indptr[j]; q < A_indptr[j + 1]; ++q) {
+                    int64_t m = A_indices[q];
+                    if (m == j) continue;
+                    if (sgn * A_data[q] < 0 && (marker[m] >= 0 || m == i))
+                        sum += A_data[q];
+                }
+                if (sum != 0.0) {
+                    double dist = a / sum;
+                    for (int64_t q = A_indptr[j]; q < A_indptr[j + 1]; ++q) {
+                        int64_t m = A_indices[q];
+                        if (m == j) continue;
+                        if (sgn * A_data[q] < 0) {
+                            if (marker[m] >= 0) w[marker[m]] += dist * A_data[q];
+                            if (m == i) diag += dist * A_data[q];
+                        }
+                    }
+                } else {
+                    diag += a;
+                }
+            } else if (cf[j] != -3) {
+                diag += a;
+            }
+        }
+        if (diag != 0.0) {
+            for (int64_t k = 0; k < nw; ++k) {
+                double v = -w[k] / diag;
+                if (v != 0.0) {
+                    if (nnz < cap) {
+                        out_rows[nnz] = i;
+                        out_cols[nnz] = cmap[cols[k]];
+                        out_vals[nnz] = v;
+                    }
+                    ++nnz;
+                }
+            }
+        }
+        for (int64_t k = 0; k < nw; ++k) marker[cols[k]] = -1;
+        for (int64_t k = 0; k < nf; ++k) marker[ftouch[k]] = -1;
+    }
+    free(cmap); free(marker); free(cols); free(w); free(ftouch);
+    return nnz;
+}
+
 /* int32-CSR + direct-target-dtype fill variants: scipy's native index
  * currency in (no int64 upconversion copies of nnz-sized index
  * arrays), the frozen buffer's dtype out (no post-fill astype pass —

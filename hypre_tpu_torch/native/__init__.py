@@ -117,6 +117,10 @@ def _bind(lib) -> None:
             ctypes.c_int64,
             [I64, I64, F64, F64, I64, I64, I64, I64, ctypes.c_int64,
              I64, I64, F64]),
+        "ext_pi_interp": (
+            ctypes.c_int64,
+            [I64, I64, F64, I64, I64, I64, ctypes.c_int64, I64, I64, F64,
+             ctypes.c_int64]),
         "trunc_keep": (
             None, [I64, I64, F64, ctypes.c_int64, ctypes.c_int64, U8]),
         "nongalerkin_count_i32": (
@@ -225,6 +229,34 @@ def classical_interp_fill(A: sp.csr_matrix, S: sp.csr_matrix, cf, cmap):
     return sp.csr_matrix(
         (Px[:nnz], Pi[:nnz].astype(np.int32), Pp.astype(np.int32)),
         shape=(n, nc))
+
+
+def ext_pi_interp(A: sp.csr_matrix, S: sp.csr_matrix, cf):
+    """Extended+i interpolation (par_lr_interp.c); (rows, cols, vals)
+    COO triplets of P, in the kernel's fill order.  The kernel reports
+    the entries it needed when they exceed the buffers; it then runs
+    again with buffers that size (at most three runs, as the JAX
+    package's binding does)."""
+    lib = load()
+    n = A.shape[0]
+    ai = np.ascontiguousarray(A.indptr, dtype=np.int64)
+    aj = np.ascontiguousarray(A.indices, dtype=np.int64)
+    ad = np.ascontiguousarray(A.data, dtype=np.float64)
+    si = np.ascontiguousarray(S.indptr, dtype=np.int64)
+    sj = np.ascontiguousarray(S.indices, dtype=np.int64)
+    cfa = np.ascontiguousarray(cf, dtype=np.int64)
+    cap = max(int(A.nnz * 4), 16)
+    for _ in range(3):
+        rows = np.zeros(cap, dtype=np.int64)
+        cols = np.zeros(cap, dtype=np.int64)
+        vals = np.zeros(cap, dtype=np.float64)
+        nnz = lib.ext_pi_interp(
+            _p(ai, I64), _p(aj, I64), _p(ad, F64), _p(si, I64), _p(sj, I64),
+            _p(cfa, I64), n, _p(rows, I64), _p(cols, I64), _p(vals, F64), cap)
+        if nnz <= cap:
+            return rows[:nnz], cols[:nnz], vals[:nnz]
+        cap = int(nnz) + 16
+    raise RuntimeError(f"ext_pi_interp: {nnz} entries still exceed {cap}")
 
 
 def trunc_keep(indptr, cols, vals, max_elmts: int) -> np.ndarray:

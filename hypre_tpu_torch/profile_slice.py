@@ -11,7 +11,8 @@ bfloat16 matrices and nongalerkin_tol 0.02, as the production config.
 With --lattice the lattice path (the JAX package's option defaults:
 level-1 embedding, relocation with tails, coarse collapse) is set up
 beside the plain one and the two are measured in turns, plain, lattice,
-lattice, plain, each with its setup and FREEZE seconds.
+lattice, plain, each with its setup and FREEZE (+ DEVICE_RAP + COLLAPSE)
+seconds.
 Needs a CUDA device.
 """
 
@@ -38,9 +39,9 @@ def _options(dtype: str, lattice: bool) -> BoomerAMGOptions:
     extra = ({} if dtype == "float64"
              else dict(mat_dtype="bfloat16", nongalerkin_tol=0.02))
     if lattice:
-        # the JAX package's own option defaults, embedded level-1 values
-        # from the host
-        extra.update(lattice_shape=(NX, NX, NX), device_rap=False)
+        # the JAX package's own option defaults (the embedded level-1
+        # values from the device RAP)
+        extra.update(lattice_shape=(NX, NX, NX))
     else:
         extra.update(embed_level1=False, relocate_level2=False,
                      collapse_coarse_n=0)
@@ -50,15 +51,16 @@ def _options(dtype: str, lattice: bool) -> BoomerAMGOptions:
 
 
 def _setup(dtype: str, lattice: bool, dev):
-    """(amg, setup seconds, FREEZE + COLLAPSE seconds), host clock, the
-    card synchronized."""
+    """(amg, setup seconds, FREEZE + DEVICE_RAP + COLLAPSE seconds), host
+    clock, the card synchronized."""
     GLOBAL_TIMER.clear()
     t0 = time.perf_counter()
     amg = BoomerAMG(laplacian_7pt(NX, NX, NX), _options(dtype, lattice),
                     device=dev)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
-    freeze_s = sum(GLOBAL_TIMER.seconds(k) for k in ("FREEZE", "COLLAPSE"))
+    freeze_s = sum(GLOBAL_TIMER.seconds(k)
+                   for k in ("FREEZE", "DEVICE_RAP", "COLLAPSE"))
     return amg, setup_s, freeze_s
 
 
@@ -88,16 +90,7 @@ def _measure(amg, tag: str, table: bool) -> None:
           f"{max(times) * 1e3:.2f}), {res.num_iterations} iterations, "
           f"{NX**3 / med:.4g} DOF/s, "
           f"{med / res.num_iterations * 1e3:.3f} ms per iteration")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        res = solve()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in events])
+    res, wall, busy_us, events, prof = profile_solve(solve)
     if table:
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
     print(f"{tag}: {res.num_iterations} iterations; "
@@ -134,7 +127,8 @@ def main() -> None:
         amg, setup_s, freeze_s = _setup(args.dtype, name == "lattice", dev)
         hierarchies[name] = amg
         print(f"{NX}^3 {args.dtype} {name}: setup {setup_s:.2f} s, of it "
-              f"FREEZE + COLLAPSE {freeze_s:.2f} s; {len(amg.levels)} levels "
+              f"FREEZE + DEVICE_RAP + COLLAPSE {freeze_s:.2f} s; "
+              f"{len(amg.levels)} levels "
               f"frozen, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
               f"allocated on the card so far")
     turns = (("plain", "lattice", "lattice", "plain") if args.lattice
@@ -144,6 +138,23 @@ def main() -> None:
         _measure(hierarchies[name], f"{NX}^3 {args.dtype} {name}",
                  table=name not in seen)
         seen.add(name)
+
+
+def profile_solve(solve):
+    """Run solve() once under torch.profiler.  Returns (its result, wall
+    seconds under the profiler, device busy microseconds (the union of
+    the device events' intervals), the device events, the profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in events])
+    return res, wall, busy_us, events, prof
 
 
 def _union_us(ranges) -> float:

@@ -5,8 +5,9 @@ Reference: parcsr_ls/par_amg_setup.c (hypre_BoomerAMGSetup), par_cycle.c
 (hypre_BoomerAMGCycle).
 
 Setup is host-side numpy/scipy plus the native C kernels, as in the JAX
-package: PMIS coarsening, modified classical interpolation, truncation,
-Galerkin RAP and the optional non-Galerkin filter.  Each level is then
+package: PMIS coarsening, modified classical or extended+i
+interpolation, truncation, Galerkin RAP and the optional non-Galerkin
+filter.  Each level is then
 frozen into torch tensors on an explicit device, and the V-cycle runs
 eagerly on that device.  The fine operator is DIA (its matvec is the
 hand-written kernel K1 on CUDA).
@@ -15,7 +16,10 @@ With the lattice forms off (embed_level1=False, relocate_level2=False,
 collapse_coarse_n=0) coarse levels are ELL or dense.  With the JAX
 package's defaults the lattice forms of ops/dia.py apply wherever that
 package's gates let them: level 1 is embedded on the fine lattice as
-DIA (`_build_embed_level1`), deeper levels are relocated onto compact
+DIA (`_build_embed_level1`; with device_rap, the JAX package's default,
+its values come from the device pass of ops/device_rap.py and level-0
+R from a device transpose, `_run_device_rap`), deeper levels are
+relocated onto compact
 cell lattices with parity-factored transfers and exact COO tails
 (`_plan_reloc`, `_build_relocated`; needs `lattice_shape`), and the
 sub-cycle below the first small level is collapsed into one dense
@@ -23,11 +27,10 @@ operator (`_build_coarse_collapse`).  A hierarchy that fails a gate
 keeps the plain forms, as in the JAX package.
 
 The port implements the options of the bench protocol (relax 0/5/7/18
-with relax_coarse 9, V-cycles) and the host-value lattice path; every
-other option must keep its default (the device setup chain, the offset
-budgets): `check_options` raises NotImplementedError otherwise, and for
-embed_level1 with device_rap=True (the level-1 values would come from
-the device RAP, which is not ported: pass device_rap=False).
+with relax_coarse 9, V-cycles, classical or ext+i interpolation) and
+the lattice path; every other option must keep its default (the device
+setup chain, the offset budgets): `check_options` raises
+NotImplementedError otherwise.
 """
 
 from __future__ import annotations
@@ -41,15 +44,18 @@ import torch
 
 from ... import native
 from ...ops.csr import CSRMatrix, to_device, torch_dtype
+from ...ops.device_rap import (dia_transpose_device, embedded_rap_device,
+                               plan_embedded_rap)
 from ...ops.dia import (DENSE_MAX_ROWS, DIA_MAX_OFFSETS, DenseMatrix,
-                        GatherOp, ScatterOp, build_embedded_dia,
+                        DIAMatrix, GatherOp, ScatterOp, build_embedded_dia,
                         build_parity_interp, build_parity_restrict,
-                        embedded_offset_count, freeze_auto, on_cells,
+                        embedded_offset_count, embedded_offsets,
+                        freeze_auto, on_cells,
                         parity_offset_count_plan, relocate_to_cells, spmv,
                         spmv_axpy, spmv_resid, tail_min_count)
 from ...utils.timing import timed
 from .coarsen import pmis_coarsen
-from .interp import classical_interp, truncate_interp
+from .interp import classical_interp, extended_i_interp, truncate_interp
 from .rap import galerkin_rap, nongalerkin_filter
 from .relax import jacobi, jacobi_cf
 from .strength import strength_matrix
@@ -149,9 +155,9 @@ class BoomerAMGOptions:
 
 
 # Fields the port implements (values checked below).  device_rap picks
-# where the embedded level-1 values are computed: the port has the host
-# branch only, so with embed_level1 it must be False; without the
-# embedding either value means the same thing in both packages.
+# where the embedded level-1 values are computed (the device pass or the
+# host product); without the embedding either value means the same
+# thing in both packages.
 _IMPLEMENTED = frozenset({
     "max_levels", "max_coarse_size", "strong_threshold", "max_row_sum",
     "coarsen_type", "interp_type", "trunc_factor", "P_max_elmts",
@@ -164,6 +170,8 @@ _IMPLEMENTED = frozenset({
     "max_relocated_offsets", "relocate_tail", "collapse_coarse_n",
 })
 _JACOBI = (0, 5, 7, 18)
+# interp_type -> host interpolation (hypre interp_type 0 / 6)
+_INTERP = {"classical": classical_interp, "ext+i": extended_i_interp}
 # (vector dtype, matrix dtype) pairs; K1 takes exactly these
 _DTYPES = {("float64", "float64"), ("float32", "float32"),
            ("float32", "bfloat16")}
@@ -182,7 +190,7 @@ def check_options(o: BoomerAMGOptions) -> None:
                     f"(only the default {f.default!r})")
     checks = (
         ("coarsen_type", o.coarsen_type == "pmis"),
-        ("interp_type", o.interp_type == "classical"),
+        ("interp_type", o.interp_type in _INTERP),
         ("relax_down", o.relax_down in _JACOBI),
         ("relax_up", o.relax_up in _JACOBI),
         ("relax_coarse", o.relax_coarse in _JACOBI + (9,)),
@@ -195,11 +203,6 @@ def check_options(o: BoomerAMGOptions) -> None:
         if not ok:
             raise NotImplementedError(
                 f"{name}={getattr(o, name)!r} is not implemented in the port")
-    if o.embed_level1 and o.device_rap:
-        raise NotImplementedError(
-            "embed_level1=True with device_rap=True takes the embedded "
-            "level-1 values from the device RAP, which is not ported: pass "
-            "device_rap=False (or embed_level1=False for the plain forms)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,6 +232,10 @@ class BoomerAMG:
         self._host_P: list[sp.csr_matrix] = []
         self._cf: list[np.ndarray] = []
         self._reloc_cells: dict = {}  # level -> (cells of its points, ncells)
+        # the level-1 Galerkin product before the non-Galerkin filter:
+        # the device RAP's plan takes its offsets
+        self._host_A1_unf: Optional[sp.csr_matrix] = None
+        self._pending_rap: Optional[dict] = None
         self._setup(A)
         self._freeze_hierarchy()
 
@@ -244,6 +251,7 @@ class BoomerAMG:
         self.levels = list(levels)
         self._host_A, self._host_P, self._cf = [], [], []
         self._reloc_cells = {}
+        self._host_A1_unf = self._pending_rap = None
         return self
 
     # ------------------------------------------------------------------
@@ -280,10 +288,12 @@ class BoomerAMG:
                     self._cf.append(np.zeros(n, dtype=np.int64))
                     break
                 with timed("INTERP"):
-                    P = truncate_interp(classical_interp(A, S, cf),
+                    P = truncate_interp(_INTERP[o.interp_type](A, S, cf),
                                         o.trunc_factor, o.P_max_elmts)
                 with timed("RAP"):
                     Ac = galerkin_rap(A, P)
+                    if not self._host_A:
+                        self._host_A1_unf = Ac
                     ngt = self._level_ngt(len(self._host_A))
                     if ngt > 0:
                         lump = ("diag" if len(self._host_A) == 0
@@ -309,7 +319,8 @@ class BoomerAMG:
     # ------------------------------------------------------------------
     def _freeze_hierarchy(self) -> None:
         """Plan the lattice embedding / relocation, freeze every level
-        once into its final form on the device, then collapse the coarse
+        once into its final form on the device, run the device RAP where
+        the embedding left level-1 A to it, then collapse the coarse
         sub-cycle."""
         L = len(self._host_A)
         cpos0 = self._plan_embed()
@@ -334,6 +345,9 @@ class BoomerAMG:
                     cpos0, any(ent["k"] == 2 for ent in reloc))
             if reloc:
                 self._build_relocated(reloc)
+        if self._pending_rap is not None:
+            with timed("DEVICE_RAP", device=self.device):
+                self._run_device_rap()
         with timed("COLLAPSE", device=self.device):
             self._build_coarse_collapse()
 
@@ -456,17 +470,22 @@ class BoomerAMG:
 
     def _build_embed_level1(self, cpos0, will_reloc_l2: bool) -> None:
         """Lift level-1 A and the level-0 transfers onto the fine lattice
-        as DIA (the JAX package's host-value branch)."""
+        as DIA.  With device_rap (the JAX package's use_device_rap
+        branch) only the embedded P is built here: level-0 R and level-1
+        A are left to `_run_device_rap`, which this plans; otherwise
+        both are built from the host values."""
         o = self.opts
         mdt = torch_dtype(o.mat_dtype or o.dtype)
         dev = self.device
         n0 = self._host_A[0].shape[0]
         A1, P0 = self._host_A[1], self._host_P[0]
         idx = np.arange(n0, dtype=np.int64)
+        use_device_rap = o.device_rap and self._host_A1_unf is not None
         self.levels[0] = dataclasses.replace(
             self.levels[0],
             P=build_embedded_dia(P0, idx, cpos0, n0, mdt, dev),
-            R=build_embedded_dia(P0.T.tocsr(), cpos0, idx, n0, mdt, dev),
+            R=None if use_device_rap else build_embedded_dia(
+                P0.T.tocsr(), cpos0, idx, n0, mdt, dev),
         )
         dinv_e, l1inv_e, cmask_e = self._embedded_level_vectors(
             A1, self._cf[1], cpos0, n0)
@@ -477,11 +496,50 @@ class BoomerAMG:
         if self._host_P[1:] and not will_reloc_l2:
             new_P, new_R = self._wrap_compact_transfers(
                 1, self.levels[1], cpos0, n0)
+        if use_device_rap:
+            # dinv / l1inv / cmask stay host-exact (f64)
+            self._pending_rap = self._device_rap_plan(cpos0)
+            A_emb = None
+        else:
+            A_emb = build_embedded_dia(A1, cpos0, cpos0, n0, mdt, dev)
         self.levels[1] = dataclasses.replace(
-            self.levels[1],
-            A=build_embedded_dia(A1, cpos0, cpos0, n0, mdt, dev),
-            dinv=dinv_e, l1inv=l1inv_e, cmask=cmask_e, P=new_P, R=new_R,
+            self.levels[1], A=A_emb, dinv=dinv_e, l1inv=l1inv_e,
+            cmask=cmask_e, P=new_P, R=new_R,
         )
+
+    def _device_rap_plan(self, cpos0) -> dict:
+        """The device RAP's host side: the symbolic plan over the
+        embedded offsets of P0, the fine A and level 1 before and after
+        the non-Galerkin filter; the filter's tol, the storage dtype and
+        the stored offsets."""
+        n0 = self._host_A[0].shape[0]
+        idx = np.arange(n0, dtype=np.int64)
+        offs_filt = embedded_offsets(self._host_A[1], cpos0, cpos0)
+        return dict(
+            plan=plan_embedded_rap(
+                embedded_offsets(self._host_P[0], idx, cpos0),
+                embedded_offsets(self._host_A[0], idx, idx),
+                embedded_offsets(self._host_A1_unf, cpos0, cpos0),
+                offs_filt),
+            tol=self._level_ngt(0),
+            mdt=torch_dtype(self.opts.mat_dtype or self.opts.dtype),
+            offsets=tuple(int(x) for x in offs_filt))
+
+    def _run_device_rap(self) -> None:
+        """Level-0 R as the device transpose of the embedded P (bitwise
+        the host-built one), and level-1 A from the device pass
+        (ops/device_rap.py) over the fine A and the embedded P."""
+        p = self._pending_rap
+        self._pending_rap = None
+        P0 = self.levels[0].P
+        self.levels[0] = dataclasses.replace(
+            self.levels[0], R=dia_transpose_device(P0))
+        data, _, _ = embedded_rap_device(P0, self.levels[0].A, p["plan"],
+                                         p["tol"], p["mdt"])
+        n0 = P0.num_rows
+        self.levels[1] = dataclasses.replace(
+            self.levels[1], A=DIAMatrix(data=data, offsets=p["offsets"],
+                                        num_rows=n0, num_cols=n0))
 
     def _plan_reloc(self, cpos0) -> list:
         """Plan the relocation chain (see _build_relocated): per level k,

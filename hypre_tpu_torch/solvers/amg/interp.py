@@ -1,11 +1,16 @@
-"""Classical interpolation and its truncation (port of
-hypre_tpu/solvers/amg/interp.py: classical_interp, truncate_interp,
-_rescale_rows).
+"""Classical and extended+i interpolation, and their truncation (port
+of hypre_tpu/solvers/amg/interp.py: classical_interp, extended_i_interp,
+truncate_interp, _rescale_rows).
 
-Reference: parcsr_ls/par_interp.c (modified classical, interp_type 0;
-filled by the native kernel) and hypre_ParCSRMatrixTruncate
-(par_csr_matrix.c:2671: drop below tol*max|row|, cap at max_elmts
-largest-|.| in qsort2_abs tie order, rescale to preserve row sums).
+Reference: parcsr_ls/par_interp.c (modified classical, interp_type 0),
+par_lr_interp.c (extended+i, interp_type 6), both filled by the port's
+native kernels, and hypre_ParCSRMatrixTruncate (par_csr_matrix.c:2671:
+drop below tol*max|row|, cap at max_elmts largest-|.| in qsort2_abs tie
+order, rescale to preserve row sums).
+
+Unlike the JAX package, each interpolation has only its native path:
+the port requires its own C library (hypre_tpu_torch/native), so the
+JAX package's vectorized-scipy fallback of extended+i is not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +33,19 @@ def classical_interp(
     """Modified classical interpolation (hypre interp_type 0)."""
     cmap = np.cumsum(np.asarray(cf) > 0) - 1
     return native.classical_interp_fill(A, S, cf, cmap)
+
+
+def extended_i_interp(
+    A: sp.csr_matrix, S: sp.csr_matrix, cf: np.ndarray
+) -> sp.csr_matrix:
+    """Extended+i interpolation (hypre interp_type 6).  The kernel
+    counts cf >= 0 as C (classical_interp: cf > 0); PMIS marks no point
+    0, so both read the same split."""
+    rows, cols, vals = native.ext_pi_interp(A, S, cf)
+    nc = int((np.asarray(cf) >= 0).sum())
+    P = _coo(vals, rows, cols, (A.shape[0], nc))
+    P.sort_indices()
+    return P
 
 
 def truncate_interp(

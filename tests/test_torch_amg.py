@@ -129,8 +129,7 @@ def test_levels_from_numpy_layouts(jax_amg):
 
 
 @pytest.mark.parametrize("field,value", [
-    # embed_level1 needs device_rap=False beside it (the default is True)
-    ("embed_level1", True), ("relocate_offset_budget", 64),
+    ("interp_type", "direct"), ("relocate_offset_budget", 64),
     ("device_setup", True), ("relax_down", 13), ("coarsen_type", "hmis"),
     ("cycle_type", 2), ("seq_threshold", 100), ("mat_dtype", "float32"),
 ])

@@ -1,7 +1,8 @@
 """The CUDA kernels (K1, the ELL SpMV, each in its four forms, K1 with a
 COO tail in its launch, the gathers, the COO tail and the cell-dense
 kernel) and the lattice operators that run on them, on
-the card against their plain versions (marker `cuda`; each
+the card against their plain versions, and the device RAP's pass on
+the card against the same pass on the CPU (marker `cuda`; each
 test skips where torch sees no CUDA device).  This file imports
 neither jax nor hypre_tpu, so it runs on a GPU machine without them:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -665,3 +666,26 @@ def test_cell_dense_refuses_what_it_does_not_take(cuda):
             30_000, 30_000)
         cell_dense_cuda(big, torch.zeros(30_000, dtype=torch.int32, device=cuda),
                         roc, x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp,kw", [
+    ("classical", dict(dtype="float64")),
+    ("ext+i", dict(dtype="float32", mat_dtype="bfloat16", nongalerkin_tol=0.02)),
+])
+def test_device_rap_on_card_is_the_cpu_pass(cuda, interp, kw):
+    """The device RAP (ops/device_rap.py: level-1 A and the transposed
+    level-0 R) at 20^3 on the card, bitwise the same pass on the CPU:
+    gathers, IEEE products and sums in one order on both."""
+    from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+
+    opts = BoomerAMGOptions(coarsen_type="pmis", interp_type=interp,
+                            P_max_elmts=4, relax_down=18, relax_up=18,
+                            lattice_shape=(20, 20, 20), **kw)
+    A = laplacian_7pt(20, 20, 20)
+    card = BoomerAMG(A, opts, device=cuda)
+    host = BoomerAMG(A, opts, device="cpu")
+    for lvl, name in ((1, "A"), (0, "R")):
+        M, H = getattr(card.levels[lvl], name), getattr(host.levels[lvl], name)
+        assert isinstance(M, tdia.DIAMatrix) and M.offsets == H.offsets
+        assert torch.equal(M.data.cpu(), H.data), f"L{lvl} {name}"

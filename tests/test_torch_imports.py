@@ -12,12 +12,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_MODULES = [
     "hypre_tpu_torch",
     "hypre_tpu_torch.convert",
+    "hypre_tpu_torch.entry",
     "hypre_tpu_torch.native",
     "hypre_tpu_torch.profile_slice",
     "hypre_tpu_torch.lane_sweep",
     "hypre_tpu_torch.models.laplacian",
     "hypre_tpu_torch.ops.cell_dense_kernel",
     "hypre_tpu_torch.ops.csr",
+    "hypre_tpu_torch.ops.device_rap",
     "hypre_tpu_torch.ops.dia",
     "hypre_tpu_torch.ops.dia_kernel",
     "hypre_tpu_torch.ops.ell_kernel",

@@ -2,13 +2,17 @@
 CPU at 24^3 (relocate_min_n2=0, so the relocation engages at this size).
 
 Both packages get the JAX package's own option defaults (embed_level1,
-relocate_level2, relocate_tail, collapse_coarse_n=2048) with
-device_rap=False, the host-value branch the port implements.
+relocate_level2, relocate_tail, collapse_coarse_n=2048), most tests
+with device_rap=False (the embedded level-1 values from the host); the
+device_rap=True tests (the defaults themselves) and `entry()`'s options
+(ext+i, f32/bf16) take them from the device pass of ops/device_rap.py.
 Tolerances: the frozen hierarchies agree in formats, offsets, index
 arrays (as integers) and DIA / tail / dense values (bitwise, after the
-cast to the storage dtype); the collapsed coarse operator, a chain of
-dense products summed in another order by XLA and torch, <= 1e-12
-relative (f64) / 1e-4 (f32).  Through `levels_from_numpy` one V-cycle
+cast to the storage dtype), but the device pass's level-1 operator:
+<= 1e-12 relative (f64) / 1 bf16 ulp (tests/test_torch_device_rap.py
+finds it bitwise); the collapsed coarse operator, a chain of dense
+products summed in another order by XLA and torch, <= 1e-12 relative
+(f64) / 1e-4 (f32).  Through `levels_from_numpy` one V-cycle
 agrees <= 1e-12 and PCG takes the same iterations with x within 1e-10
 (f64).  The JAX side runs its cycle under one jit: eagerly its parity
 matvec compiles a program per diagonal offset.
@@ -28,6 +32,7 @@ from hypre_tpu.solvers.amg import BoomerAMGOptions as JaxOptions
 from hypre_tpu.solvers.krylov import PCGOptions as JaxPCGOptions
 from hypre_tpu.solvers.krylov import pcg as jax_pcg
 from hypre_tpu_torch.convert import levels_from_numpy
+from hypre_tpu_torch.entry import entry_options
 from hypre_tpu_torch.models import laplacian_7pt
 from hypre_tpu_torch.ops import (DenseMatrix, DIAMatrix, DIAWithTail,
                                  ELLMatrix, GatherOp, ParityInterpOp,
@@ -71,14 +76,30 @@ def _same_tail(T, J):
     assert np.array_equal(_bits(T.vals), _bits(J.vals))
 
 
-def _same_op(T, J, where):
-    """The port's operator T against the JAX package's J (numpy leaves)."""
+def _close_values(a, b, where):
+    """The device RAP's values: <= 1e-12 relative in f64, <= 1 ulp in
+    bf16 (bit patterns ordered like the values)."""
+    if a.dtype == torch.bfloat16:
+        x, y = (np.where(v < 0, -(v & 0x7FFF), v).astype(np.int32)
+                for v in (_bits(a).astype(np.int32), _bits(b).astype(np.int32)))
+        assert np.abs(x - y).max() <= 1, where
+    else:
+        a, b = a.double().numpy(), np.asarray(b, np.float64)
+        assert np.abs(a - b).max() <= 1e-12 * np.abs(b).max(), where
+
+
+def _same_op(T, J, where, values_tol=False):
+    """The port's operator T against the JAX package's J (numpy leaves);
+    values_tol: DIA values within _close_values, not bitwise."""
     assert type(T).__name__ == type(J).__name__, where
     if T is None:
         return
     if isinstance(T, DIAMatrix):
         assert T.offsets == tuple(int(o) for o in J.offsets), where
-        assert np.array_equal(_bits(T.data), _bits(J.data)[:, :J.num_rows]), where
+        if values_tol:
+            _close_values(T.data, J.data[:, :J.num_rows], where)
+        else:
+            assert np.array_equal(_bits(T.data), _bits(J.data)[:, :J.num_rows]), where
     elif isinstance(T, DIAWithTail):
         _same_op(T.dia, J.dia, where)
         _same_tail(T.tail, J.tail)
@@ -107,11 +128,14 @@ def _same_op(T, J, where):
     assert T.num_rows == J.num_rows, where
 
 
-def _same_levels(levels, jlevels, inv_tol):
+def _same_levels(levels, jlevels, inv_tol, device_rap=False):
+    """device_rap: level 1's A came from the device pass (values within
+    tolerance, the rest bitwise)."""
     assert len(levels) == len(jlevels)
     for k, (T, J) in enumerate(zip(levels, jlevels)):
         for name in ("A", "P", "R"):
-            _same_op(getattr(T, name), getattr(J, name), f"L{k} {name}")
+            _same_op(getattr(T, name), getattr(J, name), f"L{k} {name}",
+                     values_tol=device_rap and (k, name) == (1, "A"))
         for name in ("dinv", "l1inv", "cmask"):
             assert np.array_equal(getattr(T, name).numpy(),
                                   np.asarray(getattr(J, name))), f"L{k} {name}"
@@ -318,8 +342,50 @@ def test_embedding_gated_off_for_chaotic_gs():
         type(l.A).__name__ for l in unview(list(jamg.levels))]
 
 
+@pytest.mark.parametrize("cfg", ["f64", "f32"])
+def test_device_rap_hierarchy_equals_jax(cfg):
+    """The JAX package's lattice defaults themselves (device_rap=True):
+    level-0 R from the device transpose, level-1 A from the device
+    pass; PCG takes the JAX package's count on its own hierarchy."""
+    jamg, jlev, jlevels = _jax_setup(cfg, device_rap=True)
+    amg = _port(cfg, device_rap=True)
+    assert amg._pending_rap is None and amg._host_A1_unf is not None
+    kinds = [(type(l.A).__name__, type(l.P).__name__) for l in amg.levels]
+    assert kinds == [("DIAMatrix", "DIAMatrix"),
+                     ("DIAMatrix", "ParityInterpOp"),
+                     ("ScatterOp", "NoneType")]
+    _same_levels(amg.levels, jlevels, 1e-12 if cfg == "f64" else 1e-4,
+                 device_rap=True)
+    jdt = jnp.float64 if cfg == "f64" else jnp.float32
+    ref = jax_pcg(lambda x: jax_spmv(jlev[0].A, x), jnp.ones(NX**3, jdt),
+                  M=jax.jit(lambda r: jamg.cycle(r, levels=jlev)),
+                  opts=JaxPCGOptions(**PCG_TOL))
+    res = _port_pcg(amg, torch.float64 if cfg == "f64" else torch.float32)
+    assert res.converged and res.num_iterations == int(ref.num_iterations)
+    assert abs(res.num_iterations - ITERS[cfg]) <= (cfg == "f32")
+
+
+def test_entry_options_hierarchy_equals_jax():
+    """`entry()`'s options (ext+i, f32/bf16, the lattice defaults with
+    the device RAP) on the 24^3 lattice: the embedded level 1 (wider
+    than classical's) and a dense level 2, in both packages alike."""
+    opts = entry_options()
+    assert opts.lattice_shape == (NX, NX, NX)
+    jamg = JaxBoomerAMG(jax_laplacian_7pt(NX, NX, NX), JaxOptions(
+        **{f: getattr(opts, f) for f in ("coarsen_type", "interp_type",
+                                         "P_max_elmts", "relax_down",
+                                         "relax_up", "lattice_shape",
+                                         "dtype", "mat_dtype")}))
+    jlevels = jax.tree.map(np.asarray, unview(list(jamg.levels)))
+    amg = BoomerAMG(laplacian_7pt(NX, NX, NX), opts, device="cpu")
+    assert [type(l.A).__name__ for l in amg.levels] == [
+        "DIAMatrix", "DIAMatrix", "DenseMatrix"]
+    assert len(amg.levels[1].A.offsets) == 223
+    _same_levels(amg.levels, jlevels, 1e-4, device_rap=True)
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(device_rap=True), "device_rap=False"),
+    (dict(relax_down=13), "relax_down"),
     (dict(relocate_offset_budget=64), "relocate_offset_budget"),
     (dict(transfer_offset_budget=64), "transfer_offset_budget"),
     (dict(device_setup=True), "device_setup"),
