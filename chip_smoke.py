@@ -64,9 +64,23 @@ Phases (any failure raises and the script exits non-zero):
      within one), each with its levels, gates, setup phases, device busy
      time and kernels an iteration.  After each run of (a) and (c) every
      operator of its hierarchy, in the forms the cycle runs it, through
-     the kernels against its plain version (`phase_hold_operators`).
-The last three lines are the slice's numbers (entry, device RAP, ext+i),
-the kernel report and {"ok": true, ...}.
+     the kernels against its plain version (`phase_hold_operators`);
+ 10. the Gauss-Seidel family (relax 13 / 14, the BoomerAMGOptions()
+     defaults; the gs_sweep kernel, csrc/gs_sweep.cu, built with the
+     others): at 96^3 in f64 and in f32/bf16/ngt 0.02, the JAX package's
+     counts (GS96_F64, GS96_F32) with gs_sweep, K1 and the ELL kernel
+     launched exactly as the hierarchy says (`BoomerAMG.cycle_launches`:
+     14 sweeps a V-cycle), setup phases with the schedules' seconds and
+     bytes, device busy and kernels an iteration; every f64 schedule's
+     sweep against its plain version in the plain and omega forms, both
+     grid forms, each level's sweep timed in both beside its bytes bound,
+     its wavefronts, the plain version and the cuSPARSE SpMV +
+     triangular solve; the f32 schedules held; the C / F halves of
+     relax_order 1 at 24^3 and a nonsymmetric matrix with two-phase
+     wavefronts; BoomerAMGOptions() at 24^3 and Chebyshev (relax 16) at
+     48^3 f64, card against CPU: the same count, residuals within 1e-10.
+The last three lines are the slice's numbers (entry, device RAP, ext+i,
+the GS family), the kernel report and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -81,6 +95,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from hypre_tpu_torch.utils.timing import REPS, time_cuda_ms
@@ -111,12 +126,14 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 
 def slice_options(interp_type="classical", **kw):
+    """The bench protocol's options on the plain forms; `kw` adds to or
+    overrides them (relax_down / relax_up among them)."""
     from hypre_tpu_torch.solvers.amg import BoomerAMGOptions
 
-    return BoomerAMGOptions(
-        coarsen_type="pmis", interp_type=interp_type, P_max_elmts=4,
-        relax_down=18, relax_up=18, embed_level1=False,
-        relocate_level2=False, collapse_coarse_n=0, **kw)
+    return BoomerAMGOptions(**{
+        **dict(coarsen_type="pmis", interp_type=interp_type, P_max_elmts=4,
+               relax_down=18, relax_up=18, embed_level1=False,
+               relocate_level2=False, collapse_coarse_n=0), **kw})
 
 
 def lattice_options(nx: int, interp_type="classical", **kw):
@@ -548,15 +565,12 @@ def cycle_operators(amg):
 
 def expected_launches(amg, iterations: int, two_norm: bool = True) -> dict:
     """Kernel launches of one PCG solve over this hierarchy, from the
-    operators' formats alone: iterations + 1 V-cycles (one more without
-    the two-norm test: PCG's M(b)) and iterations + 1 fine-level matvecs
-    of PCG's own (K1)."""
-    from hypre_tpu_torch.ops.dia import kernel_launches
-
+    operators' formats and the smoothers alone (`BoomerAMG.cycle_launches`):
+    iterations + 1 V-cycles (one more without the two-norm test: PCG's
+    M(b)) and iterations + 1 fine-level matvecs of PCG's own (K1)."""
     per_cycle = {name: 0 for name in read_counts()}
-    for _, op, _, _, k in cycle_operators(amg):
-        for name, c in kernel_launches(op).items():
-            per_cycle[name] += k * c
+    for name, c in amg.cycle_launches().items():
+        per_cycle[name] += c
     cycles = iterations + (1 if two_norm else 2)
     out = {name: c * cycles for name, c in per_cycle.items()}
     out["dia_spmv"] += iterations + 1  # PCG's matvecs, the fine DIA operator
@@ -1486,6 +1500,309 @@ def phase_ext(dev, card):
 
 
 
+# -- the Gauss-Seidel family (relax 13 / 14, the BoomerAMGOptions() defaults)
+
+# the JAX package's counts on the CPU (hypre_tpu, the plain forms, PCG
+# two-norm, tol 1e-6, b = ones; recomputed with hypre_tpu.solvers.amg):
+# relax 13 / 14 at 96^3 in f64 and with f32 vectors, bf16 matrices and
+# nongalerkin_tol 0.02; BoomerAMGOptions() at 24^3 (f64); relax 16 at 48^3
+GS96_F64 = 17
+GS96_F32 = 13
+DEFAULT24_F64 = 10
+CHEBY48_F64 = 13
+GS_W, GS_OMEGA = 0.9, 0.8  # the sweep forms held: plain (w) and omega
+
+
+def gs_schedules(amg):
+    """[(label, schedule)] of a hierarchy: every level's forward and
+    backward schedules (or their C / F halves)."""
+    out = []
+    for l, lvl in enumerate(amg.levels):
+        for d, S in (("fwd", lvl.gs_fwd), ("bwd", lvl.gs_bwd)):
+            if isinstance(S, tuple):
+                out += [(f"L{l} {d} C", S[0]), (f"L{l} {d} F", S[1])]
+            elif S is not None:
+                out.append((f"L{l} {d}", S))
+    return out
+
+
+def gs_bytes(amg) -> int:
+    """Bytes of the hierarchy's GS layout on the card (each level's shared
+    CSR and divisor once, and every schedule)."""
+    mats = {id(S.mat): S.mat for _, S in gs_schedules(amg)}
+    return (sum(m.nbytes() for m in mats.values())
+            + sum(S.nbytes() for _, S in gs_schedules(amg)))
+
+
+def hold_gs(sched, label, vdt, tol, rng, forms=("plain", "omega"),
+            coops=(None,)):
+    """The kernel against the plain version on one schedule: each form
+    (plain: w = GS_W; omega: w = GS_W, omega = GS_OMEGA with a separate
+    v), each grid form asked for (None: the wrapper's pick), relative to
+    max |u| within tol, the same bits twice.  Returns the largest
+    absolute error."""
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda, gs_sweep_reference
+
+    dev = sched.order.device
+    n = sched.n
+    u, f, v = (torch.from_numpy(rng.standard_normal(n)).to(dev, vdt)
+               for _ in range(3))
+    slabs = sched.slabs(dev)
+    worst = 0.0
+    for form in forms:
+        om = 1.0 if form == "plain" else GS_OMEGA
+        vv = None if form == "plain" else v
+        want = gs_sweep_reference(slabs, n, u, f, GS_W, om, vv)
+        for coop in coops:
+            got = gs_sweep_cuda(sched, u, f, GS_W, om, vv, coop=coop)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / max(float(want.abs().max()), 1e-300)
+            require(rel <= tol, f"gs_sweep {label} {form} (coop {coop}) "
+                                f"disagrees with its plain version: rel "
+                                f"{rel:.3e} (tol {tol:g})")
+            require(torch.equal(gs_sweep_cuda(sched, u, f, GS_W, om, vv,
+                                              coop=coop), got),
+                    f"gs_sweep {label} {form}: other bits on a second run")
+            worst = max(worst, err)
+    return worst
+
+
+def sweep_library(A_host, forward, dev):
+    """One PyTorch call chain that computes the w = 1, omega = 1 sweep of
+    a whole level: one sparse CSR SpMV by the strictly upper (lower)
+    part and one sparse triangular solve with D + L (D + U), both
+    cuSPARSE.  Returns a function of (u, f), or the reason it cannot
+    run."""
+    M = A_host.tocsr()
+    tri = sp.tril(M, 0) if forward else sp.triu(M, 0)
+    rest = sp.triu(M, 1) if forward else sp.tril(M, -1)
+
+    def csr(S):
+        S = S.tocsr()
+        S.sort_indices()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_csr_tensor(
+                torch.from_numpy(S.indptr.astype(np.int64)),
+                torch.from_numpy(S.indices.astype(np.int64)),
+                torch.from_numpy(S.data.astype(np.float64)),
+                size=S.shape).to(dev)
+
+    T, R = csr(tri), csr(rest)
+
+    def sweep(u, f):
+        y = (f - R @ u).unsqueeze(1)
+        return torch.triangular_solve(y, T, upper=not forward).solution[:, 0]
+
+    return sweep
+
+
+def phase_gs_sweeps(amg, flush, card, label):
+    """Every schedule of the 96^3 f64 GS hierarchy: the kernel against its
+    plain version in both forms, in the wrapper's grid form and in the
+    other; then each level's sweep timed in both grid forms (the
+    wrapper's threshold, gs_kernel.ONE_BLOCK_MAX_ROWS, comes from these),
+    beside its bytes bound, its wavefront count, the plain version and
+    the cuSPARSE pair (SpMV + triangular solve) for the w = 1 sweep.
+    Returns the V-cycle's sums (ms, plain_ms, library_ms or None,
+    bound_ms), the largest abs error and one row a schedule."""
+    from hypre_tpu_torch.ops.gs_kernel import (
+        ONE_BLOCK_MAX_ROWS, gs_sweep_cuda, gs_sweep_reference, row_lanes)
+
+    rng = np.random.default_rng(13)
+    vdt = amg.levels[0].dinv.dtype
+    dev = amg.device
+    worst = 0.0
+    rows = []
+    tot = np.zeros(3)
+    lib_tot, lib_why = 0.0, None
+    for name, S in gs_schedules(amg):
+        l = int(name.split()[0][1:])
+        n, nnz = S.n, S.mat.indices.numel()
+        grid = S.max_width > ONE_BLOCK_MAX_ROWS
+        # the wrapper's form, then the other
+        worst = max(worst, hold_gs(S, f"{label} {name}", vdt, 1e-12, rng,
+                                   coops=(None, not grid)))
+        lanes = row_lanes(S.max_row, S.max_width, not grid)
+        u, f = (torch.from_numpy(rng.standard_normal(n)).to(dev, vdt)
+                for _ in range(2))
+        # the CSR and divisor once, the schedule, f and u read, u written
+        nbytes = (S.mat.nbytes() + S.nbytes()
+                  + 3 * n * u.element_size())
+        bms, _ = bound_ms(nbytes, 2 * nnz, torch.float64)
+        t = {c: time_cuda_ms(lambda: gs_sweep_cuda(S, u, f, coop=c), flush, 20)
+             for c in (False, True)}
+        ms = t[grid]
+        slabs = S.slabs(dev)
+        plain_ms = time_cuda_ms(
+            lambda: gs_sweep_reference(slabs, n, u, f), flush, 3)
+        lib_ms = None
+        try:
+            lib = sweep_library(amg._host_A[l], name.split()[1] == "fwd", dev)
+            got = lib(u, f)
+            want = gs_sweep_cuda(S, u, f)
+            torch.cuda.synchronize()
+            lrel = float((got - want).abs().max() / want.abs().max())
+            require(lrel <= 1e-10, f"the cuSPARSE sweep of {name} is not "
+                                   f"the kernel's: rel {lrel:.2e}")
+            lib_ms = time_cuda_ms(lambda: lib(u, f), flush, 10)
+        except RuntimeError as e:  # the yardstick only: say why
+            if "cuSPARSE sweep" in str(e):
+                raise
+            lib_why = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        del slabs
+        tot += (ms, plain_ms, bms)
+        if lib_ms is not None:
+            lib_tot += lib_ms
+        rows.append({"schedule": name, "rows": n, "nnz": nnz,
+                     "wavefronts": S.num_wavefronts, "widest": S.max_width,
+                     "lanes": lanes, "grid": grid,
+                     "ms": ms, "one_block_ms": t[False], "grid_ms": t[True],
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bms, "bytes": nbytes})
+        log(f"gs_sweep [{label} {name}: {n} rows, {nnz} entries, "
+            f"{S.num_wavefronts} wavefronts, widest {S.max_width}, "
+            f"{lanes} lanes a row in the wrapper's form; {card}]: one block "
+            f"{t[False] * 1e3:.1f} us, grid {t[True] * 1e3:.1f} us (the "
+            f"wrapper takes the {'grid' if grid else 'block'}), "
+            f"{ms * 1e3 / S.num_wavefronts:.2f} us a wavefront; plain "
+            f"{plain_ms * 1e3:.0f} us; cuSPARSE SpMV + triangular solve "
+            + (f"{lib_ms * 1e3:.1f} us" if lib_ms is not None
+               else f"did not run ({lib_why})")
+            + f"; bytes bound {bms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB)")
+    torch.cuda.empty_cache()
+    lib_sum = lib_tot if all(r["library_ms"] is not None for r in rows) else None
+    log(f"gs_sweep [{label}] one V-cycle's {len(rows)} sweeps: kernel "
+        f"{tot[0]:.3f} ms, plain {tot[1]:.1f} ms, cuSPARSE "
+        + (f"{lib_sum:.3f} ms" if lib_sum is not None
+           else f"did not run on every level ({lib_why})")
+        + f", bytes bound {tot[2]:.4f} ms; max abs err {worst:.2e}")
+    return (tot[0], tot[1], lib_sum, tot[2]), worst, rows, lib_why
+
+
+def phase_gs_masked(dev, card):
+    """The C / F halves of the CF-ordered sweeps (relax_order 1) on every
+    level of the 24^3 f64 hierarchy, and a nonsymmetric matrix whose
+    wavefronts read same-wavefront neighbours (the two-phase wavefronts),
+    in both grid forms: the kernel against its plain version."""
+    from hypre_tpu_torch.models import laplacian_7pt
+    from hypre_tpu_torch.ops import CSRMatrix
+    from hypre_tpu_torch.solvers.amg import BoomerAMG
+    from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
+
+    rng = np.random.default_rng(17)
+    amg = BoomerAMG(laplacian_7pt(24, 24, 24),
+                    slice_options(dtype="float64", relax_down=13, relax_up=14,
+                                  relax_order=1), device=dev)
+    scheds = gs_schedules(amg)
+    require(scheds and all(" C" in s or " F" in s for s, _ in scheds),
+            "relax_order 1 built no C / F halves")
+    worst = max(hold_gs(S, f"24^3 CF {name}", torch.float64, 1e-12, rng,
+                        coops=(False, True)) for name, S in scheds)
+    n = 20000
+    B = sp.random(n, n, 4.0 / n, random_state=np.random.default_rng(5),
+                  format="csr")
+    M = (B + sp.diags(8.0 + rng.random(n))).tocsr()
+    M.sort_indices()
+    hazards = []
+    for forward in (True, False):
+        S = build_gs_schedule(CSRMatrix.from_scipy(M), forward, device=dev)
+        hazards.append(int(S.hazard.sum()))
+        require(S.any_hazard, "the nonsymmetric matrix has no wavefront that "
+                              "reads itself")
+        for vdt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+            worst_ns = hold_gs(S, f"nonsymmetric {'fwd' if forward else 'bwd'}"
+                                  f" {vdt}", vdt, tol, rng, coops=(False, True))
+            if vdt == torch.float64:
+                worst = max(worst, worst_ns)
+    log(f"gs_sweep C / F halves ({len(scheds)} schedules at 24^3) and a "
+        f"nonsymmetric {n}-row matrix ({hazards} two-phase wavefronts fwd / "
+        f"bwd), both grid forms, f64 and f32 [{card}]: agree with the plain "
+        f"version, max abs err {worst:.2e}")
+    return {"schedules": len(scheds), "two_phase_wavefronts": hazards,
+            "max_abs_err": worst}
+
+
+def run_gs(nx, opts, dev, card, label, want_its):
+    """One GS solve at nx^3 through run_slice, the counts set to 0 just
+    before and read just after: the JAX package's iteration count, a
+    right solution, launches exactly as the hierarchy says (gs_sweep
+    one a level and direction of a V-cycle); then one more solve under
+    torch.profiler.  Prints the levels, the setup phases and the
+    schedules' seconds and bytes.  Returns (amg, numbers)."""
+    from hypre_tpu_torch.profile_slice import profile_solve
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    GLOBAL_TIMER.clear()
+    zero_counts()
+    amg, res, setup_s, solve_s = run_slice(nx, opts, dev)
+    counts = read_counts()
+    phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in (
+        "SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP", "FREEZE",
+        "GS_SCHEDULE")}
+    rel, bound = check_solution(amg, res, nx**3)
+    its = res.num_iterations
+    expected = expected_launches(amg, its)
+    per_cycle = amg.cycle_launches()
+    _, wall, busy_us, events, _ = profile_solve(make_solve(amg, nx))
+    gs_us = sum(e.time_range.end - e.time_range.start for e in events
+                if "gs_sweep_kernel" in e.name)
+    nbytes = gs_bytes(amg)
+    for line in level_lines(amg):
+        log(f"GS [{label}] levels: {line}")
+    log(f"GS [{label} {nx}^3; {card}]: {its} iterations (JAX package: "
+        f"{want_its}), final rel residual {float(res.rel_residual_norm):.3e} "
+        f"(true, in f64: {rel:.3e}, bound {bound:.1e}); setup {setup_s:.2f} "
+        f"s (phases {phases}; the GS schedules {phases['GS_SCHEDULE']:.3f} s, "
+        f"{nbytes / 1e6:.1f} MB on the card); solve {solve_s * 1e3:.2f} ms; "
+        f"under the profiler wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms (idle {100 * (1 - busy_us / 1e6 / wall):.1f}"
+        f"%), gs_sweep {gs_us / 1e3:.2f} ms of it, {len(events)} device "
+        f"events ({len(events) / max(its, 1):.0f} an iteration); per V-cycle "
+        f"{per_cycle}; launches {counts}")
+    require(res.converged and its == want_its,
+            f"GS {label}: {its} iterations, the JAX package's {want_its}")
+    require(counts == expected and counts["gs_sweep"] > 0,
+            f"GS {label}: launches {counts} are not the hierarchy's "
+            f"{expected}")
+    return amg, {"iterations": its, "setup_s": setup_s, "solve_s": solve_s,
+                 "busy_ms": busy_us / 1e3, "wall_ms": wall * 1e3,
+                 "gs_sweep_ms": gs_us / 1e3,
+                 "kernels_per_iteration": len(events) / max(its, 1),
+                 "phases": phases, "schedule_bytes": nbytes,
+                 "per_cycle": per_cycle, "launches": counts}
+
+
+def card_vs_cpu(nx, opts, dev, label, want_its):
+    """The nx^3 solve on the card (counts at 0 before, read after: as the
+    hierarchy says) and on the CPU: both the JAX package's count, the
+    final relative residuals within 1e-10 of each other, x within
+    1e-9."""
+    zero_counts()
+    amg_g, res_g, _, solve_s = run_slice(nx, opts, dev)
+    counts = read_counts()
+    expected = expected_launches(amg_g, res_g.num_iterations)
+    amg_c, res_c, _, cpu_s = run_slice(nx, opts, "cpu")
+    rg, rc = float(res_g.rel_residual_norm), float(res_c.rel_residual_norm)
+    dx = float((res_g.x.cpu() - res_c.x).abs().max() / res_c.x.abs().max())
+    log(f"{label} {nx}^3 card vs CPU: iterations {res_g.num_iterations} vs "
+        f"{res_c.num_iterations} (JAX package: {want_its}); rel residual "
+        f"{rg:.10e} vs {rc:.10e} (rel diff {abs(rg - rc) / rc:.2e}); max rel "
+        f"diff of x {dx:.2e}; card solve {solve_s * 1e3:.1f} ms, CPU "
+        f"{cpu_s:.2f} s; launches {counts}")
+    require(res_g.num_iterations == res_c.num_iterations == want_its,
+            f"{label}: iterations {res_g.num_iterations} (card), "
+            f"{res_c.num_iterations} (CPU), JAX {want_its}")
+    require(abs(rg - rc) <= 1e-10 * rc and dx <= 1e-9,
+            f"{label}: the card's solve differs from the CPU's")
+    require(counts == expected, f"{label}: launches {counts} are not the "
+                                f"hierarchy's {expected}")
+    return {"iterations": res_g.num_iterations, "rel_residual_norm": rg,
+            "cpu_rel_residual_norm": rc, "solve_s": solve_s,
+            "launches": counts}
+
+
 def counted_wrappers():
     """{kernel name: its wrapper}; each wrapper's `launches` counts its
     kernel's launches."""
@@ -1494,10 +1811,12 @@ def counted_wrappers():
     from hypre_tpu_torch.ops.gather_kernel import flat_take_cuda, take_along_axis_cuda
     from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda
     from hypre_tpu_torch.ops.cell_dense_kernel import cell_dense_cuda
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda
 
     return {"dia_spmv": dia_spmv_cuda, "ell_spmv": ell_spmv_cuda,
             "take_along_axis": take_along_axis_cuda, "flat_take": flat_take_cuda,
-            "coo_tail": coo_tail_cuda, "cell_dense": cell_dense_cuda}
+            "coo_tail": coo_tail_cuda, "cell_dense": cell_dense_cuda,
+            "gs_sweep": gs_sweep_cuda}
 
 
 def zero_counts() -> None:
@@ -1537,7 +1856,7 @@ def build_all():
     Returns [(name, seconds, compiler log)]."""
     from hypre_tpu_torch import native
     from hypre_tpu_torch.ops import (cell_dense_kernel, dia_kernel, ell_kernel,
-                                     gather_kernel, tail_kernel)
+                                     gather_kernel, gs_kernel, tail_kernel)
 
     def timed_build(name, fn):
         t0 = time.perf_counter()
@@ -1547,7 +1866,7 @@ def build_all():
     jobs = (("dia_spmv.cu", dia_kernel.load), ("ell_spmv.cu", ell_kernel.load),
             ("gather.cu", gather_kernel.load), ("coo_tail.cu", tail_kernel.load),
             ("cell_dense.cu", cell_dense_kernel.load),
-            ("host_kernels.c", native.load))
+            ("gs_sweep.cu", gs_kernel.load), ("host_kernels.c", native.load))
     with ThreadPoolExecutor(len(jobs)) as ex:
         return list(ex.map(lambda j: timed_build(*j), jobs))
 
@@ -1704,8 +2023,39 @@ def main() -> int:
     phase_path_gathers(amg, flush, card, "bf16/f32")
     lat_rows32 = phase_lattice_ops(amg, 1e-5, flush, card, "bf16/f32")
     rap32 = phase_device_rap(amg, card, "f32/bf16")
-    del amg, res, flush
+    del amg, res
     torch.cuda.empty_cache()
+
+    # -- 10. the GS family: relax 13 / 14 at 96^3, the kernel held ---------
+    gs_t0 = time.perf_counter()
+    amg, gs64 = run_gs(NX, slice_options(dtype="float64", relax_down=13,
+                                         relax_up=14), dev, card, "f64",
+                       GS96_F64)
+    gs_tot, gs_err, gs_rows, gs_lib_why = phase_gs_sweeps(amg, flush, card,
+                                                          "f64")
+    del amg
+    torch.cuda.empty_cache()
+    amg, gs32 = run_gs(NX, slice_options(
+        dtype="float32", mat_dtype="bfloat16", nongalerkin_tol=0.02,
+        relax_down=13, relax_up=14), dev, card, "f32/bf16", GS96_F32)
+    rng = np.random.default_rng(19)
+    gs32_err = max(hold_gs(S, f"f32/bf16 {name}", torch.float32, 1e-6, rng,
+                           forms=("plain",)) for name, S in gs_schedules(amg))
+    log(f"gs_sweep [f32/bf16 96^3; {card}]: every schedule agrees with the "
+        f"plain version, max abs err {gs32_err:.2e}")
+    del amg, flush
+    torch.cuda.empty_cache()
+    gs_masked = phase_gs_masked(dev, card)
+    from hypre_tpu_torch.solvers.amg import BoomerAMGOptions
+    gs_defaults = card_vs_cpu(24, BoomerAMGOptions(), dev,
+                              "BoomerAMGOptions()", DEFAULT24_F64)
+    gs_cheby = card_vs_cpu(48, slice_options(dtype="float64", relax_down=16,
+                                             relax_up=16), dev,
+                           "Chebyshev (relax 16) f64", CHEBY48_F64)
+    log(f"the GS family's phases took {time.perf_counter() - gs_t0:.1f} s")
+    gs_runs = {"gs f64": gs64, "gs f32/bf16": gs32,
+               "BoomerAMGOptions() 24^3": gs_defaults,
+               "cheby 48^3": gs_cheby}
 
     # -- (c) extended+i interpolation ---------------------------------------
     ext = phase_ext(dev, card)
@@ -1724,7 +2074,9 @@ def main() -> int:
                                   "lattice f32/bf16": lat32[name],
                                   "entry": entry_run["launches"][name],
                                   **{f"ext+i {k}": v["launches"][name]
-                                     for k, v in ext.items()}},
+                                     for k, v in ext.items()},
+                                  **{k: v["launches"][name]
+                                     for k, v in gs_runs.items()}},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -1803,10 +2155,27 @@ def main() -> int:
                              ("ms", "plain_ms", "library_ms", "bound_ms"),
                              cell32[:4]), unfused_ms=cell32[6],
                              shape=cell32[7])))
-    # the slice's own numbers: entry(), the device RAP, ext+i
+    # one f64 96^3 V-cycle's 14 sweeps, each timed alone and summed; the
+    # JAX package runs a sweep as a lax.scan, no Pallas kernel
+    kernels.append({
+        "name": "gs_sweep", "route": "cuda",
+        "source": "hypre_tpu_torch/csrc/gs_sweep.cu",
+        "replaces": "hypre_tpu/solvers/amg/relax.py:174",
+        "tpu_form": "lax.scan over the wavefronts, no Pallas kernel",
+        "launches": gs64["launches"]["gs_sweep"],
+        "path_launches": {k: v["launches"]["gs_sweep"]
+                          for k, v in gs_runs.items()},
+        "max_abs_err": gs_err, "ms": gs_tot[0], "plain_ms": gs_tot[1],
+        "bound_ms": gs_tot[3], "bound_by": "bytes", "library_ms": gs_tot[2],
+        "library_note": (None if gs_tot[2] is not None else gs_lib_why),
+        "per": "sweep, summed over one V-cycle's 14",
+        "wavefronts": sum(r["wavefronts"] for r in gs_rows),
+        "levels": gs_rows, "f32_max_abs_err": gs32_err,
+        "cf_and_nonsymmetric": gs_masked})
+    # the slice's own numbers: entry(), the device RAP, ext+i, the GS family
     log(json.dumps({"entry": entry_run, "device_rap": {"f64": rap64,
                                                        "f32_bf16": rap32},
-                    "ext_i": ext}))
+                    "ext_i": ext, "gs": gs_runs}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -23,6 +23,11 @@ Layout changes:
     port's `on_cells` form; parity matrices lose their padding like any
     DIA; a `coarse_inv` that is an operator (the collapsed sub-cycle) is
     carried as one.
+  * GS schedules (a GSSchedule, or a (C, F) tuple of them): the JAX
+    package's padded slabs are kept for the plain version as they are,
+    and the kernel's layout (CSR, wavefront order and pointers, hazard
+    flags) is derived from them (relax.py::GSSchedule.from_slabs).
+    Chebyshev data keeps its float64 coefficients and D^{-1/2}.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from .ops.dia import (DenseMatrix, DIAMatrix, DIAWithTail, GatherOp,
                       ParityInterpOp, ParityRestrictOp, ScatterOp, on_cells,
                       split_interp_tail, tail_on_rows)
 from .solvers.amg.boomeramg import AMGLevel
+from .solvers.amg.relax import ChebyData, GSSchedule
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -109,9 +115,29 @@ def _coarse_inv(ci, device):
     return _matrix(ci, device)
 
 
+def _gs(S, device):
+    """A JAX GSSchedule (numpy leaves), or a (C, F) tuple of them."""
+    if S is None:
+        return None
+    if isinstance(S, (tuple, list)):
+        return tuple(_gs(s, device) for s in S)
+    return GSSchedule.from_slabs(S.rows, S.acols, S.adata, S.dinv, int(S.n),
+                                 device)
+
+
+def _cheby(C, device):
+    if C is None:
+        return None
+    return ChebyData(
+        coefs=tuple(float(c) for c in np.asarray(C.coefs, np.float64)),
+        dsqrtinv=_tensor(np.asarray(C.dsqrtinv, np.float64), device),
+        order=int(C.order))
+
+
 def levels_from_numpy(levels, device) -> list[AMGLevel]:
     """The port's AMGLevels on `device` from hypre_tpu's numpy-leaf
-    AMGLevels (DIA, ELL, dense and the lattice forms)."""
+    AMGLevels (DIA, ELL, dense and the lattice forms, the GS schedules
+    and the Chebyshev data)."""
     out = []
     for lvl in levels:
         out.append(AMGLevel(
@@ -122,5 +148,9 @@ def levels_from_numpy(levels, device) -> list[AMGLevel]:
             P=_matrix(lvl.P, device),
             R=_matrix(lvl.R, device),
             coarse_inv=_coarse_inv(lvl.coarse_inv, device),
+            # (a container with only the matrices carries none)
+            gs_fwd=_gs(getattr(lvl, "gs_fwd", None), device),
+            gs_bwd=_gs(getattr(lvl, "gs_bwd", None), device),
+            cheby=_cheby(getattr(lvl, "cheby", None), device),
         ))
     return out

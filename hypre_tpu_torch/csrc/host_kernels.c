@@ -608,3 +608,29 @@ int64_t strength_classical_i32(const int32_t *indptr, const int32_t *indices,
     }
     return nnz;
 }
+
+/* Wavefront levels of the lower(upper)-triangular dependency DAG:
+ * level[i] = 1 + max(level[j]) over j < i (forward) with A[i,j] != 0. */
+void gs_levels(const int64_t *indptr, const int64_t *indices, int64_t n,
+               int forward, int64_t *level)
+{
+    if (forward) {
+        for (int64_t i = 0; i < n; ++i) {
+            int64_t lv = 0;
+            for (int64_t k = indptr[i]; k < indptr[i + 1]; ++k) {
+                int64_t j = indices[k];
+                if (j < i && level[j] + 1 > lv) lv = level[j] + 1;
+            }
+            level[i] = lv;
+        }
+    } else {
+        for (int64_t i = n - 1; i >= 0; --i) {
+            int64_t lv = 0;
+            for (int64_t k = indptr[i]; k < indptr[i + 1]; ++k) {
+                int64_t j = indices[k];
+                if (j > i && level[j] + 1 > lv) lv = level[j] + 1;
+            }
+            level[i] = lv;
+        }
+    }
+}

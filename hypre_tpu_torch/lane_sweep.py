@@ -1,7 +1,8 @@
 """Time the ELL kernel at every slot-lane count on the 96^3 operators,
-or K1 at every offset-lane count on the 96^3 lattice operators.
+K1 at every offset-lane count on the 96^3 lattice operators, or the GS
+sweep at every lane count in both its forms on the 96^3 levels.
 
-    python -m hypre_tpu_torch.lane_sweep [--k1]
+    python -m hypre_tpu_torch.lane_sweep [--k1 | --gs]
 
 Sets up the slice's hierarchy at 96^3 in float64, and in float32 with
 bfloat16 matrices and nongalerkin_tol 0.02, and times the ELL kernel's
@@ -16,8 +17,14 @@ option defaults: embedded level 1, relocated levels with parity
 transfers) and times K1's plain form on every DIA part with more than
 8 offsets at S = 1 ... 32 offset lanes a row (a parity operator's
 matrices summed), beside the S that ops/dia_kernel.py::offset_lanes
-picks: what that rule's constants were chosen from.  Needs a CUDA
-device.
+picks: what that rule's constants were chosen from.
+
+With --gs it sets up the relax 13 / 14 hierarchy in float64 (the plain
+forms) and times one forward and one backward sweep of every level
+(ops/gs_kernel.py::gs_sweep_cuda, plain form) at S = 1 ... 32 lanes a
+row in the one-block and in the cooperative-grid form, beside the form
+and S the wrapper picks (ONE_BLOCK_MAX_ROWS, row_lanes): what those
+were chosen from.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from .ops import (DIAMatrix, DIAWithTail, ELLMatrix, ParityInterpOp,
                   ParityRestrictOp)
 from .ops.dia_kernel import MAX_BY_VALUE, dia_spmv_cuda, offset_lanes
 from .ops.ell_kernel import ell_spmv_cuda, slot_lanes
+from .ops.gs_kernel import ONE_BLOCK_MAX_ROWS, gs_sweep_cuda, row_lanes
 from .solvers.amg import BoomerAMG, BoomerAMGOptions
 from .utils.timing import time_cuda_ms
 
@@ -84,11 +92,41 @@ def k1_sweep(dev, flush, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def gs_sweep(dev, flush, gen) -> None:
+    print(f"{torch.cuda.get_device_name(0)}; GS sweep (plain form), us, "
+          "median of 20, L2 flushed, one block / grid at each S lanes a row")
+    opts = BoomerAMGOptions(
+        coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
+        relax_down=13, relax_up=14, embed_level1=False,
+        relocate_level2=False, collapse_coarse_n=0)
+    amg = BoomerAMG(laplacian_7pt(NX, NX, NX), opts, device=dev)
+    for l, lvl in enumerate(amg.levels[:-1]):
+        for d, S in (("fwd", lvl.gs_fwd), ("bwd", lvl.gs_bwd)):
+            u = torch.randn(S.n, device=dev, dtype=torch.float64, generator=gen)
+            f = torch.randn(S.n, device=dev, dtype=torch.float64, generator=gen)
+            cells = []
+            for s in (1, 2, 4, 8, 16, 32):
+                if s > 1 and s // 2 >= S.max_row:
+                    break
+                t = [time_cuda_ms(lambda c=c: gs_sweep_cuda(
+                    S, u, f, coop=c, lanes=s), flush, 20) for c in (False, True)]
+                cells.append(f"S={s} {t[0] * 1e3:.1f}/{t[1] * 1e3:.1f}")
+            grid = S.max_width > ONE_BLOCK_MAX_ROWS
+            print(f"L{l} {d} {S.n} rows, {S.num_wavefronts} wavefronts, widest "
+                  f"{S.max_width}, longest row {S.max_row}: picks the "
+                  f"{'grid' if grid else 'one block'}, S="
+                  f"{row_lanes(S.max_row, S.max_width, not grid)}; "
+                  + ", ".join(cells), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1", action="store_true",
                     help="sweep K1's offset lanes on the lattice operators "
                          "instead of the ELL kernel's slot lanes")
+    ap.add_argument("--gs", action="store_true",
+                    help="sweep the GS kernel's lanes and forms on the "
+                         "relax 13 / 14 levels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("lane_sweep needs a CUDA device")
@@ -97,6 +135,9 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     if args.k1:
         k1_sweep(dev, flush, gen)
+        return
+    if args.gs:
+        gs_sweep(dev, flush, gen)
         return
     print(f"{torch.cuda.get_device_name(0)}; us, median of 50, L2 flushed; "
           "plain / resid at each S")

@@ -107,6 +107,7 @@ def load_cuda(name: str, argtypes: dict):
 
 def _bind(lib) -> None:
     sig = {
+        "gs_levels": (None, [I64, I64, ctypes.c_int64, ctypes.c_int, I64]),
         "strength_classical_i32": (
             ctypes.c_int64,
             [I32, I32, F64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
@@ -174,6 +175,19 @@ def _i32_csr(M):
     return (np.ascontiguousarray(M.indptr, dtype=np.int32),
             np.ascontiguousarray(M.indices, dtype=np.int32),
             np.ascontiguousarray(M.data, dtype=np.float64))
+
+
+def gs_levels(indptr, indices, n: int, forward: bool) -> np.ndarray:
+    """level[i] of the Gauss-Seidel wavefront DAG (par_relax.c:472-560):
+    1 + the largest level of the earlier (forward) or later (backward)
+    rows that row i reads, 0 for a row that reads none."""
+    lib = load()
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    level = np.zeros(n, dtype=np.int64)
+    lib.gs_levels(_p(indptr, I64), _p(indices, I64), n, int(forward),
+                  _p(level, I64))
+    return level
 
 
 def strength_classical(M: sp.csr_matrix, theta: float, max_row_sum: float):

@@ -1,6 +1,7 @@
 """Where the time of one slice solve goes on the card.
 
     python -m hypre_tpu_torch.profile_slice [--dtype float64|float32] [--lattice]
+        [--relax DOWN UP]
 
 Sets up BoomerAMG-PCG on the 96^3 Poisson problem with the plain forms
 (ELL / dense coarse levels), runs one warm-up solve, times 20 solves
@@ -12,7 +13,10 @@ With --lattice the lattice path (the JAX package's option defaults:
 level-1 embedding, relocation with tails, coarse collapse) is set up
 beside the plain one and the two are measured in turns, plain, lattice,
 lattice, plain, each with its setup and FREEZE (+ DEVICE_RAP + COLLAPSE)
-seconds.
+seconds.  --relax sets relax_down and relax_up (default 18 18, the
+bench protocol's l1-Jacobi; 13 14 is BoomerAMGOptions()' Gauss-Seidel,
+whose levels the lattice gates decline, so --lattice then measures the
+plain forms twice).
 Needs a CUDA device.
 """
 
@@ -35,7 +39,8 @@ NX = 96
 REPEATS = 20
 
 
-def _options(dtype: str, lattice: bool) -> BoomerAMGOptions:
+def _options(dtype: str, lattice: bool,
+             relax: tuple = (18, 18)) -> BoomerAMGOptions:
     extra = ({} if dtype == "float64"
              else dict(mat_dtype="bfloat16", nongalerkin_tol=0.02))
     if lattice:
@@ -47,15 +52,16 @@ def _options(dtype: str, lattice: bool) -> BoomerAMGOptions:
                      collapse_coarse_n=0)
     return BoomerAMGOptions(
         coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
-        relax_down=18, relax_up=18, dtype=dtype, **extra)
+        relax_down=relax[0], relax_up=relax[1], dtype=dtype, **extra)
 
 
-def _setup(dtype: str, lattice: bool, dev):
+def _setup(dtype: str, lattice: bool, dev, relax=(18, 18)):
     """(amg, setup seconds, FREEZE + DEVICE_RAP + COLLAPSE seconds), host
-    clock, the card synchronized."""
+    clock, the card synchronized.  FREEZE includes the GS schedules'
+    build (GS_SCHEDULE)."""
     GLOBAL_TIMER.clear()
     t0 = time.perf_counter()
-    amg = BoomerAMG(laplacian_7pt(NX, NX, NX), _options(dtype, lattice),
+    amg = BoomerAMG(laplacian_7pt(NX, NX, NX), _options(dtype, lattice, relax),
                     device=dev)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
@@ -104,7 +110,8 @@ def _measure(amg, tag: str, table: bool) -> None:
                        ("ELL ell_spmv", "ell_spmv_kernel"),
                        ("flat_take", "flat_take_kernel"),
                        ("coo_tail", "coo_tail_kernel"),
-                       ("cell_dense", "cell_dense_kernel")):
+                       ("cell_dense", "cell_dense_kernel"),
+                       ("gs_sweep", "gs_sweep_kernel")):
         mine = [e for e in events if key in e.name]
         us = sum(e.time_range.end - e.time_range.start for e in mine)
         print(f"{tag}: {label}: {len(mine)} launches, "
@@ -118,15 +125,19 @@ def main() -> None:
     ap.add_argument("--lattice", action="store_true",
                     help="also the lattice path, measured in turns with "
                          "the plain one: plain, lattice, lattice, plain")
+    ap.add_argument("--relax", type=int, nargs=2, default=(18, 18),
+                    metavar=("DOWN", "UP"),
+                    help="relax_down and relax_up (13 14: Gauss-Seidel)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
     dev = torch.device("cuda", 0)
     hierarchies = {}
     for name in ("plain", "lattice") if args.lattice else ("plain",):
-        amg, setup_s, freeze_s = _setup(args.dtype, name == "lattice", dev)
+        amg, setup_s, freeze_s = _setup(args.dtype, name == "lattice", dev,
+                                        tuple(args.relax))
         hierarchies[name] = amg
-        print(f"{NX}^3 {args.dtype} {name}: setup {setup_s:.2f} s, of it "
+        print(f"{NX}^3 {args.dtype} relax {args.relax} {name}: setup {setup_s:.2f} s, of it "
               f"FREEZE + DEVICE_RAP + COLLAPSE {freeze_s:.2f} s; "
               f"{len(amg.levels)} levels "
               f"frozen, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
@@ -135,7 +146,8 @@ def main() -> None:
              else ("plain",))
     seen = set()
     for name in turns:
-        _measure(hierarchies[name], f"{NX}^3 {args.dtype} {name}",
+        _measure(hierarchies[name],
+                 f"{NX}^3 {args.dtype} relax {args.relax} {name}",
                  table=name not in seen)
         seen.add(name)
 

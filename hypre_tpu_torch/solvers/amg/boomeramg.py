@@ -26,11 +26,15 @@ sub-cycle below the first small level is collapsed into one dense
 operator (`_build_coarse_collapse`).  A hierarchy that fails a gate
 keeps the plain forms, as in the JAX package.
 
-The port implements the options of the bench protocol (relax 0/5/7/18
-with relax_coarse 9, V-cycles, classical or ext+i interpolation) and
-the lattice path; every other option must keep its default (the device
-setup chain, the offset budgets): `check_options` raises
-NotImplementedError otherwise.
+The port implements the options of the bench protocol (V-cycles,
+classical or ext+i interpolation, relax_coarse 0/5/7/18/9), the
+smoother family of the JAX package for the down and up sweeps (relax
+0/5/7/18 Jacobi, 1-4/6/8/13/14 level-scheduled Gauss-Seidel with omega
+and the CF-ordered sweeps of relax_order 1, 15 CG, 16 Chebyshev, 17
+FCF-Jacobi), the stationary solve (`solve`, hypre's solver 0) and the
+lattice path; every other option must keep its default (the device
+setup chain, the offset budgets, grid_relax_type / grid_relax_points):
+`check_options` raises NotImplementedError otherwise.
 """
 
 from __future__ import annotations
@@ -54,10 +58,12 @@ from ...ops.dia import (DENSE_MAX_ROWS, DIA_MAX_OFFSETS, DenseMatrix,
                         parity_offset_count_plan, relocate_to_cells, spmv,
                         spmv_axpy, spmv_resid, tail_min_count)
 from ...utils.timing import timed
+from ..krylov.common import SolverResult
 from .coarsen import pmis_coarsen
 from .interp import classical_interp, extended_i_interp, truncate_interp
 from .rap import galerkin_rap, nongalerkin_filter
-from .relax import jacobi, jacobi_cf
+from .relax import (ChebyData, GSMatrix, build_gs_schedule,
+                    cheby_setup, chebyshev, gauss_seidel, jacobi, jacobi_cf)
 from .strength import strength_matrix
 
 
@@ -163,13 +169,19 @@ _IMPLEMENTED = frozenset({
     "coarsen_type", "interp_type", "trunc_factor", "P_max_elmts",
     "nongalerkin_tol", "nongalerkin_lump", "relax_down", "relax_up",
     "relax_coarse", "relax_order", "relax_weight", "level_relax_weights",
-    "num_sweeps", "num_sweeps_down", "num_sweeps_up", "num_sweeps_coarse",
+    "omega", "level_omegas", "cheby_order", "cheby_ratio", "num_sweeps", "num_sweeps_down", "num_sweeps_up", "num_sweeps_coarse",
     "min_coarse_size", "cycle_type", "seed", "dtype", "mat_dtype",
     "device_rap", "embed_level1", "max_embedded_offsets", "relocate_level2",
     "lattice_shape", "relocate_min_n2", "relocate_max_bytes",
     "max_relocated_offsets", "relocate_tail", "collapse_coarse_n",
 })
 _JACOBI = (0, 5, 7, 18)
+# level-scheduled Gauss-Seidel: 1/2/3/13 forward, 4/14 backward, 6/8 both
+_GS_TYPES = (1, 2, 3, 4, 6, 8, 13, 14)
+# what the down and up sweeps take: the above, 15 CG, 16 Chebyshev, 17
+# FCF-Jacobi (the coarsest level builds no GS schedule: relax_coarse
+# keeps _JACOBI and 9)
+_UPDOWN = _JACOBI + _GS_TYPES + (15, 16, 17)
 # interp_type -> host interpolation (hypre interp_type 0 / 6)
 _INTERP = {"classical": classical_interp, "ext+i": extended_i_interp}
 # (vector dtype, matrix dtype) pairs; K1 takes exactly these
@@ -191,8 +203,8 @@ def check_options(o: BoomerAMGOptions) -> None:
     checks = (
         ("coarsen_type", o.coarsen_type == "pmis"),
         ("interp_type", o.interp_type in _INTERP),
-        ("relax_down", o.relax_down in _JACOBI),
-        ("relax_up", o.relax_up in _JACOBI),
+        ("relax_down", o.relax_down in _UPDOWN),
+        ("relax_up", o.relax_up in _UPDOWN),
         ("relax_coarse", o.relax_coarse in _JACOBI + (9,)),
         ("relax_order", o.relax_order in (0, 1)),
         ("cycle_type", o.cycle_type == 1),
@@ -216,6 +228,11 @@ class AMGLevel:
     # on the coarsest level: the dense pinv (a tensor), or the collapsed
     # sub-cycle as an operator (DenseMatrix, or that behind Scatter/Gather)
     coarse_inv: Optional[object]
+    # GS sweeps (relax 1-4, 6, 8, 13, 14): a schedule a direction, or a
+    # (C, F) pair of them with relax_order 1; None on the coarsest
+    gs_fwd: Optional[object] = None
+    gs_bwd: Optional[object] = None
+    cheby: Optional[ChebyData] = None  # relax 16
 
 
 class BoomerAMG:
@@ -399,6 +416,15 @@ class BoomerAMG:
         else:
             A_frozen = self._freeze_compact(A)
         no_PR = coarsest or skip_PR
+        relax_types = ({o.relax_down, o.relax_up} if not coarsest
+                       else {o.relax_coarse})
+        gs_fwd = gs_bwd = cheby = None
+        if not coarsest and relax_types & set(_GS_TYPES):
+            with timed("GS_SCHEDULE", device=dev):
+                gs_fwd, gs_bwd = self._gs_schedules(A, cf)
+        if not coarsest and 16 in relax_types:
+            cheby = cheby_setup(CSRMatrix.from_scipy(A), o.cheby_order,
+                                o.cheby_ratio, device=dev)
         return AMGLevel(
             A=A_frozen,
             dinv=to_device(dinv, dt, dev),
@@ -408,7 +434,32 @@ class BoomerAMG:
             P=None if no_PR else self._freeze_compact(P),
             R=None if no_PR else self._freeze_compact(P.T.tocsr()),
             coarse_inv=coarse_inv,
+            gs_fwd=gs_fwd,
+            gs_bwd=gs_bwd,
+            cheby=cheby,
         )
+
+    def _gs_schedules(self, A, cf):
+        """(forward, backward) GS schedules of a host level, sharing one
+        GSMatrix on the device; each a (C, F) pair of masked schedules
+        with relax_order 1 (par_cycle.c:398).  The divisor is the
+        diagonal, 1 where it is 0: option-4's l1 divisor degenerates to
+        |diag| on one partition, the sign following the diagonal
+        (ams.c:642-660)."""
+        Ah = CSRMatrix.from_scipy(A)
+        diag = A.diagonal()
+        gs_div = np.where(diag == 0, 1.0, diag)
+        mat = GSMatrix.build(Ah, gs_div, self.device)
+
+        def build(forward, mask=None):
+            return build_gs_schedule(Ah, forward, gs_div, mask=mask,
+                                     device=self.device, mat=mat)
+
+        if self.opts.relax_order == 1 and cf is not None:
+            cm = cf > 0
+            return ((build(True, cm), build(True, ~cm)),
+                    (build(False, cm), build(False, ~cm)))
+        return build(True), build(False)
 
     # ------------------------------------------------------------------
     # the lattice forms (host planning, device build)
@@ -821,16 +872,29 @@ class BoomerAMG:
             return o.relax_weight
         return float(lw[min(level, len(lw) - 1)])
 
+    def _level_omega(self, level: int) -> float:
+        """omega[level] (par_amg.h; SetLevelOuterWt) with the scalar
+        fallback; deeper levels clamp to the last array entry."""
+        o = self.opts
+        lo = o.level_omegas
+        if lo is None or not len(lo):
+            return o.omega
+        return float(lo[min(level, len(lo) - 1)])
+
     def _smooth(self, lvl: AMGLevel, relax_type: int, u, f, up: bool,
                 level: int, u_zero: bool = False):
         """u_zero: the caller guarantees u == 0 (the first down-smooth
         of every level inside a preconditioner cycle); Jacobi sweeps
-        then skip the A @ 0 matvec with a bitwise-identical result."""
+        then skip the A @ 0 matvec with a bitwise-identical result.  The
+        other smoothers ignore it, as in the JAX package (GS sweeps the
+        zero vector)."""
         w = self._level_weight(level)
         if relax_type == 9:
             ci = lvl.coarse_inv
             # the dense pinv, or the collapsed sub-cycle as an operator
             return ci @ f if isinstance(ci, torch.Tensor) else spmv(ci, f)
+        if relax_type not in _JACOBI:
+            return self._smooth_other(lvl, relax_type, u, f, up, level, w)
         # 0/7 weighted Jacobi; 5 chaotic GS (== Jacobi on a data-parallel
         # machine); 18 l1-Jacobi
         div = lvl.l1inv if relax_type == 18 else lvl.dinv
@@ -848,6 +912,126 @@ class BoomerAMG:
         if u_zero:
             return w * div * f
         return jacobi(lvl.A, div, u, f, w)
+
+    def _smooth_other(self, lvl: AMGLevel, relax_type: int, u, f, up: bool,
+                      level: int, w: float):
+        """The Gauss-Seidel family, Chebyshev, FCF-Jacobi and the CG
+        smoother (the JAX package's _smooth, boomeramg.py:1861-1908)."""
+        if relax_type in (1, 2, 3, 13):
+            # sequential/hybrid forward GS (np=1: true GS; 13 = L1-GS
+            # whose option-4 divisor degenerates to |diag|).  omega
+            # applies to the hybrid SOR/L1 members (3/13 — par_relax.c
+            # has the prod=(1-w*omega) branch in both, :1277/:4525);
+            # the pure-sequential 1/2 branches carry no omega term.
+            om = (self._level_omega(level) if relax_type in (3, 13)
+                  else 1.0)
+            return self._gs(lvl.gs_fwd, u, f, w, up, omega=om)
+        if relax_type in (4, 14):
+            return self._gs(lvl.gs_bwd, u, f, w, up,
+                            omega=self._level_omega(level))
+        if relax_type in (6, 8):
+            # hybrid SSOR / L1-SSOR (same degenerate divisor at np=1).
+            # ONE Vtemp copy per Relax call (par_relax.c:3148): the
+            # backward half-sweep's S_pre uses the pre-FORWARD iterate.
+            om = self._level_omega(level)
+            v0 = u if om != 1.0 else None
+            u = self._gs(lvl.gs_fwd, u, f, w, up, omega=om, v=v0)
+            return self._gs(lvl.gs_bwd, u, f, w, up, omega=om, v=v0)
+        if relax_type == 16:
+            return chebyshev(lvl.A, lvl.cheby, u, f)
+        if relax_type == 17:
+            # FCF-Jacobi (par_relax_more.c:661): weighted Jacobi on
+            # F, then C, then F points
+            for mask in (~lvl.cmask, lvl.cmask, ~lvl.cmask):
+                u = jacobi_cf(lvl.A, lvl.dinv, u, f, mask, w)
+            return u
+        if relax_type == 15:
+            # CG smoother (par_relax_more.c hypre_ParCSRRelax_CG): a few
+            # unpreconditioned CG iterations as the smoothing operator
+            r = spmv_resid(lvl.A, u, f)
+            p = r
+            rr = torch.dot(r, r)
+            for _ in range(3):
+                Ap = spmv(lvl.A, p)
+                denom = torch.dot(p, Ap)
+                alpha = torch.where(
+                    denom != 0, rr / torch.where(denom == 0, 1, denom), 0.0)
+                u = u + alpha * p
+                r = r - alpha * Ap
+                rr_new = torch.dot(r, r)
+                beta = torch.where(
+                    rr != 0, rr_new / torch.where(rr == 0, 1, rr), 0.0)
+                p = r + beta * p
+                rr = rr_new
+            return u
+        raise NotImplementedError(f"relax_type {relax_type} is not "
+                                  f"implemented in the port")
+
+    @staticmethod
+    def _gs(sched, u, f, w, up, omega: float = 1.0, v=None):
+        """One GS relaxation call: a sweep of `sched`, or with a (C, F)
+        pair (relax_order 1) down C then F, up F then C (par_cycle.c:398),
+        each half-sweep its own hypre Relax call (a fresh Vtemp unless
+        the caller pinned one: SSOR)."""
+        if isinstance(sched, tuple):
+            sc, sf = sched
+            for sd in ((sf, sc) if up else (sc, sf)):
+                u = gauss_seidel(sd, u, f, w, omega=omega, v=v)
+            return u
+        return gauss_seidel(sched, u, f, w, omega=omega, v=v)
+
+    def _smooth_launches(self, lvl: AMGLevel, relax_type: int, sweeps: int,
+                         u_zero: bool) -> tuple[int, int]:
+        """(applications of A, GS sweeps) of one `_smooth` position of
+        `sweeps` sweeps; u_zero: the first sweep starts from zero."""
+        if relax_type in _JACOBI:
+            halves = 2 if self.opts.relax_order == 1 else 1
+            return sweeps * halves - (1 if u_zero else 0), 0
+        if relax_type in _GS_TYPES:
+            calls = 2 if relax_type in (6, 8) else 1
+            halves = 2 if isinstance(lvl.gs_fwd, tuple) else 1
+            return 0, sweeps * calls * halves
+        if relax_type == 16:
+            return sweeps * lvl.cheby.order, 0
+        return sweeps * {15: 4, 17: 3}[relax_type], 0
+
+    def cycle_launches(self) -> dict:
+        """{kernel name: launches} of one V-cycle from a zero initial
+        guess (the PCG preconditioner's), from the levels' formats
+        (ops/dia.py::kernel_launches) and the smoothers: the smoothing
+        matvecs, each level's residual, restriction and prolongation,
+        the coarse solve where it is an operator, and "gs_sweep", one
+        launch a GS sweep of a level."""
+        from ...ops.dia import kernel_launches
+
+        out: dict = {"gs_sweep": 0}
+
+        def add(op, k):
+            for name, c in kernel_launches(op).items():
+                out[name] = out.get(name, 0) + k * c
+
+        levels = self.levels
+        L = len(levels)
+        rt_c, ns_c = self._relax_plan("coarse")
+        if L > 1:
+            rt_d, ns_d = self._relax_plan("down")
+            rt_u, ns_u = self._relax_plan("up")
+            for lvl in levels[:-1]:
+                for rt, ns, uz in ((rt_d, ns_d, True), (rt_u, ns_u, False)):
+                    na, gs = self._smooth_launches(lvl, rt, ns, uz)
+                    add(lvl.A, na)
+                    out["gs_sweep"] += gs
+                add(lvl.A, 1)  # the residual
+                add(lvl.R, 1)
+                add(lvl.P, 1)
+        if rt_c == 9:
+            ci = levels[-1].coarse_inv
+            if not isinstance(ci, torch.Tensor):
+                add(ci, 1)
+        else:
+            add(levels[-1].A, self._smooth_launches(
+                levels[-1], rt_c, ns_c if L > 1 else 1, False)[0])
+        return out
 
     def cycle(self, f, u=None):
         """One V-cycle (cycle_type 1, par_cycle.c).  With u None the
@@ -891,3 +1075,35 @@ class BoomerAMG:
     def precond(self):
         """M(r) -> z: one cycle with zero initial guess (the PCG hook)."""
         return lambda r: self.cycle(r)
+
+    # ------------------------------------------------------------------
+    # standalone solve (par_amg_solve.c)
+    # ------------------------------------------------------------------
+    def solve(self, b, x0=None, tol: float = 1e-7, max_iter: int = 20,
+              min_iter: int = 0) -> SolverResult:
+        """Iterate V-cycles until ||r||/||b|| < tol (par_amg_solve.c:243;
+        hypre's solver 0).  x0 defaults to zeros of the fine operator's
+        dtype.  A Python loop that reads the stop test on the host once
+        an iteration, as pcg's does; the residual history lands in a
+        NaN-padded [max_iter + 1] tensor."""
+        A = self.levels[0].A
+        x = (torch.zeros(A.num_rows, dtype=A.data.dtype, device=b.device)
+             if x0 is None else x0)
+        b_norm = torch.sqrt(torch.dot(b, b))
+        r0 = spmv_resid(A, x, b)
+        rnorm = torch.sqrt(torch.dot(r0, r0))
+        den = torch.where(b_norm > 0, b_norm,
+                          torch.where(rnorm > 0, rnorm, 1.0))
+        norms = torch.full((max_iter + 1,), float("nan"), dtype=b.dtype,
+                           device=b.device)
+        norms[0] = rnorm
+        i = 0
+        while i < max_iter and (i < min_iter or bool(rnorm / den >= tol)):
+            x = self.cycle(b, x)
+            r = spmv_resid(A, x, b)
+            rnorm = torch.sqrt(torch.dot(r, r))
+            i += 1
+            norms[i] = rnorm
+        rel = rnorm / den
+        return SolverResult(x=x, num_iterations=i, rel_residual_norm=rel,
+                            converged=bool(rel < tol), res_norms=norms)

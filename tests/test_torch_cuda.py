@@ -1,6 +1,7 @@
 """The CUDA kernels (K1, the ELL SpMV, each in its four forms, K1 with a
-COO tail in its launch, the gathers, the COO tail and the cell-dense
-kernel) and the lattice operators that run on them, on
+COO tail in its launch, the gathers, the COO tail, the cell-dense
+kernel and the Gauss-Seidel sweep) and the lattice operators that run
+on them, on
 the card against their plain versions, and the device RAP's pass on
 the card against the same pass on the CPU (marker `cuda`; each
 test skips where torch sees no CUDA device).  This file imports
@@ -689,3 +690,129 @@ def test_device_rap_on_card_is_the_cpu_pass(cuda, interp, kw):
         M, H = getattr(card.levels[lvl], name), getattr(host.levels[lvl], name)
         assert isinstance(M, tdia.DIAMatrix) and M.offsets == H.offsets
         assert torch.equal(M.data.cpu(), H.data), f"L{lvl} {name}"
+
+
+def _gs_matrix(kind):
+    """(CSRMatrix, expect a hazard wavefront): a 3D Laplacian, or a
+    random nonsymmetric pattern whose wavefronts hold rows that read
+    same-wavefront neighbours."""
+    if kind == "laplacian":
+        return laplacian_7pt(14, 12, 10), False
+    rng = np.random.default_rng(11)
+    n = 3000
+    B = sp.random(n, n, 4.0 / n, random_state=rng, format="csr")
+    M = (B + sp.diags(8.0 + rng.random(n))).tocsr()
+    M.sort_indices()
+    return CSRMatrix.from_scipy(M), True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["laplacian", "nonsymmetric"])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("omega", [1.0, 0.8])
+@pytest.mark.parametrize("coop,lanes", [(False, None), (True, None),
+                                        (False, 1), (True, 32)])
+@pytest.mark.parametrize("vdt,tol", [(torch.float64, 1e-12),
+                                     (torch.float32, 1e-6)])
+def test_gs_sweep_matches_plain_on_card(cuda, kind, forward, omega, coop,
+                                        lanes, vdt, tol):
+    """One launch a sweep, in the one-block and the cooperative-grid
+    form, against the plain version over the JAX layout's slabs on the
+    same inputs: relative to max |u| within tol; the same bits twice."""
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda, gs_sweep_reference
+    from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
+
+    A, hazard = _gs_matrix(kind)
+    sched = build_gs_schedule(A, forward, device=cuda)
+    assert sched.any_hazard == hazard
+    rng = np.random.default_rng(5)
+    u, f, v = (torch.from_numpy(rng.standard_normal(A.shape[0])).to(cuda, vdt)
+               for _ in range(3))
+    before = gs_sweep_cuda.launches
+    got = gs_sweep_cuda(sched, u, f, 0.9, omega, v, coop=coop, lanes=lanes)
+    assert gs_sweep_cuda.launches == before + 1
+    want = gs_sweep_reference(sched.slabs(cuda), sched.n, u, f, 0.9, omega, v)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= tol
+    assert torch.equal(
+        gs_sweep_cuda(sched, u, f, 0.9, omega, v, coop=coop, lanes=lanes), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", [True, False])
+def test_gs_sweep_masked_halves_on_card(cuda, forward):
+    """The C and F halves of a CF-ordered sweep (relax_order 1): only the
+    half's rows change, each against the plain version."""
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda, gs_sweep_reference
+    from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
+
+    A = laplacian_7pt(12, 12, 12)
+    rng = np.random.default_rng(8)
+    cmask = rng.random(A.shape[0]) < 0.3
+    u, f = (torch.from_numpy(rng.standard_normal(A.shape[0])).to(cuda)
+            for _ in range(2))
+    for mask in (cmask, ~cmask):
+        sched = build_gs_schedule(A, forward, mask=mask, device=cuda)
+        got = gs_sweep_cuda(sched, u, f, 1.0)
+        want = gs_sweep_reference(sched.slabs(cuda), sched.n, u, f, 1.0)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-12
+        still = torch.from_numpy(~mask).to(cuda)
+        assert torch.equal(got[still], u[still])
+
+
+@pytest.mark.cuda
+def test_gs_sweep_refuses_what_it_does_not_take(cuda):
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda
+    from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
+
+    A = laplacian_7pt(6, 6, 6)
+    sched = build_gs_schedule(A, True, device=cuda)
+    u = torch.ones(216, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="dtype"):
+        gs_sweep_cuda(sched, u.half(), u.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        gs_sweep_cuda(sched, u, torch.ones(432, device=cuda,
+                                           dtype=torch.float64)[::2])
+    with pytest.raises(ValueError, match="CUDA"):
+        gs_sweep_cuda(sched, u.cpu(), u.cpu())
+    with pytest.raises(ValueError, match="lanes"):
+        gs_sweep_cuda(sched, u, u, lanes=3)
+    cpu_sched = build_gs_schedule(A, True, device="cpu")
+    with pytest.raises(ValueError, match="device"):
+        gs_sweep_cuda(cpu_sched, u, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(relax_down=13, relax_up=14),
+    dict(relax_down=6, relax_up=6, omega=0.8, relax_weight=0.9),
+    dict(relax_down=13, relax_up=14, relax_order=1),
+    dict(relax_down=16, relax_up=16),
+    dict(relax_down=17, relax_up=17),
+    dict(relax_down=15, relax_up=15),
+])
+def test_smoothers_solve_the_same_on_card_and_cpu(cuda, kw):
+    """PCG over the same 12^3 hierarchy built on the card and on the
+    CPU: the same iterations, x within 1e-10; every GS sweep one
+    launch, as `cycle_launches` says."""
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda
+    from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+
+    opts = BoomerAMGOptions(coarsen_type="pmis", interp_type="classical",
+                            P_max_elmts=4, embed_level1=False, **kw)
+    A = laplacian_7pt(12, 12, 12)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        amg = BoomerAMG(A, opts, device=dev)
+        b = torch.ones(1728, dtype=torch.float64, device=dev)
+        before = gs_sweep_cuda.launches
+        res = pcg(lambda x: spmv(amg.levels[0].A, x), b, M=amg.precond,
+                  opts=PCGOptions(tol=1e-8, max_iter=100, two_norm=True))
+        out.append((res, gs_sweep_cuda.launches - before,
+                    amg.cycle_launches()["gs_sweep"]))
+    (rc, nc, per), (rh, nh, _) = out
+    assert rc.converged and rc.num_iterations == rh.num_iterations
+    assert nc == per * (rc.num_iterations + 1) and nh == 0
+    assert _rel(rc.x.cpu(), rh.x) <= 1e-10

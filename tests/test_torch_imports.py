@@ -25,6 +25,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.ops.ell_kernel",
     "hypre_tpu_torch.ops.forms",
     "hypre_tpu_torch.ops.gather_kernel",
+    "hypre_tpu_torch.ops.gs_kernel",
     "hypre_tpu_torch.ops.spmv",
     "hypre_tpu_torch.ops.tail_kernel",
     "hypre_tpu_torch.solvers.amg.boomeramg",

@@ -385,7 +385,7 @@ def test_entry_options_hierarchy_equals_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(relax_down=13), "relax_down"),
+    (dict(grid_relax_points=((0,), (0,), (0,), (0,))), "grid_relax_points"),
     (dict(relocate_offset_budget=64), "relocate_offset_budget"),
     (dict(transfer_offset_budget=64), "transfer_offset_budget"),
     (dict(device_setup=True), "device_setup"),
