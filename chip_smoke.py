@@ -54,7 +54,7 @@ Phases (any failure raises and the script exits non-zero):
      path's shapes against its plain version, bitwise; then the device
      RAP (`phase_device_rap`): level-1 A against the host product,
      the pass against the host branch's build, and both branches'
-     FREEZE seconds, medians of 3;
+     FREEZE seconds (FREEZE includes DEVICE_RAP), one freeze each;
   9. (a) after step 5, `entry()` (hypre_tpu_torch/entry.py: ext+i,
      f32/bf16, the lattice defaults at 24^3) on the card and on the CPU,
      the same residual norm, the launches exactly as the hierarchy says;
@@ -79,8 +79,19 @@ Phases (any failure raises and the script exits non-zero):
      relax_order 1 at 24^3 and a nonsymmetric matrix with two-phase
      wavefronts; BoomerAMGOptions() at 24^3 and Chebyshev (relax 16) at
      48^3 f64, card against CPU: the same count, residuals within 1e-10.
+ 11. bench.py's 96^3 configuration with the device setup chain
+     (device_setup, lattice_coeffs (1, 1, 1): strength, PMIS, classical
+     interpolation, RAP of level 0 on the card), f64 and f32/bf16/ngt
+     0.02: the chain engaged, the JAX package's counts (DS96_F64,
+     DS96_F32), launches exactly as the hierarchy says; the card's CF
+     bitwise lattice_pmis_host's, P0 and level-1 A against the same
+     chain on the CPU (f64 within 1e-14, f32 4 ulp); the solve's median
+     of 20, device busy and kernels an iteration; setup by phase (DS_*)
+     and time to a first solution, medians of 3, in turns with the host
+     setup and the plain path.
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
-the GS family), the kernel report and {"ok": true, ...}.
+the GS family, the device setup chain), the kernel report and
+{"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -98,6 +109,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from hypre_tpu_torch.profile_slice import DS_PHASES
 from hypre_tpu_torch.utils.timing import REPS, time_cuda_ms
 
 NX = 96
@@ -1322,9 +1334,11 @@ def phase_device_rap(amg, card, label):
     (level-1 A and the transposed level-0 R).  Then the pass alone
     (transpose + product) against the host branch's build of level-1 A
     and level-0 R, medians of 3, the pass's peak memory beyond its
-    inputs (outputs and scratch, at most 2 GB), and FREEZE / DEVICE_RAP
-    / COLLAPSE seconds of both branches, medians of 3, from freezing the
-    same host hierarchy again (it ends frozen with the device RAP)."""
+    inputs (outputs and scratch, at most 2 GB), and FREEZE (which
+    includes DEVICE_RAP) / DEVICE_RAP / COLLAPSE seconds of both
+    branches from freezing the same host hierarchy again, once each
+    (phase 11 gives medians of 3 of the whole setup; the hierarchy ends
+    frozen with the device RAP)."""
     from hypre_tpu_torch.ops.device_rap import (dia_transpose_device,
                                                 embedded_rap_device)
     from hypre_tpu_torch.ops.dia import build_embedded_dia
@@ -1412,17 +1426,13 @@ def phase_device_rap(amg, card, label):
     peak = torch.cuda.max_memory_allocated(dev) - m0
     require(peak <= 2e9, f"{label}: the device RAP took {peak / 1e9:.2f} GB "
                          f"beyond its inputs, more than 2 GB")
-    runs = {flag: [freeze_again(amg, flag) for _ in range(3)]
-            for flag in (False, True)}
-    med = {("device" if flag else "host"): {
-        k: float(np.median([r[k] for r in rs])) for k in rs[0]}
-        for flag, rs in runs.items()}
+    med = {("device" if flag else "host"): freeze_again(amg, flag)
+           for flag in (False, True)}
     log(f"device RAP [{label}; {card}]: {out['terms']} terms (at most "
         f"{out['tmax']} an offset) into {out['offsets']} offsets; the pass "
         f"(transpose + product) {dev_s:.4f} s, the host branch's L1 A + L0 R "
         f"build {host_s:.4f} s, medians of 3; peak memory of the pass beyond "
-        f"its inputs {peak / 1e9:.3f} GB; freezing again, medians of 3: "
-        f"{med}")
+        f"its inputs {peak / 1e9:.3f} GB; freezing again: {med}")
     out.update(device_pass_s=dev_s, host_build_s=host_s, peak_bytes=peak,
                freeze=med)
     return out
@@ -1498,6 +1508,217 @@ def phase_ext(dev, card):
                 f"iterations")
     return out
 
+
+
+# -- bench.py's device-resident level-0 setup (device_setup) ----------------
+
+# the JAX package's PCG counts on the CPU with the device setup chain at
+# 96^3: bench.py's options (device_setup, lattice_coeffs (1, 1, 1), the
+# lattice defaults, classical, P_max_elmts 4, relax 18), b = ones,
+# two-norm, tol 1e-6; recomputed by
+#   python -m pytest -m slow tests/test_torch_device_setup.py -k jax_count
+DS96_F64 = 25
+DS96_F32 = 21
+# the chain's timers (DS_PHASES), then the host setup's and the freeze's
+SETUP_PHASES = DS_PHASES + ("SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP",
+                            "FREEZE", "DEVICE_RAP", "COLLAPSE")
+DS_ROUNDS = 3  # setups a path for the medians
+
+
+def ds_options(**kw):
+    """bench.py's 96^3 options: the lattice defaults with the device
+    setup chain, the fine table built on the card."""
+    return lattice_options(NX, device_setup=True,
+                           lattice_coeffs=(1.0, 1.0, 1.0), **kw)
+
+
+def first_solution(opts, dev):
+    """Setup + one solve through run_slice: (amg, result, {phase:
+    seconds} of GLOBAL_TIMER with "rest of SETUP" (SETUP less the
+    chain's phases), setup_s, solve_s and first_solution_s)."""
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    GLOBAL_TIMER.clear()
+    amg, res, setup_s, solve_s = run_slice(NX, opts, dev)
+    ph = {k: GLOBAL_TIMER.seconds(k) for k in SETUP_PHASES}
+    ph["rest of SETUP"] = ph["SETUP"] - sum(ph[k] for k in DS_PHASES)
+    ph.update(setup_s=setup_s, solve_s=solve_s,
+              first_solution_s=setup_s + solve_s)
+    return amg, res, ph
+
+
+def hold_chain_on_cpu(amg, opts, label):
+    """The chain on the card against the same chain on the CPU over the
+    same 96^3 inputs (BoomerAMG._device_setup_level0 of an instance on
+    the CPU): the device CF bitwise `lattice_pmis_host`'s and the CPU
+    run's; P0 and level-1 A with the same offsets, f64 within 1e-14
+    relative per entry, f32 within 4 ulp (level-1 A as the card's level
+    holds it, in mat_dtype: bf16 within 1 ulp); the compact level-1 A
+    the host continues from likewise.  Returns the differences."""
+    from hypre_tpu_torch.solvers.amg import BoomerAMG
+    from hypre_tpu_torch.solvers.amg.device_coarsen import lattice_pmis_host
+
+    f = amg._fast
+    n = NX**3
+    cf0 = amg._cf[0]
+    P = f["P"]
+    cf_np = lattice_pmis_host(amg.levels[0].A.data.cpu().numpy(),
+                              amg.levels[0].A.offsets, n, seed=opts.seed,
+                              theta=opts.strong_threshold,
+                              max_row_sum=opts.max_row_sum)
+    require(np.array_equal(cf_np.astype(np.int64), cf0),
+            f"{label}: the card's CF differs from lattice_pmis_host's")
+    t0 = time.perf_counter()
+    cpu = BoomerAMG.__new__(BoomerAMG)
+    cpu.opts, cpu.device = opts, torch.device("cpu")
+    fc = cpu._device_setup_level0(amg._host_A[0])
+    cpu_s = time.perf_counter() - t0
+    require(np.array_equal(fc["cf0"], cf0), f"{label}: CF card != CPU")
+    f32 = P.data.dtype == torch.float32
+
+    def diff(a, b, what):
+        """(entries that differ, max rel per entry or max f32 ulps)."""
+        a, b = a.cpu(), b.cpu()
+        differ = int((a != b).sum())
+        if a.dtype == torch.bfloat16:
+            worst = int(bf16_ulps(a, b).max())
+            ok = worst <= 1
+        elif f32:
+            ia, ib = (t.view(torch.int32).long() for t in (a, b))
+            ia, ib = (torch.where(t < 0, -(t & 0x7FFFFFFF), t) for t in (ia, ib))
+            worst = int((ia - ib).abs().max())
+            ok = worst <= 4
+        else:
+            nz = b != 0
+            worst = float(((a - b).abs()[nz] / b.abs()[nz]).max())
+            ok = worst <= 1e-14 and bool((a[~nz] == 0).all())
+        require(ok, f"{label}: {what} on the card differs from the CPU run "
+                    f"({differ} entries, worst {worst})")
+        return {"differ": differ, "of": a.numel(),
+                ("max_ulps" if (f32 or a.dtype == torch.bfloat16)
+                 else "max_rel"): worst}
+
+    require(P.offsets == fc["P"].offsets, f"{label}: P0 offsets differ")
+    L1 = amg.levels[1].A
+    require(L1.offsets == fc["A1"].offsets, f"{label}: level-1 offsets differ")
+    A1h, A1c = amg._host_A[1], fc["A1_host"]
+    require(A1h.shape == A1c.shape and np.array_equal(A1h.indptr, A1c.indptr)
+            and np.array_equal(A1h.indices, A1c.indices),
+            f"{label}: the compact level-1 pattern differs")
+    host_vals = (torch.from_numpy(A1h.data), torch.from_numpy(A1c.data))
+    if f32:  # f32 values carried in f64
+        host_vals = tuple(v.float() for v in host_vals)
+    out = {"cpu_chain_s": cpu_s,
+           "P0": diff(P.data, fc["P"].data, "P0"),
+           "A1": diff(L1.data, fc["A1"].data.to(L1.data.dtype), "level-1 A"),
+           "A1_host": diff(*host_vals, "the compact level-1 A"),
+           "P0_offsets": len(P.offsets), "A1_offsets": len(L1.offsets)}
+    log(f"device setup [{label}]: CF bitwise lattice_pmis_host's and the CPU "
+        f"chain's ({int((cf0 > 0).sum())} C points); card vs the CPU chain "
+        f"({cpu_s:.1f} s there): {out}")
+    return out
+
+
+def phase_device_setup(dev, card):
+    """bench.py's 96^3 configuration with the device setup chain, f64 and
+    f32/bf16/ngt 0.02: each driven once through run_slice with the counts
+    at 0 just before and read just after: the chain engaged (amg._fast),
+    the JAX package's count (DS96_F64 / DS96_F32), a right solution,
+    launches exactly as `kernel_launches` says; the chain held against
+    its CPU run (`hold_chain_on_cpu`); the solve's median of 20 warm
+    solves, device busy and kernels an iteration (torch.profiler); then
+    setup by phase and time to a first solution (setup + one solve),
+    medians of DS_ROUNDS, in turns with the same options with
+    device_setup=False (the host setup, the device RAP) and the plain
+    path the port recommends.  Returns {label: numbers}."""
+    from hypre_tpu_torch.profile_slice import profile_solve
+
+    out = {}
+    for tag, kw, want in (
+            ("f64", dict(dtype="float64"), DS96_F64),
+            ("f32/bf16", dict(dtype="float32", mat_dtype="bfloat16",
+                              nongalerkin_tol=0.02), DS96_F32)):
+        opts = ds_options(**kw)
+        zero_counts()
+        amg, res, ph = first_solution(opts, dev)
+        counts = read_counts()
+        its = res.num_iterations
+        require(amg._fast is not None,
+                f"device setup {tag}: the chain did not engage")
+        rel, bound = check_solution(amg, res, NX**3)
+        expected = expected_launches(amg, its)
+        require(res.converged and its == want,
+                f"device setup {tag}: {its} iterations, the JAX package's "
+                f"{want}; residual history "
+                f"{res.res_norms[:its + 1].tolist()}")
+        require(counts == expected and counts["dia_spmv"] > 0,
+                f"device setup {tag}: launches {counts} are not the "
+                f"hierarchy's {expected}")
+        held = hold_chain_on_cpu(amg, opts, tag)
+        solve = make_solve(amg, NX)
+        solve()
+        times = []
+        for _ in range(20):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            solve()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        _, wall, busy_us, events, _ = profile_solve(solve)
+        levels = level_lines(amg)
+        per_cycle = amg.cycle_launches()
+        del amg, res, solve
+        torch.cuda.empty_cache()
+        # setup by phase and the first solution, in turns
+        paths = {"device setup": opts,
+                 "host setup": dataclasses.replace(
+                     opts, device_setup=False, lattice_coeffs=None),
+                 "plain": slice_options(**kw)}
+        runs = {name: [] for name in paths}
+        runs["device setup"].append(ph)
+        for r in range(DS_ROUNDS):
+            for name, o in paths.items():
+                if name == "device setup" and r == 0:
+                    continue  # the counted run above
+                amg, res, ph_r = first_solution(o, dev)
+                require(res.converged, f"{name} {tag}: did not converge")
+                require((amg._fast is not None) == (name == "device setup"),
+                        f"{name} {tag}: the chain engaged where it should "
+                        f"not, or not where it should")
+                ph_r["iterations"] = res.num_iterations
+                runs[name].append(ph_r)
+                del amg, res
+                torch.cuda.empty_cache()
+        med = {name: {k: float(np.median([r[k] for r in rs])) for k in rs[0]
+                      if k != "iterations"} for name, rs in runs.items()}
+        for line in levels:
+            log(f"device setup [{tag}] levels: {line}")
+        o = {"iterations": its, "rel_residual_norm": float(rel),
+             "solve_median_ms": float(np.median(times)),
+             "solve_min_ms": min(times), "solve_max_ms": max(times),
+             "busy_ms": busy_us / 1e3, "wall_ms": wall * 1e3,
+             "idle_share": 1 - busy_us / 1e6 / wall,
+             "kernels_per_iteration": len(events) / max(its, 1),
+             "per_cycle": per_cycle, "launches": counts, "held": held,
+             "medians": med,
+             "iterations_by_path": {k: [r.get("iterations", its) for r in v]
+                                    for k, v in runs.items()}}
+        log(f"device setup [{tag} 96^3; {card}]: {its} iterations (JAX "
+            f"package: {want}), true rel residual {rel:.3e} (bound "
+            f"{bound:.1e}); solve median of 20 {o['solve_median_ms']:.2f} ms "
+            f"({o['solve_min_ms']:.2f}-{o['solve_max_ms']:.2f}); under the "
+            f"profiler wall {wall * 1e3:.2f} ms, device busy "
+            f"{busy_us / 1e3:.2f} ms (idle {100 * o['idle_share']:.1f}%), "
+            f"{o['kernels_per_iteration']:.0f} kernels an iteration; per "
+            f"V-cycle {per_cycle}; launches {counts}")
+        for name, m in med.items():
+            log(f"device setup [{tag}] {name}, medians of "
+                f"{len(runs[name])} (s): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in m.items()))
+        out[tag] = o
+    return out
 
 
 # -- the Gauss-Seidel family (relax 13 / 14, the BoomerAMGOptions() defaults)
@@ -1878,6 +2099,7 @@ def main() -> int:
         return 1
     from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2026,6 +2248,11 @@ def main() -> int:
     del amg, res
     torch.cuda.empty_cache()
 
+    # -- 11. bench.py's device setup chain at 96^3 ------------------------
+    ds_t0 = time.perf_counter()
+    ds = phase_device_setup(dev, card)
+    log(f"the device setup phase took {time.perf_counter() - ds_t0:.1f} s")
+
     # -- 10. the GS family: relax 13 / 14 at 96^3, the kernel held ---------
     gs_t0 = time.perf_counter()
     amg, gs64 = run_gs(NX, slice_options(dtype="float64", relax_down=13,
@@ -2075,6 +2302,8 @@ def main() -> int:
                                   "entry": entry_run["launches"][name],
                                   **{f"ext+i {k}": v["launches"][name]
                                      for k, v in ext.items()},
+                                  **{f"device setup {k}": v["launches"][name]
+                                     for k, v in ds.items()},
                                   **{k: v["launches"][name]
                                      for k, v in gs_runs.items()}},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2163,8 +2392,10 @@ def main() -> int:
         "replaces": "hypre_tpu/solvers/amg/relax.py:174",
         "tpu_form": "lax.scan over the wavefronts, no Pallas kernel",
         "launches": gs64["launches"]["gs_sweep"],
-        "path_launches": {k: v["launches"]["gs_sweep"]
-                          for k, v in gs_runs.items()},
+        "path_launches": {**{k: v["launches"]["gs_sweep"]
+                             for k, v in gs_runs.items()},
+                          **{f"device setup {k}": v["launches"]["gs_sweep"]
+                             for k, v in ds.items()}},
         "max_abs_err": gs_err, "ms": gs_tot[0], "plain_ms": gs_tot[1],
         "bound_ms": gs_tot[3], "bound_by": "bytes", "library_ms": gs_tot[2],
         "library_note": (None if gs_tot[2] is not None else gs_lib_why),
@@ -2172,10 +2403,13 @@ def main() -> int:
         "wavefronts": sum(r["wavefronts"] for r in gs_rows),
         "levels": gs_rows, "f32_max_abs_err": gs32_err,
         "cf_and_nonsymmetric": gs_masked})
-    # the slice's own numbers: entry(), the device RAP, ext+i, the GS family
+    log(f"chip_smoke: every phase, the builds included, took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    # the slice's own numbers: entry(), the device RAP, ext+i, the GS
+    # family, the device setup chain
     log(json.dumps({"entry": entry_run, "device_rap": {"f64": rap64,
                                                        "f32_bf16": rap32},
-                    "ext_i": ext, "gs": gs_runs}))
+                    "ext_i": ext, "gs": gs_runs, "device_setup": ds}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -99,6 +99,32 @@ def csr_to_dia(A: CSRMatrix, dtype, device) -> DIAMatrix:
                      num_rows=n, num_cols=m)
 
 
+def device_lattice_dia(shape, coeffs, dtype, device) -> DIAMatrix | None:
+    """The DIA table of the 3D 7-point Laplacian (the values of
+    `models.laplacian_7pt(*shape, *coeffs)`) built on `device` from
+    index masks, so the fine operator costs no host-to-device bytes;
+    bitwise `csr_to_dia` of that matrix.  None when the stencil is not
+    the full 7-point one (an axis shorter than 2, a zero coefficient)."""
+    nx, ny, nz = (int(s) for s in shape)
+    cx, cy, cz = (float(c) for c in coeffs)
+    if min(nx, ny, nz) < 2 or not (cx and cy and cz):
+        return None
+    n = nx * ny * nz
+    diag = 0.0  # summed as laplacian_7pt sums it
+    for c in (cx, cy, cz):
+        diag += 2.0 * c
+    idx = torch.arange(n, device=device)
+    coord = ((idx // (nx * ny), nz, cz), ((idx // nx) % ny, ny, cy),
+             (idx % nx, nx, cx))
+    offs = (-nx * ny, -nx, -1, 0, 1, nx, nx * ny)
+    data = torch.zeros(len(offs), n, dtype=torch_dtype(dtype), device=device)
+    data[3].fill_(diag)
+    for k, (u, lim, c) in enumerate(coord):  # offsets -stride and +stride
+        data[k].masked_fill_(u >= 1, -c)
+        data[6 - k].masked_fill_(u + 1 < lim, -c)
+    return DIAMatrix(data=data, offsets=offs, num_rows=n, num_cols=n)
+
+
 def dia_spmv(A: DIAMatrix, x: torch.Tensor, form: str = "plain",
              **operands) -> torch.Tensor:
     """The form (ops/forms.py) of y_i = sum_k data[k,i] * x[i + off_k]:

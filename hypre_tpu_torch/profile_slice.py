@@ -1,7 +1,7 @@
 """Where the time of one slice solve goes on the card.
 
     python -m hypre_tpu_torch.profile_slice [--dtype float64|float32] [--lattice]
-        [--relax DOWN UP]
+        [--device-setup] [--relax DOWN UP]
 
 Sets up BoomerAMG-PCG on the 96^3 Poisson problem with the plain forms
 (ELL / dense coarse levels), runs one warm-up solve, times 20 solves
@@ -12,11 +12,13 @@ bfloat16 matrices and nongalerkin_tol 0.02, as the production config.
 With --lattice the lattice path (the JAX package's option defaults:
 level-1 embedding, relocation with tails, coarse collapse) is set up
 beside the plain one and the two are measured in turns, plain, lattice,
-lattice, plain, each with its setup and FREEZE (+ DEVICE_RAP + COLLAPSE)
+lattice, plain, each with its setup and FREEZE (with DEVICE_RAP) + COLLAPSE
 seconds.  --relax sets relax_down and relax_up (default 18 18, the
 bench protocol's l1-Jacobi; 13 14 is BoomerAMGOptions()' Gauss-Seidel,
 whose levels the lattice gates decline, so --lattice then measures the
-plain forms twice).
+plain forms twice).  --device-setup (implies --lattice) sets the lattice
+path up with the device chain, as bench.py does at 96^3 (device_setup,
+lattice_coeffs (1, 1, 1)), and prints its DS_* setup phases.
 Needs a CUDA device.
 """
 
@@ -37,16 +39,21 @@ from .utils.timing import GLOBAL_TIMER
 
 NX = 96
 REPEATS = 20
+# the device setup chain's timers (BoomerAMG._device_setup_level0)
+DS_PHASES = ("DS_SHIP_A0", "DS_PMIS", "DS_INTERP", "DS_RAP", "DS_STATS",
+             "DS_A1_PULL", "DS_A1_REBUILD")
 
 
-def _options(dtype: str, lattice: bool,
-             relax: tuple = (18, 18)) -> BoomerAMGOptions:
+def _options(dtype: str, lattice: bool, relax: tuple = (18, 18),
+             device_setup: bool = False) -> BoomerAMGOptions:
     extra = ({} if dtype == "float64"
              else dict(mat_dtype="bfloat16", nongalerkin_tol=0.02))
     if lattice:
         # the JAX package's own option defaults (the embedded level-1
         # values from the device RAP)
         extra.update(lattice_shape=(NX, NX, NX))
+        if device_setup:
+            extra.update(device_setup=True, lattice_coeffs=(1.0, 1.0, 1.0))
     else:
         extra.update(embed_level1=False, relocate_level2=False,
                      collapse_coarse_n=0)
@@ -55,18 +62,21 @@ def _options(dtype: str, lattice: bool,
         relax_down=relax[0], relax_up=relax[1], dtype=dtype, **extra)
 
 
-def _setup(dtype: str, lattice: bool, dev, relax=(18, 18)):
-    """(amg, setup seconds, FREEZE + DEVICE_RAP + COLLAPSE seconds), host
-    clock, the card synchronized.  FREEZE includes the GS schedules'
-    build (GS_SCHEDULE)."""
+def _setup(dtype: str, lattice: bool, dev, relax=(18, 18),
+           device_setup: bool = False):
+    """(amg, setup seconds, FREEZE + COLLAPSE seconds), host clock, the
+    card synchronized.  FREEZE includes the GS schedules' build
+    (GS_SCHEDULE) and the device RAP (DEVICE_RAP)."""
     GLOBAL_TIMER.clear()
     t0 = time.perf_counter()
-    amg = BoomerAMG(laplacian_7pt(NX, NX, NX), _options(dtype, lattice, relax),
-                    device=dev)
+    amg = BoomerAMG(laplacian_7pt(NX, NX, NX),
+                    _options(dtype, lattice, relax, device_setup), device=dev)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
-    freeze_s = sum(GLOBAL_TIMER.seconds(k)
-                   for k in ("FREEZE", "DEVICE_RAP", "COLLAPSE"))
+    freeze_s = sum(GLOBAL_TIMER.seconds(k) for k in ("FREEZE", "COLLAPSE"))
+    if device_setup:
+        print("device chain phases (s): " + ", ".join(
+            f"{k} {GLOBAL_TIMER.seconds(k):.4f}" for k in DS_PHASES))
     return amg, setup_s, freeze_s
 
 
@@ -125,6 +135,9 @@ def main() -> None:
     ap.add_argument("--lattice", action="store_true",
                     help="also the lattice path, measured in turns with "
                          "the plain one: plain, lattice, lattice, plain")
+    ap.add_argument("--device-setup", action="store_true",
+                    help="the lattice path with the device setup chain "
+                         "(implies --lattice)")
     ap.add_argument("--relax", type=int, nargs=2, default=(18, 18),
                     metavar=("DOWN", "UP"),
                     help="relax_down and relax_up (13 14: Gauss-Seidel)")
@@ -132,13 +145,17 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
     dev = torch.device("cuda", 0)
+    args.lattice |= args.device_setup
     hierarchies = {}
     for name in ("plain", "lattice") if args.lattice else ("plain",):
         amg, setup_s, freeze_s = _setup(args.dtype, name == "lattice", dev,
-                                        tuple(args.relax))
+                                        tuple(args.relax),
+                                        args.device_setup and name == "lattice")
         hierarchies[name] = amg
-        print(f"{NX}^3 {args.dtype} relax {args.relax} {name}: setup {setup_s:.2f} s, of it "
-              f"FREEZE + DEVICE_RAP + COLLAPSE {freeze_s:.2f} s; "
+        print(f"{NX}^3 {args.dtype} relax {args.relax} {name}"
+              f"{' (device setup)' if amg._fast is not None else ''}: "
+              f"setup {setup_s:.2f} s, of it "
+              f"FREEZE + COLLAPSE {freeze_s:.2f} s; "
               f"{len(amg.levels)} levels "
               f"frozen, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
               f"allocated on the card so far")

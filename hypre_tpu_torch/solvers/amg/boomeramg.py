@@ -18,13 +18,22 @@ package's defaults the lattice forms of ops/dia.py apply wherever that
 package's gates let them: level 1 is embedded on the fine lattice as
 DIA (`_build_embed_level1`; with device_rap, the JAX package's default,
 its values come from the device pass of ops/device_rap.py and level-0
-R from a device transpose, `_run_device_rap`), deeper levels are
-relocated onto compact
+R from a device transpose), deeper levels are relocated onto compact
 cell lattices with parity-factored transfers and exact COO tails
 (`_plan_reloc`, `_build_relocated`; needs `lattice_shape`), and the
 sub-cycle below the first small level is collapsed into one dense
 operator (`_build_coarse_collapse`).  A hierarchy that fails a gate
 keeps the plain forms, as in the JAX package.
+
+With device_setup (bench.py's path at 96^3) level 0 -> 1 of the setup
+runs on the device (`_device_setup_level0`: ops/device_setup.py and
+device_coarsen.py): the fine operator as DIA (built there from index
+masks with lattice_coeffs), strength and PMIS, classical interpolation
+with truncation, the two-stage RAP with the non-Galerkin filter; the
+host pulls back the CF marker and the compact level-1 operator and sets
+up the deeper levels.  Level-0 P / R and the embedded level-1 A stay
+the device's DIA tables (`_install_fast_levels`).  device_coarsen runs
+only the level-0 PMIS on the device.
 
 The port implements the options of the bench protocol (V-cycles,
 classical or ext+i interpolation, relax_coarse 0/5/7/18/9), the
@@ -32,8 +41,8 @@ smoother family of the JAX package for the down and up sweeps (relax
 0/5/7/18 Jacobi, 1-4/6/8/13/14 level-scheduled Gauss-Seidel with omega
 and the CF-ordered sweeps of relax_order 1, 15 CG, 16 Chebyshev, 17
 FCF-Jacobi), the stationary solve (`solve`, hypre's solver 0) and the
-lattice path; every other option must keep its default (the device
-setup chain, the offset budgets, grid_relax_type / grid_relax_points):
+lattice path with the device setup chain; every other option must keep
+its default (the offset budgets, grid_relax_type / grid_relax_points):
 `check_options` raises NotImplementedError otherwise.
 """
 
@@ -53,6 +62,7 @@ from ...ops.device_rap import (dia_transpose_device, embedded_rap_device,
 from ...ops.dia import (DENSE_MAX_ROWS, DIA_MAX_OFFSETS, DenseMatrix,
                         DIAMatrix, GatherOp, ScatterOp, build_embedded_dia,
                         build_parity_interp, build_parity_restrict,
+                        csr_to_dia, device_lattice_dia,
                         embedded_offset_count, embedded_offsets,
                         freeze_auto, on_cells,
                         parity_offset_count_plan, relocate_to_cells, spmv,
@@ -60,6 +70,7 @@ from ...ops.dia import (DENSE_MAX_ROWS, DIA_MAX_OFFSETS, DenseMatrix,
 from ...utils.timing import timed
 from ..krylov.common import SolverResult
 from .coarsen import pmis_coarsen
+from .device_coarsen import device_pmis
 from .interp import classical_interp, extended_i_interp, truncate_interp
 from .rap import galerkin_rap, nongalerkin_filter
 from .relax import (ChebyData, GSMatrix, build_gs_schedule,
@@ -146,6 +157,9 @@ class BoomerAMGOptions:
     max_embedded_offsets: int = 512
     relocate_level2: bool = True
     lattice_shape: Optional[tuple] = None
+    # (cx, cy, cz): the caller states that A is laplacian_7pt(*lattice_shape,
+    # cx, cy, cz); the device setup then builds the fine DIA table on the
+    # device instead of converting A
     lattice_coeffs: Optional[tuple] = None
     relocate_min_n2: int = 6144
     relocate_max_bytes: int = 3 << 30
@@ -155,15 +169,18 @@ class BoomerAMGOptions:
     relocate_lump: str = "diag"
     relocate_tail: bool = True
     collapse_coarse_n: int = 2048
+    # level-0 PMIS on the device (the rest of the setup on the host)
     device_coarsen: bool = False
     device_rap: bool = True
+    # the level-0 setup chain on the device (module docstring)
     device_setup: bool = False
 
 
 # Fields the port implements (values checked below).  device_rap picks
 # where the embedded level-1 values are computed (the device pass or the
 # host product); without the embedding either value means the same
-# thing in both packages.
+# thing in both packages.  device_setup, device_coarsen and
+# lattice_coeffs act where their gates let them, as in the JAX package.
 _IMPLEMENTED = frozenset({
     "max_levels", "max_coarse_size", "strong_threshold", "max_row_sum",
     "coarsen_type", "interp_type", "trunc_factor", "P_max_elmts",
@@ -174,6 +191,7 @@ _IMPLEMENTED = frozenset({
     "device_rap", "embed_level1", "max_embedded_offsets", "relocate_level2",
     "lattice_shape", "relocate_min_n2", "relocate_max_bytes",
     "max_relocated_offsets", "relocate_tail", "collapse_coarse_n",
+    "device_setup", "device_coarsen", "lattice_coeffs",
 })
 _JACOBI = (0, 5, 7, 18)
 # level-scheduled Gauss-Seidel: 1/2/3/13 forward, 4/14 backward, 6/8 both
@@ -252,7 +270,8 @@ class BoomerAMG:
         # the level-1 Galerkin product before the non-Galerkin filter:
         # the device RAP's plan takes its offsets
         self._host_A1_unf: Optional[sp.csr_matrix] = None
-        self._pending_rap: Optional[dict] = None
+        # the device setup chain's products (device_setup), else None
+        self._fast: Optional[dict] = None
         self._setup(A)
         self._freeze_hierarchy()
 
@@ -268,7 +287,7 @@ class BoomerAMG:
         self.levels = list(levels)
         self._host_A, self._host_P, self._cf = [], [], []
         self._reloc_cells = {}
-        self._host_A1_unf = self._pending_rap = None
+        self._host_A1_unf = self._fast = None
         return self
 
     # ------------------------------------------------------------------
@@ -288,6 +307,15 @@ class BoomerAMG:
             )
             A.has_sorted_indices = True
         with timed("SETUP"):
+            fast = (self._device_setup_level0(A) if self._fast_eligible(A)
+                    else None)
+            if fast is not None:
+                # level 0 is the device's; the host goes on from level 1
+                self._fast = fast
+                self._host_A.append(A)
+                self._host_P.append(None)  # device-resident (host_P(0))
+                self._cf.append(fast["cf0"])
+                A = fast["A1_host"]
             while True:
                 n = A.shape[0]
                 last = (len(self._host_A) >= o.max_levels - 1
@@ -296,7 +324,9 @@ class BoomerAMG:
                     with timed("STRENGTH"):
                         S = strength_matrix(A, o.strong_threshold, o.max_row_sum)
                     with timed("COARSEN"):
-                        cf = pmis_coarsen(S, seed=o.seed)
+                        cf = self._device_cf0(A)
+                        if cf is None:
+                            cf = pmis_coarsen(S, seed=o.seed)
                     nc = int((cf > 0).sum())
                     if nc == 0 or nc == n or nc < o.min_coarse_size:
                         last = True
@@ -321,6 +351,155 @@ class BoomerAMG:
                 self._cf.append(cf)
                 A = Ac
 
+    def _device_cf0(self, A) -> Optional[np.ndarray]:
+        """With device_coarsen, at level 0 of a lattice operator of few
+        diagonals (the JAX package's gate), the CF marker by device_pmis
+        on A's f64 DIA table, bitwise pmis_coarsen's; else None."""
+        o = self.opts
+        if (not o.device_coarsen or self._host_A or o.lattice_shape is None
+                or len(native.dia_offsets_only(A)) > DIA_MAX_OFFSETS):
+            return None
+        D0 = csr_to_dia(CSRMatrix.from_scipy(A), "float64", self.device)
+        cf = device_pmis(D0.data, D0.offsets, A.shape[0], seed=o.seed,
+                         theta=o.strong_threshold, max_row_sum=o.max_row_sum)
+        return cf.cpu().numpy().astype(np.int64)
+
+    # ------------------------------------------------------------------
+    # the device-resident level-0 setup (ops/device_setup.py)
+    # ------------------------------------------------------------------
+    def _fast_eligible(self, A) -> bool:
+        """The JAX package's gate of the device chain.  Its other
+        conditions (one function, no GSMG, nodal or aggressive
+        coarsening, no post-interpolation or AIR, no seq_threshold or
+        additive cycles, no smoother-type arrays) hold in the port
+        whenever check_options passes."""
+        o = self.opts
+        if not o.device_setup or o.lattice_shape is None:
+            return False
+        if o.coarsen_type != "pmis" or o.interp_type != "classical":
+            return False
+        if {o.relax_down, o.relax_up} - {0, 7, 18}:
+            return False
+        n, m = A.shape
+        if n != m or int(np.prod(o.lattice_shape)) != n or A.nnz == 0:
+            return False
+        if o.max_levels < 3 or n <= o.max_coarse_size:
+            return False
+        return len(native.dia_offsets_only(A)) <= DIA_MAX_OFFSETS
+
+    def _device_setup_level0(self, A):
+        """Strength -> PMIS -> classical interpolation -> RAP of level 0
+        on the device, each phase timed (DS_*) with the device
+        synchronized; then cf0 and the compact level-1 A go to the host.
+        The setup math runs in `dtype`.  Returns the chain's products,
+        or None for a degenerate CF marker (the host setup then runs
+        level 0 itself)."""
+        from ...ops.device_setup import (device_classical_interp, device_rap,
+                                         device_row_stats)
+
+        o = self.opts
+        dev = self.device
+        n = A.shape[0]
+        with timed("DS_SHIP_A0", device=dev):
+            D0 = None
+            if o.lattice_coeffs is not None:
+                D0 = device_lattice_dia(o.lattice_shape, o.lattice_coeffs,
+                                        o.dtype, dev)
+            if D0 is None:
+                D0 = csr_to_dia(CSRMatrix.from_scipy(A), o.dtype, dev)
+        with timed("DS_PMIS", device=dev):
+            cf_dev = device_pmis(D0.data, D0.offsets, n, seed=o.seed,
+                                 theta=o.strong_threshold,
+                                 max_row_sum=o.max_row_sum)
+            cf0 = cf_dev.cpu().numpy().astype(np.int64)
+        nc = int((cf0 > 0).sum())
+        if nc == 0 or nc == n:
+            return None
+        with timed("DS_INTERP", device=dev):
+            P_data, rowmaxP = device_classical_interp(
+                D0.data, cf_dev, offsets=D0.offsets,
+                theta=o.strong_threshold, max_row_sum=o.max_row_sum,
+                trunc_factor=o.trunc_factor, max_elmts=o.P_max_elmts)
+            keepP = np.flatnonzero(rowmaxP.cpu().numpy() > 0)
+            P_dia = DIAMatrix(
+                data=P_data[torch.from_numpy(keepP).to(dev)],
+                offsets=tuple(D0.offsets[k] for k in keepP),
+                num_rows=n, num_cols=n)
+            del P_data
+        with timed("DS_RAP", device=dev):
+            A1_data, offs_1 = device_rap(P_dia, D0, tol=self._level_ngt(0))
+        A1_dia = DIAMatrix(data=A1_data, offsets=offs_1, num_rows=n,
+                           num_cols=n)
+        with timed("DS_STATS", device=dev):
+            # kept beside the chain's products, as in the JAX package;
+            # level 1 takes its dinv / l1inv from the host's compact A1
+            dinv1, l1inv1 = device_row_stats(A1_data, offsets=offs_1)
+
+        cpos0 = np.flatnonzero(cf0 > 0).astype(np.int64)
+        with timed("DS_A1_PULL", device=dev):
+            # one gather: [noff1, nc] is 1.3 GB at 256^3 in f32
+            A1c = A1_data[:, torch.from_numpy(cpos0).to(dev)].cpu().numpy()
+        with timed("DS_A1_REBUILD"):
+            # coarse CSR from the diagonals.  rank[g] = coarse index of fine
+            # row g; for a coarse row i the targets i + off ascend with
+            # off, so flattening the [nc, noff1] transpose row-major gives
+            # canonical (sorted, duplicate-free) CSR with no sort pass
+            rank = np.full(n, -1, dtype=np.int32)
+            rank[cpos0] = np.arange(nc, dtype=np.int32)
+            offs_arr = np.asarray(offs_1, dtype=np.int64)
+            tgt = cpos0[None, :] + offs_arr[:, None]        # [noff1, nc]
+            inb = (tgt >= 0) & (tgt < n)
+            pos_c = rank[np.where(inb, tgt, 0)]
+            sel = inb & (pos_c >= 0) & (A1c != 0)
+            selT = sel.T
+            indptr = np.zeros(nc + 1, dtype=np.int32)
+            indptr[1:] = np.cumsum(selT.sum(axis=1), dtype=np.int64)
+            flat = selT.ravel()
+            A1_host = sp.csr_matrix(
+                (A1c.T.ravel()[flat].astype(np.float64),
+                 pos_c.T.ravel()[flat].astype(np.int32), indptr),
+                shape=(nc, nc))
+            A1_host.has_sorted_indices = True
+        return dict(D0=D0, P=P_dia, A1=A1_dia, cf0=cf0, cpos0=cpos0,
+                    A1_host=A1_host, dinv1=dinv1, l1inv1=l1inv1)
+
+    def _host_P0(self):
+        """The device chain's level-0 P as a host scipy CSR (fine rows x
+        coarse columns), made on first request."""
+        if self._host_P[0] is not None or self._fast is None:
+            return self._host_P[0]
+        f = self._fast
+        P = f["P"]
+        n = P.num_rows
+        cpos0 = f["cpos0"]
+        data = P.data.cpu().numpy()
+        rows_l, cols_l, vals_l = [], [], []
+        for k, off in enumerate(P.offsets):
+            tgt = np.arange(n, dtype=np.int64) + int(off)
+            pos = np.searchsorted(cpos0, np.clip(tgt, 0, None))
+            pos_c = np.minimum(pos, len(cpos0) - 1)
+            valid = (tgt >= 0) & (tgt < n) & (cpos0[pos_c] == tgt)
+            v = data[k]
+            sel = valid & (v != 0)
+            rows_l.append(np.flatnonzero(sel))
+            cols_l.append(pos_c[sel])
+            vals_l.append(v[sel].astype(np.float64))
+        Ph = sp.csr_matrix(
+            (np.concatenate(vals_l),
+             (np.concatenate(rows_l), np.concatenate(cols_l))),
+            shape=(n, len(cpos0)))
+        Ph.sum_duplicates()
+        Ph.sort_indices()
+        self._host_P[0] = Ph
+        return Ph
+
+    def host_P(self, l: int):
+        """Host scipy P of level l (the device chain's level-0 P is made
+        on first request)."""
+        if l == 0 and self._host_P and self._host_P[0] is None:
+            return self._host_P0()
+        return self._host_P[l]
+
     def _level_ngt(self, level: int) -> float:
         """Per-level non-Galerkin drop tol; level = index of the fine
         side of the RAP producing level+1."""
@@ -336,15 +515,19 @@ class BoomerAMG:
     # ------------------------------------------------------------------
     def _freeze_hierarchy(self) -> None:
         """Plan the lattice embedding / relocation, freeze every level
-        once into its final form on the device, run the device RAP where
-        the embedding left level-1 A to it, then collapse the coarse
-        sub-cycle."""
+        once into its final form on the device (the device chain's
+        level-0 / level-1 forms installed as they are), then collapse
+        the coarse sub-cycle."""
         L = len(self._host_A)
-        cpos0 = self._plan_embed()
+        fast = self._fast is not None
+        # the device chain embeds level 1 on the fine lattice always
+        cpos0 = self._fast["cpos0"] if fast else self._plan_embed()
         reloc = self._plan_reloc(cpos0) if cpos0 is not None else []
         # forms the lattice build steps replace are never frozen
         skip_A = {1} if cpos0 is not None else set()
         skip_PR = {0} if cpos0 is not None else set()
+        if fast:
+            skip_A.add(0)  # the device chain's DIA table
         for ent in reloc:
             skip_A.add(ent["k"])
             skip_PR.add(ent["k"] - 1)
@@ -353,18 +536,17 @@ class BoomerAMG:
                 coarsest = k == L - 1
                 self.levels.append(self._freeze_level(
                     self._host_A[k],
-                    None if coarsest else self._host_P[k],
+                    None if coarsest or k in skip_PR else self._host_P[k],
                     None if coarsest else self._cf[k],
-                    fine=(k == 0), skip_A=k in skip_A, skip_PR=k in skip_PR,
+                    fine=(k == 0), coarsest=coarsest, skip_A=k in skip_A,
                 ))
-            if cpos0 is not None:
-                self._build_embed_level1(
-                    cpos0, any(ent["k"] == 2 for ent in reloc))
+            will_reloc_l2 = any(ent["k"] == 2 for ent in reloc)
+            if fast:
+                self._install_fast_levels(will_reloc_l2)
+            elif cpos0 is not None:
+                self._build_embed_level1(cpos0, will_reloc_l2)
             if reloc:
                 self._build_relocated(reloc)
-        if self._pending_rap is not None:
-            with timed("DEVICE_RAP", device=self.device):
-                self._run_device_rap()
         with timed("COLLAPSE", device=self.device):
             self._build_coarse_collapse()
 
@@ -393,18 +575,18 @@ class BoomerAMG:
         return freeze_auto(CSRMatrix.from_scipy(M),
                            torch_dtype(o.mat_dtype or o.dtype), self.device)
 
-    def _freeze_level(self, A, P, cf, fine: bool, skip_A: bool = False,
-                      skip_PR: bool = False) -> AMGLevel:
+    def _freeze_level(self, A, P, cf, fine: bool, coarsest: bool,
+                      skip_A: bool = False) -> AMGLevel:
         """dinv, l1inv and the coarsest pinv are computed in numpy f64
         and then cast.  The fine A keeps `dtype` (it defines the
         residual PCG minimizes); coarse A, P and R use `mat_dtype`.
-        skip_A / skip_PR leave out forms a lattice build step replaces."""
+        skip_A, and P None above the coarsest level, leave out forms a
+        lattice build step replaces."""
         o = self.opts
         dev = self.device
         dt = torch_dtype(o.dtype)
         n = A.shape[0]
         dinv, l1inv = self._inverses(A)
-        coarsest = P is None
         coarse_inv = None
         if coarsest:
             coarse_inv = to_device(
@@ -415,7 +597,6 @@ class BoomerAMG:
             A_frozen = freeze_auto(CSRMatrix.from_scipy(A), dt, dev)
         else:
             A_frozen = self._freeze_compact(A)
-        no_PR = coarsest or skip_PR
         relax_types = ({o.relax_down, o.relax_up} if not coarsest
                        else {o.relax_coarse})
         gs_fwd = gs_bwd = cheby = None
@@ -431,8 +612,8 @@ class BoomerAMG:
             l1inv=to_device(l1inv, dt, dev),
             cmask=torch.from_numpy(
                 cf > 0 if cf is not None else np.zeros(n, bool)).to(dev),
-            P=None if no_PR else self._freeze_compact(P),
-            R=None if no_PR else self._freeze_compact(P.T.tocsr()),
+            P=None if P is None else self._freeze_compact(P),
+            R=None if P is None else self._freeze_compact(P.T.tocsr()),
             coarse_inv=coarse_inv,
             gs_fwd=gs_fwd,
             gs_bwd=gs_bwd,
@@ -522,41 +703,64 @@ class BoomerAMG:
     def _build_embed_level1(self, cpos0, will_reloc_l2: bool) -> None:
         """Lift level-1 A and the level-0 transfers onto the fine lattice
         as DIA.  With device_rap (the JAX package's use_device_rap
-        branch) only the embedded P is built here: level-0 R and level-1
-        A are left to `_run_device_rap`, which this plans; otherwise
-        both are built from the host values."""
+        branch) level-0 R is the device transpose of the embedded P
+        (bitwise the host-built one) and level-1 A the device pass over
+        the fine A and the embedded P (ops/device_rap.py), timed as
+        DEVICE_RAP; otherwise both are built from the host values."""
         o = self.opts
         mdt = torch_dtype(o.mat_dtype or o.dtype)
         dev = self.device
         n0 = self._host_A[0].shape[0]
         A1, P0 = self._host_A[1], self._host_P[0]
         idx = np.arange(n0, dtype=np.int64)
-        use_device_rap = o.device_rap and self._host_A1_unf is not None
-        self.levels[0] = dataclasses.replace(
-            self.levels[0],
-            P=build_embedded_dia(P0, idx, cpos0, n0, mdt, dev),
-            R=None if use_device_rap else build_embedded_dia(
-                P0.T.tocsr(), cpos0, idx, n0, mdt, dev),
-        )
+        P0e = build_embedded_dia(P0, idx, cpos0, n0, mdt, dev)
+        if o.device_rap and self._host_A1_unf is not None:
+            p = self._device_rap_plan(cpos0)
+            with timed("DEVICE_RAP", device=dev):
+                R0e = dia_transpose_device(P0e)
+                data, _, _ = embedded_rap_device(P0e, self.levels[0].A,
+                                                 p["plan"], p["tol"], p["mdt"])
+            A_emb = DIAMatrix(data=data, offsets=p["offsets"], num_rows=n0,
+                              num_cols=n0)
+        else:
+            R0e = build_embedded_dia(P0.T.tocsr(), cpos0, idx, n0, mdt, dev)
+            A_emb = build_embedded_dia(A1, cpos0, cpos0, n0, mdt, dev)
+        self.levels[0] = dataclasses.replace(self.levels[0], P=P0e, R=R0e)
+        self._embed_level1(A_emb, cpos0, will_reloc_l2)
+
+    def _embed_level1(self, A_emb, cpos0, will_reloc_l2: bool) -> None:
+        """Level 1 on the fine lattice: A_emb; dinv / l1inv / cmask at
+        cpos0, host-exact from the compact A1 (f64, then cast); its
+        transfers the compact frozen P1 / R1 behind scatter / gather,
+        unless the relocation of level 2 replaces them with parity
+        operators."""
+        n0 = self._host_A[0].shape[0]
         dinv_e, l1inv_e, cmask_e = self._embedded_level_vectors(
-            A1, self._cf[1], cpos0, n0)
-        # level-1 transfers: the compact frozen P1/R1 behind scatter /
-        # gather, unless the relocation of level 2 replaces them with
-        # parity operators
+            self._host_A[1], self._cf[1], cpos0, n0)
         new_P = new_R = None
         if self._host_P[1:] and not will_reloc_l2:
             new_P, new_R = self._wrap_compact_transfers(
                 1, self.levels[1], cpos0, n0)
-        if use_device_rap:
-            # dinv / l1inv / cmask stay host-exact (f64)
-            self._pending_rap = self._device_rap_plan(cpos0)
-            A_emb = None
-        else:
-            A_emb = build_embedded_dia(A1, cpos0, cpos0, n0, mdt, dev)
         self.levels[1] = dataclasses.replace(
             self.levels[1], A=A_emb, dinv=dinv_e, l1inv=l1inv_e,
             cmask=cmask_e, P=new_P, R=new_R,
         )
+
+    def _install_fast_levels(self, will_reloc_l2: bool) -> None:
+        """Install the device chain's level-0 / level-1 forms (the
+        device_setup counterpart of _build_embed_level1): the fine DIA
+        table in `dtype`, P0 in `mat_dtype` with R0 its device
+        transpose, the embedded A1 in `mat_dtype`.  The chain's A1 and
+        D0 are then dropped, so the card does not hold both them and the
+        levels' cast copies; its P stays for host_P(0)."""
+        f = self._fast
+        mdt = torch_dtype(self.opts.mat_dtype or self.opts.dtype)
+        P0 = dataclasses.replace(f["P"], data=f["P"].data.to(mdt))
+        self.levels[0] = dataclasses.replace(
+            self.levels[0], A=f["D0"], P=P0, R=dia_transpose_device(P0))
+        A1 = dataclasses.replace(f["A1"], data=f["A1"].data.to(mdt))
+        self._embed_level1(A1, f["cpos0"], will_reloc_l2)
+        f["A1"] = f["D0"] = None
 
     def _device_rap_plan(self, cpos0) -> dict:
         """The device RAP's host side: the symbolic plan over the
@@ -575,22 +779,6 @@ class BoomerAMG:
             tol=self._level_ngt(0),
             mdt=torch_dtype(self.opts.mat_dtype or self.opts.dtype),
             offsets=tuple(int(x) for x in offs_filt))
-
-    def _run_device_rap(self) -> None:
-        """Level-0 R as the device transpose of the embedded P (bitwise
-        the host-built one), and level-1 A from the device pass
-        (ops/device_rap.py) over the fine A and the embedded P."""
-        p = self._pending_rap
-        self._pending_rap = None
-        P0 = self.levels[0].P
-        self.levels[0] = dataclasses.replace(
-            self.levels[0], R=dia_transpose_device(P0))
-        data, _, _ = embedded_rap_device(P0, self.levels[0].A, p["plan"],
-                                         p["tol"], p["mdt"])
-        n0 = P0.num_rows
-        self.levels[1] = dataclasses.replace(
-            self.levels[1], A=DIAMatrix(data=data, offsets=p["offsets"],
-                                        num_rows=n0, num_cols=n0))
 
     def _plan_reloc(self, cpos0) -> list:
         """Plan the relocation chain (see _build_relocated): per level k,

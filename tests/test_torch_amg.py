@@ -130,7 +130,7 @@ def test_levels_from_numpy_layouts(jax_amg):
 
 @pytest.mark.parametrize("field,value", [
     ("interp_type", "direct"), ("relocate_offset_budget", 64),
-    ("device_setup", True), ("grid_relax_type", (13, 13, 14, 9)),
+    ("post_interp_type", 1), ("grid_relax_type", (13, 13, 14, 9)),
     ("coarsen_type", "hmis"),
     ("cycle_type", 2), ("seq_threshold", 100), ("mat_dtype", "float32"),
 ])

@@ -2,8 +2,9 @@
 COO tail in its launch, the gathers, the COO tail, the cell-dense
 kernel and the Gauss-Seidel sweep) and the lattice operators that run
 on them, on
-the card against their plain versions, and the device RAP's pass on
-the card against the same pass on the CPU (marker `cuda`; each
+the card against their plain versions, and the device RAP's pass and
+the device setup chain on the card against the same on the CPU (marker
+`cuda`; each
 test skips where torch sees no CUDA device).  This file imports
 neither jax nor hypre_tpu, so it runs on a GPU machine without them:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -690,6 +691,35 @@ def test_device_rap_on_card_is_the_cpu_pass(cuda, interp, kw):
         M, H = getattr(card.levels[lvl], name), getattr(host.levels[lvl], name)
         assert isinstance(M, tdia.DIAMatrix) and M.offsets == H.offsets
         assert torch.equal(M.data.cpu(), H.data), f"L{lvl} {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(dtype="float64"),
+    dict(dtype="float32", mat_dtype="bfloat16", nongalerkin_tol=0.02),
+])
+def test_device_setup_on_card_is_the_cpu_chain(cuda, kw):
+    """The device setup chain (device_setup, lattice_coeffs) at 20^3 on
+    the card: the CF marker, level-0 P / R and level-1 A bitwise the
+    same chain on the CPU (elementwise IEEE operations in one order on
+    both), the compact level-1 A the host continues from too."""
+    from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+
+    opts = BoomerAMGOptions(coarsen_type="pmis", interp_type="classical",
+                            P_max_elmts=4, relax_down=18, relax_up=18,
+                            lattice_shape=(20, 20, 20), device_setup=True,
+                            lattice_coeffs=(1.0, 1.0, 1.0), **kw)
+    A = laplacian_7pt(20, 20, 20)
+    card = BoomerAMG(A, opts, device=cuda)
+    host = BoomerAMG(A, opts, device="cpu")
+    assert card._fast is not None and host._fast is not None
+    assert np.array_equal(card._cf[0], host._cf[0])
+    assert torch.equal(card._fast["P"].data.cpu(), host._fast["P"].data)
+    for lvl, name in ((0, "A"), (0, "P"), (0, "R"), (1, "A")):
+        M, H = getattr(card.levels[lvl], name), getattr(host.levels[lvl], name)
+        assert isinstance(M, tdia.DIAMatrix) and M.offsets == H.offsets
+        assert torch.equal(M.data.cpu(), H.data), f"L{lvl} {name}"
+    assert abs(card._host_A[1] - host._host_A[1]).max() == 0.0
 
 
 def _gs_matrix(kind):

@@ -20,6 +20,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.ops.cell_dense_kernel",
     "hypre_tpu_torch.ops.csr",
     "hypre_tpu_torch.ops.device_rap",
+    "hypre_tpu_torch.ops.device_setup",
     "hypre_tpu_torch.ops.dia",
     "hypre_tpu_torch.ops.dia_kernel",
     "hypre_tpu_torch.ops.ell_kernel",
@@ -30,6 +31,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.ops.tail_kernel",
     "hypre_tpu_torch.solvers.amg.boomeramg",
     "hypre_tpu_torch.solvers.amg.coarsen",
+    "hypre_tpu_torch.solvers.amg.device_coarsen",
     "hypre_tpu_torch.solvers.amg.interp",
     "hypre_tpu_torch.solvers.amg.rap",
     "hypre_tpu_torch.solvers.amg.relax",

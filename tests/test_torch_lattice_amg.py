@@ -349,7 +349,7 @@ def test_device_rap_hierarchy_equals_jax(cfg):
     pass; PCG takes the JAX package's count on its own hierarchy."""
     jamg, jlev, jlevels = _jax_setup(cfg, device_rap=True)
     amg = _port(cfg, device_rap=True)
-    assert amg._pending_rap is None and amg._host_A1_unf is not None
+    assert amg._host_A1_unf is not None and isinstance(amg.levels[0].R, DIAMatrix)
     kinds = [(type(l.A).__name__, type(l.P).__name__) for l in amg.levels]
     assert kinds == [("DIAMatrix", "DIAMatrix"),
                      ("DIAMatrix", "ParityInterpOp"),
@@ -388,9 +388,9 @@ def test_entry_options_hierarchy_equals_jax():
     (dict(grid_relax_points=((0,), (0,), (0,), (0,))), "grid_relax_points"),
     (dict(relocate_offset_budget=64), "relocate_offset_budget"),
     (dict(transfer_offset_budget=64), "transfer_offset_budget"),
-    (dict(device_setup=True), "device_setup"),
-    (dict(device_coarsen=True), "device_coarsen"),
-    (dict(lattice_coeffs=(1.0, 1.0, 1.0)), "lattice_coeffs"),
+    (dict(coarsen_type="cljp"), "coarsen_type"),
+    (dict(post_interp_type=1), "post_interp_type"),
+    (dict(nodal=1), "nodal"),
 ])
 def test_unported_lattice_options_raise(kw, match):
     opts = BoomerAMGOptions(**{**LATTICE, "dtype": "float64", **kw})
