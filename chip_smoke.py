@@ -7,9 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (csrc/dia_spmv.cu, csrc/ell_spmv.cu,
-     csrc/gather.cu, csrc/coo_tail.cu, csrc/cell_dense.cu; one nvcc
-     each, all at once) and the host setup library
-     (csrc/host_kernels.c, cc) from the sources;
+     csrc/gather.cu, csrc/coo_tail.cu, csrc/cell_dense.cu,
+     csrc/gs_sweep.cu; one nvcc each, all at once) and the host setup
+     library (csrc/host_kernels.c, cc) from the sources;
   3. hold K1 (the DIA SpMV) against its plain torch version on the card
      at the shapes of the main path and on wide/edge offset sets; time
      both at 96^3, and the cuSPARSE CSR product on the same operator;
@@ -67,18 +67,24 @@ Phases (any failure raises and the script exits non-zero):
      the kernels against its plain version (`phase_hold_operators`);
  10. the Gauss-Seidel family (relax 13 / 14, the BoomerAMGOptions()
      defaults; the gs_sweep kernel, csrc/gs_sweep.cu, built with the
-     others): at 96^3 in f64 and in f32/bf16/ngt 0.02, the JAX package's
-     counts (GS96_F64, GS96_F32) with gs_sweep, K1 and the ELL kernel
-     launched exactly as the hierarchy says (`BoomerAMG.cycle_launches`:
-     14 sweeps a V-cycle), setup phases with the schedules' seconds and
-     bytes, device busy and kernels an iteration; every f64 schedule's
-     sweep against its plain version in the plain and omega forms, both
-     grid forms, each level's sweep timed in both beside its bytes bound,
+     others): t_step, one cross-SM step of the sync-free sweep, by a
+     two-SM ping-pong probe (and the flag design's step beside it); at
+     96^3 in f64 and in f32/bf16/ngt 0.02, the JAX package's counts
+     (GS96_F64, GS96_F32) with gs_sweep (every sweep in the sync-free
+     form), K1 and the ELL kernel launched exactly as the hierarchy says
+     (`BoomerAMG.cycle_launches`: 14 sweeps a V-cycle), setup phases
+     with the schedules' seconds and bytes, device busy and kernels an
+     iteration; every f64 schedule's sync-free sweep against its plain
+     version in the plain and omega forms and bitwise the wavefront
+     form (one block and grid), each level's sweep timed in both forms
+     beside its bytes bound, its latency bound (wavefronts x t_step),
      its wavefronts, the plain version and the cuSPARSE SpMV +
      triangular solve; the f32 schedules held; the C / F halves of
-     relax_order 1 at 24^3 and a nonsymmetric matrix with two-phase
-     wavefronts; BoomerAMGOptions() at 24^3 and Chebyshev (relax 16) at
-     48^3 f64, card against CPU: the same count, residuals within 1e-10.
+     relax_order 1 at 24^3 and a nonsymmetric matrix with hazard
+     wavefronts, bitwise the wavefront form too; BoomerAMGOptions() at
+     24^3 and Chebyshev (relax 16) at 48^3 f64, card against CPU: the
+     same count, residuals within 1e-10.  The GS fault word (a
+     sync-free wait that gave up) is 0 after every GS phase.
  11. bench.py's 96^3 configuration with the device setup chain
      (device_setup, lattice_coeffs (1, 1, 1): strength, PMIS, classical
      interpolation, RAP of level 0 on the card), f64 and f32/bf16/ngt
@@ -1755,38 +1761,86 @@ def gs_bytes(amg) -> int:
             + sum(S.nbytes() for _, S in gs_schedules(amg)))
 
 
+def require_no_gs_fault(dev, where: str) -> None:
+    """The device's GS fault word after a synchronize: 0, or the phase
+    fails (a sync-free wait gave up)."""
+    from hypre_tpu_torch.ops.gs_kernel import read_fault
+
+    torch.cuda.synchronize()
+    code = read_fault(dev)
+    require(code == 0, f"{where}: a sync-free gs_sweep wait gave up (fault "
+                       f"word {code}: 1 + the slot of the row)")
+
+
 def hold_gs(sched, label, vdt, tol, rng, forms=("plain", "omega"),
-            coops=(None,)):
-    """The kernel against the plain version on one schedule: each form
-    (plain: w = GS_W; omega: w = GS_W, omega = GS_OMEGA with a separate
-    v), each grid form asked for (None: the wrapper's pick), relative to
-    max |u| within tol, the same bits twice.  Returns the largest
-    absolute error."""
-    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda, gs_sweep_reference
+            grids=(False, True)):
+    """The sync-free form against the plain version on one schedule, each
+    sweep form (plain: w = GS_W; omega: w = GS_W, omega = GS_OMEGA with a
+    separate v), relative to max |u| within tol, the same bits twice, and
+    bitwise the wavefront form at the same lanes a row in each of its
+    grid variants asked for (False: one block, True: the cooperative
+    grid); the fault word 0.
+    Returns (the largest absolute error, bitwise comparisons made)."""
+    from hypre_tpu_torch.ops.gs_kernel import (
+        free_lanes, gs_sweep_cuda, gs_sweep_reference)
 
     dev = sched.order.device
     n = sched.n
     u, f, v = (torch.from_numpy(rng.standard_normal(n)).to(dev, vdt)
                for _ in range(3))
     slabs = sched.slabs(dev)
-    worst = 0.0
+    lanes = free_lanes(sched.max_row)  # the wrapper's sync-free pick
+    worst, same = 0.0, 0
     for form in forms:
         om = 1.0 if form == "plain" else GS_OMEGA
         vv = None if form == "plain" else v
         want = gs_sweep_reference(slabs, n, u, f, GS_W, om, vv)
-        for coop in coops:
-            got = gs_sweep_cuda(sched, u, f, GS_W, om, vv, coop=coop)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            rel = err / max(float(want.abs().max()), 1e-300)
-            require(rel <= tol, f"gs_sweep {label} {form} (coop {coop}) "
-                                f"disagrees with its plain version: rel "
-                                f"{rel:.3e} (tol {tol:g})")
-            require(torch.equal(gs_sweep_cuda(sched, u, f, GS_W, om, vv,
-                                              coop=coop), got),
-                    f"gs_sweep {label} {form}: other bits on a second run")
-            worst = max(worst, err)
-    return worst
+        got = gs_sweep_cuda(sched, u, f, GS_W, om, vv, form="syncfree",
+                            lanes=lanes)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-300)
+        require(rel <= tol, f"gs_sweep {label} {form} disagrees with its "
+                            f"plain version: rel {rel:.3e} (tol {tol:g})")
+        worst = max(worst, err)
+        require(torch.equal(gs_sweep_cuda(sched, u, f, GS_W, om, vv,
+                                          form="syncfree", lanes=lanes), got),
+                f"gs_sweep {label} {form}: other bits on a second run")
+        for coop in grids:
+            ref = gs_sweep_cuda(sched, u, f, GS_W, om, vv, form="wavefront",
+                                coop=coop, lanes=lanes)
+            require(torch.equal(got, ref),
+                    f"gs_sweep {label} {form}: the sync-free form is not the "
+                    f"wavefront form's ({'grid' if coop else 'one block'}, "
+                    f"{lanes} lanes) bit for bit: max diff "
+                    f"{float((got - ref).abs().max()):.3e}")
+            same += 1
+    require_no_gs_fault(dev, f"gs_sweep {label}")
+    return worst, same
+
+
+def phase_gs_step(dev, card):
+    """t_step, one cross-SM step of the sync-free sweep (publish a value
+    with its epoch, poll it from another SM), by the two-SM ping-pong
+    probe: the median of 5 probes of 20,000 round trips; beside it the
+    same for the flag design it replaced (release a flag, acquire poll,
+    L2 load of the value)."""
+    from hypre_tpu_torch.ops.gs_kernel import step_probe
+
+    out = {}
+    for mode in ("published", "flag"):
+        step_probe(dev, 1000, mode)  # warm
+        runs = [step_probe(dev, 20000, mode) for _ in range(5)]
+        ns = sorted(r["ns"] for r in runs)
+        out[mode] = {"ns": ns[2], "runs_ns": ns, "sms": list(runs[0]["sms"])}
+    log(f"gs_sweep t_step [{card}]: {out['published']['ns']:.1f} ns a "
+        f"cross-SM step (the sync-free kernel's: published value words; "
+        f"median of 5 probes of 20,000 round trips, "
+        f"{[round(x, 1) for x in out['published']['runs_ns']]}); the flag "
+        f"design (release, acquire poll, L2 load) "
+        f"{out['flag']['ns']:.1f} ns")
+    return {"ns": out["published"]["ns"], "flag_ns": out["flag"]["ns"],
+            "probes": out}
 
 
 def sweep_library(A_host, forward, dev):
@@ -1819,42 +1873,46 @@ def sweep_library(A_host, forward, dev):
     return sweep
 
 
-def phase_gs_sweeps(amg, flush, card, label):
-    """Every schedule of the 96^3 f64 GS hierarchy: the kernel against its
-    plain version in both forms, in the wrapper's grid form and in the
-    other; then each level's sweep timed in both grid forms (the
-    wrapper's threshold, gs_kernel.ONE_BLOCK_MAX_ROWS, comes from these),
-    beside its bytes bound, its wavefront count, the plain version and
-    the cuSPARSE pair (SpMV + triangular solve) for the w = 1 sweep.
-    Returns the V-cycle's sums (ms, plain_ms, library_ms or None,
-    bound_ms), the largest abs error and one row a schedule."""
+def phase_gs_sweeps(amg, flush, card, label, t_step_ns):
+    """Every schedule of the 96^3 f64 GS hierarchy: the sync-free form
+    against its plain version in both sweep forms and bitwise the
+    wavefront form (one block and grid); then each level's sweep timed
+    in the wrapper's form and in the wavefront form's two variants (the
+    one the wrapper picked for it is the earlier time), beside its bytes
+    bound, its latency bound (wavefronts x t_step), its wavefront count,
+    the plain version and the cuSPARSE pair (SpMV + triangular solve)
+    for the w = 1 sweep.  Returns the V-cycle's sums (ms, earlier_ms,
+    plain_ms, library_ms or None, bound_ms, latency_bound_ms), the
+    largest abs error, the bitwise comparisons, one row a schedule and
+    why the library did not run (or None)."""
     from hypre_tpu_torch.ops.gs_kernel import (
-        ONE_BLOCK_MAX_ROWS, gs_sweep_cuda, gs_sweep_reference, row_lanes)
+        ONE_BLOCK_MAX_ROWS, free_lanes, gs_sweep_cuda, gs_sweep_reference)
 
     rng = np.random.default_rng(13)
     vdt = amg.levels[0].dinv.dtype
     dev = amg.device
-    worst = 0.0
+    worst, same = 0.0, 0
     rows = []
-    tot = np.zeros(3)
+    tot = np.zeros(5)
     lib_tot, lib_why = 0.0, None
     for name, S in gs_schedules(amg):
         l = int(name.split()[0][1:])
         n, nnz = S.n, S.mat.indices.numel()
-        grid = S.max_width > ONE_BLOCK_MAX_ROWS
-        # the wrapper's form, then the other
-        worst = max(worst, hold_gs(S, f"{label} {name}", vdt, 1e-12, rng,
-                                   coops=(None, not grid)))
-        lanes = row_lanes(S.max_row, S.max_width, not grid)
+        grid = S.max_width > ONE_BLOCK_MAX_ROWS  # the wavefront form's pick
+        err, k = hold_gs(S, f"{label} {name}", vdt, 1e-12, rng)
+        worst, same = max(worst, err), same + k
         u, f = (torch.from_numpy(rng.standard_normal(n)).to(dev, vdt)
                 for _ in range(2))
-        # the CSR and divisor once, the schedule, f and u read, u written
-        nbytes = (S.mat.nbytes() + S.nbytes()
+        # the CSR and divisor once, the schedule (rows, wavefront
+        # pointers, hazard flags), f and u read, u written
+        nbytes = (tensor_bytes(S.mat.indptr, S.mat.indices, S.mat.data,
+                               S.mat.dinv, S.order, S.wf_ptr, S.hazard)
                   + 3 * n * u.element_size())
         bms, _ = bound_ms(nbytes, 2 * nnz, torch.float64)
-        t = {c: time_cuda_ms(lambda: gs_sweep_cuda(S, u, f, coop=c), flush, 20)
-             for c in (False, True)}
-        ms = t[grid]
+        lat_ms = S.num_wavefronts * t_step_ns * 1e-6
+        ms = time_cuda_ms(lambda: gs_sweep_cuda(S, u, f), flush, 20)
+        t = {c: time_cuda_ms(lambda: gs_sweep_cuda(
+            S, u, f, form="wavefront", coop=c), flush, 20) for c in (False, True)}
         slabs = S.slabs(dev)
         plain_ms = time_cuda_ms(
             lambda: gs_sweep_reference(slabs, n, u, f), flush, 3)
@@ -1873,40 +1931,51 @@ def phase_gs_sweeps(amg, flush, card, label):
                 raise
             lib_why = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
         del slabs
-        tot += (ms, plain_ms, bms)
+        tot += (ms, t[grid], plain_ms, bms, lat_ms)
         if lib_ms is not None:
             lib_tot += lib_ms
+        lanes = free_lanes(S.max_row)
         rows.append({"schedule": name, "rows": n, "nnz": nnz,
                      "wavefronts": S.num_wavefronts, "widest": S.max_width,
-                     "lanes": lanes, "grid": grid,
-                     "ms": ms, "one_block_ms": t[False], "grid_ms": t[True],
-                     "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bms, "bytes": nbytes})
+                     "lanes": lanes, "ms": ms,
+                     "earlier_ms": t[grid], "one_block_ms": t[False],
+                     "grid_ms": t[True], "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bms,
+                     "latency_bound_ms": lat_ms, "bytes": nbytes})
         log(f"gs_sweep [{label} {name}: {n} rows, {nnz} entries, "
-            f"{S.num_wavefronts} wavefronts, widest {S.max_width}, "
-            f"{lanes} lanes a row in the wrapper's form; {card}]: one block "
-            f"{t[False] * 1e3:.1f} us, grid {t[True] * 1e3:.1f} us (the "
-            f"wrapper takes the {'grid' if grid else 'block'}), "
-            f"{ms * 1e3 / S.num_wavefronts:.2f} us a wavefront; plain "
-            f"{plain_ms * 1e3:.0f} us; cuSPARSE SpMV + triangular solve "
+            f"{S.num_wavefronts} wavefronts, widest {S.max_width}; {card}]: "
+            f"sync-free ({lanes} lanes) {ms * 1e3:.1f} us, "
+            f"{ms * 1e3 / S.num_wavefronts:.2f} us a wavefront; the "
+            f"wavefront form one block {t[False] * 1e3:.1f} us, grid "
+            f"{t[True] * 1e3:.1f} us (earlier: the "
+            f"{'grid' if grid else 'block'}); plain {plain_ms * 1e3:.0f} us; "
+            f"cuSPARSE SpMV + triangular solve "
             + (f"{lib_ms * 1e3:.1f} us" if lib_ms is not None
                else f"did not run ({lib_why})")
-            + f"; bytes bound {bms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB)")
+            + f"; bytes bound {bms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB), "
+            f"latency bound {lat_ms * 1e3:.1f} us")
     torch.cuda.empty_cache()
+    require_no_gs_fault(dev, f"gs_sweep timing [{label}]")
     lib_sum = lib_tot if all(r["library_ms"] is not None for r in rows) else None
     log(f"gs_sweep [{label}] one V-cycle's {len(rows)} sweeps: kernel "
-        f"{tot[0]:.3f} ms, plain {tot[1]:.1f} ms, cuSPARSE "
+        f"{tot[0]:.3f} ms (the wavefront form, as the wrapper picked it "
+        f"before: {tot[1]:.3f} ms), plain {tot[2]:.1f} ms, cuSPARSE "
         + (f"{lib_sum:.3f} ms" if lib_sum is not None
            else f"did not run on every level ({lib_why})")
-        + f", bytes bound {tot[2]:.4f} ms; max abs err {worst:.2e}")
-    return (tot[0], tot[1], lib_sum, tot[2]), worst, rows, lib_why
+        + f", bytes bound {tot[3]:.4f} ms, latency bound {tot[4]:.3f} ms "
+        f"({sum(r['wavefronts'] for r in rows)} wavefronts x "
+        f"{t_step_ns:.1f} ns); max abs err {worst:.2e}, {same} sweeps "
+        f"bitwise the wavefront form")
+    return ((tot[0], tot[1], tot[2], lib_sum, tot[3], tot[4]), worst, same,
+            rows, lib_why)
 
 
 def phase_gs_masked(dev, card):
     """The C / F halves of the CF-ordered sweeps (relax_order 1) on every
     level of the 24^3 f64 hierarchy, and a nonsymmetric matrix whose
-    wavefronts read same-wavefront neighbours (the two-phase wavefronts),
-    in both grid forms: the kernel against its plain version."""
+    wavefronts read same-wavefront neighbours (the wavefront form's
+    two-phase wavefronts): the sync-free form against its plain version
+    and bitwise the wavefront form in both grid variants."""
     from hypre_tpu_torch.models import laplacian_7pt
     from hypre_tpu_torch.ops import CSRMatrix
     from hypre_tpu_torch.solvers.amg import BoomerAMG
@@ -1919,8 +1988,10 @@ def phase_gs_masked(dev, card):
     scheds = gs_schedules(amg)
     require(scheds and all(" C" in s or " F" in s for s, _ in scheds),
             "relax_order 1 built no C / F halves")
-    worst = max(hold_gs(S, f"24^3 CF {name}", torch.float64, 1e-12, rng,
-                        coops=(False, True)) for name, S in scheds)
+    held = [hold_gs(S, f"24^3 CF {name}", torch.float64, 1e-12, rng)
+            for name, S in scheds]
+    worst = max(e for e, _ in held)
+    same = sum(k for _, k in held)
     n = 20000
     B = sp.random(n, n, 4.0 / n, random_state=np.random.default_rng(5),
                   format="csr")
@@ -1933,16 +2004,19 @@ def phase_gs_masked(dev, card):
         require(S.any_hazard, "the nonsymmetric matrix has no wavefront that "
                               "reads itself")
         for vdt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
-            worst_ns = hold_gs(S, f"nonsymmetric {'fwd' if forward else 'bwd'}"
-                                  f" {vdt}", vdt, tol, rng, coops=(False, True))
+            worst_ns, k = hold_gs(S, f"nonsymmetric "
+                                     f"{'fwd' if forward else 'bwd'} {vdt}",
+                                  vdt, tol, rng)
+            same += k
             if vdt == torch.float64:
                 worst = max(worst, worst_ns)
     log(f"gs_sweep C / F halves ({len(scheds)} schedules at 24^3) and a "
-        f"nonsymmetric {n}-row matrix ({hazards} two-phase wavefronts fwd / "
-        f"bwd), both grid forms, f64 and f32 [{card}]: agree with the plain "
-        f"version, max abs err {worst:.2e}")
-    return {"schedules": len(scheds), "two_phase_wavefronts": hazards,
-            "max_abs_err": worst}
+        f"nonsymmetric {n}-row matrix ({hazards} hazard wavefronts fwd / "
+        f"bwd), f64 and f32 [{card}]: the sync-free form agrees with the "
+        f"plain version, max abs err {worst:.2e}, and is the wavefront "
+        f"form's bits in both grid variants ({same} sweeps)")
+    return {"schedules": len(scheds), "hazard_wavefronts": hazards,
+            "max_abs_err": worst, "bitwise_wavefront": same}
 
 
 def run_gs(nx, opts, dev, card, label, want_its):
@@ -1952,6 +2026,7 @@ def run_gs(nx, opts, dev, card, label, want_its):
     one a level and direction of a V-cycle); then one more solve under
     torch.profiler.  Prints the levels, the setup phases and the
     schedules' seconds and bytes.  Returns (amg, numbers)."""
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda
     from hypre_tpu_torch.profile_slice import profile_solve
     from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
 
@@ -1959,6 +2034,8 @@ def run_gs(nx, opts, dev, card, label, want_its):
     zero_counts()
     amg, res, setup_s, solve_s = run_slice(nx, opts, dev)
     counts = read_counts()
+    syncfree = gs_sweep_cuda.syncfree_launches
+    require_no_gs_fault(dev, f"GS {label} solve")
     phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in (
         "SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP", "FREEZE",
         "GS_SCHEDULE")}
@@ -1967,8 +2044,10 @@ def run_gs(nx, opts, dev, card, label, want_its):
     expected = expected_launches(amg, its)
     per_cycle = amg.cycle_launches()
     _, wall, busy_us, events, _ = profile_solve(make_solve(amg, nx))
+    # "gs_sweep_" covers both forms' kernels
     gs_us = sum(e.time_range.end - e.time_range.start for e in events
-                if "gs_sweep_kernel" in e.name)
+                if "gs_sweep_" in e.name)
+    require_no_gs_fault(dev, f"GS {label} profiled solve")
     nbytes = gs_bytes(amg)
     for line in level_lines(amg):
         log(f"GS [{label}] levels: {line}")
@@ -1981,18 +2060,23 @@ def run_gs(nx, opts, dev, card, label, want_its):
         f"{busy_us / 1e3:.2f} ms (idle {100 * (1 - busy_us / 1e6 / wall):.1f}"
         f"%), gs_sweep {gs_us / 1e3:.2f} ms of it, {len(events)} device "
         f"events ({len(events) / max(its, 1):.0f} an iteration); per V-cycle "
-        f"{per_cycle}; launches {counts}")
+        f"{per_cycle}; launches {counts}, {syncfree} of the gs_sweep ones "
+        f"in the sync-free form")
     require(res.converged and its == want_its,
             f"GS {label}: {its} iterations, the JAX package's {want_its}")
     require(counts == expected and counts["gs_sweep"] > 0,
             f"GS {label}: launches {counts} are not the hierarchy's "
             f"{expected}")
+    require(syncfree == counts["gs_sweep"],
+            f"GS {label}: {syncfree} of {counts['gs_sweep']} sweeps in the "
+            f"sync-free form, the default on every level")
     return amg, {"iterations": its, "setup_s": setup_s, "solve_s": solve_s,
                  "busy_ms": busy_us / 1e3, "wall_ms": wall * 1e3,
                  "gs_sweep_ms": gs_us / 1e3,
                  "kernels_per_iteration": len(events) / max(its, 1),
                  "phases": phases, "schedule_bytes": nbytes,
-                 "per_cycle": per_cycle, "launches": counts}
+                 "per_cycle": per_cycle, "launches": counts,
+                 "syncfree_launches": syncfree}
 
 
 def card_vs_cpu(nx, opts, dev, label, want_its):
@@ -2003,6 +2087,7 @@ def card_vs_cpu(nx, opts, dev, label, want_its):
     zero_counts()
     amg_g, res_g, _, solve_s = run_slice(nx, opts, dev)
     counts = read_counts()
+    require_no_gs_fault(dev, f"{label} card solve")
     expected = expected_launches(amg_g, res_g.num_iterations)
     amg_c, res_c, _, cpu_s = run_slice(nx, opts, "cpu")
     rg, rc = float(res_g.rel_residual_norm), float(res_c.rel_residual_norm)
@@ -2042,10 +2127,12 @@ def counted_wrappers():
 
 def zero_counts() -> None:
     from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda
 
     for fn in counted_wrappers().values():
         fn.launches = 0
     dia_spmv_cuda.tail_launches = 0
+    gs_sweep_cuda.syncfree_launches = 0
 
 
 def read_counts() -> dict:
@@ -2255,21 +2342,26 @@ def main() -> int:
 
     # -- 10. the GS family: relax 13 / 14 at 96^3, the kernel held ---------
     gs_t0 = time.perf_counter()
+    t_step = phase_gs_step(dev, card)
     amg, gs64 = run_gs(NX, slice_options(dtype="float64", relax_down=13,
                                          relax_up=14), dev, card, "f64",
                        GS96_F64)
-    gs_tot, gs_err, gs_rows, gs_lib_why = phase_gs_sweeps(amg, flush, card,
-                                                          "f64")
+    gs_tot, gs_err, gs_same, gs_rows, gs_lib_why = phase_gs_sweeps(
+        amg, flush, card, "f64", t_step["ns"])
     del amg
     torch.cuda.empty_cache()
     amg, gs32 = run_gs(NX, slice_options(
         dtype="float32", mat_dtype="bfloat16", nongalerkin_tol=0.02,
         relax_down=13, relax_up=14), dev, card, "f32/bf16", GS96_F32)
     rng = np.random.default_rng(19)
-    gs32_err = max(hold_gs(S, f"f32/bf16 {name}", torch.float32, 1e-6, rng,
-                           forms=("plain",)) for name, S in gs_schedules(amg))
-    log(f"gs_sweep [f32/bf16 96^3; {card}]: every schedule agrees with the "
-        f"plain version, max abs err {gs32_err:.2e}")
+    held32 = [hold_gs(S, f"f32/bf16 {name}", torch.float32, 1e-6, rng,
+                      forms=("plain",), grids=(True,))
+              for name, S in gs_schedules(amg)]
+    gs32_err = max(e for e, _ in held32)
+    gs_same += sum(k for _, k in held32)
+    log(f"gs_sweep [f32/bf16 96^3; {card}]: every schedule's sync-free sweep "
+        f"agrees with the plain version, max abs err {gs32_err:.2e}, and is "
+        f"the wavefront form's bits")
     del amg, flush
     torch.cuda.empty_cache()
     gs_masked = phase_gs_masked(dev, card)
@@ -2396,13 +2488,21 @@ def main() -> int:
                              for k, v in gs_runs.items()},
                           **{f"device setup {k}": v["launches"]["gs_sweep"]
                              for k, v in ds.items()}},
-        "max_abs_err": gs_err, "ms": gs_tot[0], "plain_ms": gs_tot[1],
-        "bound_ms": gs_tot[3], "bound_by": "bytes", "library_ms": gs_tot[2],
-        "library_note": (None if gs_tot[2] is not None else gs_lib_why),
+        "syncfree_launches": {k: v["syncfree_launches"]
+                              for k, v in gs_runs.items() if k.startswith("gs")},
+        "max_abs_err": gs_err, "ms": gs_tot[0], "earlier_ms": gs_tot[1],
+        "plain_ms": gs_tot[2], "bound_ms": gs_tot[4], "bound_by": "bytes",
+        "latency_bound_ms": gs_tot[5], "t_step_ns": t_step["ns"],
+        "library_ms": gs_tot[3],
+        "library_note": (None if gs_tot[3] is not None else gs_lib_why),
         "per": "sweep, summed over one V-cycle's 14",
+        "earlier": "the wavefront form (csrc/gs_sweep.cu::gs_sweep_kernel), "
+                   "one block or grid as its wrapper picked it",
+        "bitwise_wavefront": gs_same,
         "wavefronts": sum(r["wavefronts"] for r in gs_rows),
         "levels": gs_rows, "f32_max_abs_err": gs32_err,
-        "cf_and_nonsymmetric": gs_masked})
+        "cf_and_nonsymmetric": gs_masked, "t_step": t_step})
+    require_no_gs_fault(dev, "chip_smoke")
     log(f"chip_smoke: every phase, the builds included, took "
         f"{time.perf_counter() - t_start:.1f} s")
     # the slice's own numbers: entry(), the device RAP, ext+i, the GS

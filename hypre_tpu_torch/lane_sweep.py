@@ -22,9 +22,11 @@ picks: what that rule's constants were chosen from.
 With --gs it sets up the relax 13 / 14 hierarchy in float64 (the plain
 forms) and times one forward and one backward sweep of every level
 (ops/gs_kernel.py::gs_sweep_cuda, plain form) at S = 1 ... 32 lanes a
-row in the one-block and in the cooperative-grid form, beside the form
-and S the wrapper picks (ONE_BLOCK_MAX_ROWS, row_lanes): what those
-were chosen from.  Needs a CUDA device.
+row in the wavefront form's one-block and cooperative-grid variants and
+in the sync-free form, then the sync-free form by grid cap, beside the
+form and S the wrapper picks (ONE_BLOCK_MAX_ROWS, row_lanes,
+free_lanes, DEFAULT_FORM): what those were chosen from.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from .ops import (DIAMatrix, DIAWithTail, ELLMatrix, ParityInterpOp,
                   ParityRestrictOp)
 from .ops.dia_kernel import MAX_BY_VALUE, dia_spmv_cuda, offset_lanes
 from .ops.ell_kernel import ell_spmv_cuda, slot_lanes
-from .ops.gs_kernel import ONE_BLOCK_MAX_ROWS, gs_sweep_cuda, row_lanes
+from .ops.gs_kernel import (DEFAULT_FORM, ONE_BLOCK_MAX_ROWS, clear_fault,
+                             free_lanes, gs_sweep_cuda, read_fault, row_lanes)
 from .solvers.amg import BoomerAMG, BoomerAMGOptions
 from .utils.timing import time_cuda_ms
 
@@ -94,29 +97,50 @@ def k1_sweep(dev, flush, gen) -> None:
 
 def gs_sweep(dev, flush, gen) -> None:
     print(f"{torch.cuda.get_device_name(0)}; GS sweep (plain form), us, "
-          "median of 20, L2 flushed, one block / grid at each S lanes a row")
+          "median of 20, L2 flushed; the wavefront form one block / grid "
+          "and the sync-free form at each S lanes a row; then the "
+          "sync-free form at the wrapper's S by grid cap (blocks, 0: all "
+          "that can be resident)")
     opts = BoomerAMGOptions(
         coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
         relax_down=13, relax_up=14, embed_level1=False,
         relocate_level2=False, collapse_coarse_n=0)
     amg = BoomerAMG(laplacian_7pt(NX, NX, NX), opts, device=dev)
+    clear_fault(dev)
     for l, lvl in enumerate(amg.levels[:-1]):
         for d, S in (("fwd", lvl.gs_fwd), ("bwd", lvl.gs_bwd)):
             u = torch.randn(S.n, device=dev, dtype=torch.float64, generator=gen)
             f = torch.randn(S.n, device=dev, dtype=torch.float64, generator=gen)
             cells = []
             for s in (1, 2, 4, 8, 16, 32):
-                if s > 1 and s // 2 >= S.max_row:
+                if s > 2 * free_lanes(S.max_row):
                     break
                 t = [time_cuda_ms(lambda c=c: gs_sweep_cuda(
-                    S, u, f, coop=c, lanes=s), flush, 20) for c in (False, True)]
-                cells.append(f"S={s} {t[0] * 1e3:.1f}/{t[1] * 1e3:.1f}")
+                    S, u, f, form="wavefront", coop=c, lanes=s), flush, 20)
+                    for c in (False, True)]
+                t.append(time_cuda_ms(lambda: gs_sweep_cuda(
+                    S, u, f, form="syncfree", lanes=s), flush, 20))
+                cells.append(f"S={s} {t[0] * 1e3:.1f}/{t[1] * 1e3:.1f}/"
+                             f"{t[2] * 1e3:.1f}")
             grid = S.max_width > ONE_BLOCK_MAX_ROWS
+            picks = (f"wavefront form {'grid' if grid else 'one block'} S="
+                     f"{row_lanes(S.max_row, S.max_width, not grid)}, "
+                     f"sync-free S={free_lanes(S.max_row)}, default "
+                     f"{DEFAULT_FORM}")
             print(f"L{l} {d} {S.n} rows, {S.num_wavefronts} wavefronts, widest "
-                  f"{S.max_width}, longest row {S.max_row}: picks the "
-                  f"{'grid' if grid else 'one block'}, S="
-                  f"{row_lanes(S.max_row, S.max_width, not grid)}; "
+                  f"{S.max_width}, longest row {S.max_row}: picks {picks}; "
                   + ", ".join(cells), flush=True)
+            grids = []
+            for blocks in (0, 264, 132, 66, 16):
+                t = time_cuda_ms(lambda: gs_sweep_cuda(
+                    S, u, f, form="syncfree", blocks=blocks), flush, 20)
+                grids.append(f"{blocks} {t * 1e3:.1f}")
+            print(f"L{l} {d} sync-free by blocks: " + ", ".join(grids),
+                  flush=True)
+    torch.cuda.synchronize()
+    if read_fault(dev):
+        raise SystemExit(f"a sync-free GS wait gave up: fault word "
+                         f"{read_fault(dev)}")
 
 
 def main() -> None:

@@ -121,7 +121,7 @@ def _measure(amg, tag: str, table: bool) -> None:
                        ("flat_take", "flat_take_kernel"),
                        ("coo_tail", "coo_tail_kernel"),
                        ("cell_dense", "cell_dense_kernel"),
-                       ("gs_sweep", "gs_sweep_kernel")):
+                       ("gs_sweep (both forms)", "gs_sweep_")):
         mine = [e for e in events if key in e.name]
         us = sum(e.time_range.end - e.time_range.start for e in mine)
         print(f"{tag}: {label}: {len(mine)} launches, "

@@ -71,12 +71,35 @@ def _inverse(div: np.ndarray) -> np.ndarray:
 class GSMatrix:
     """A level's rows as the sweep kernel reads them, on one device: CSR
     with float64 values and the float64 inverse divisor.  The schedules
-    of a level (both directions, and the C / F halves) share one."""
+    of a level (both directions, and the C / F halves) share one.
+
+    `done` and `ctl` are the sync-free sweep's state (csrc/gs_sweep.cu):
+    done[i] holds row i's value as the sweep that last finished it
+    published it, beside that sweep's epoch (two 64-bit words); ctl[0]
+    is the epoch of the level's last sweep and ctl[1] the arrival count
+    of the launch in flight.  The kernel alone writes them, so the
+    level's sweeps must run in stream order (they do: one stream)."""
 
     indptr: torch.Tensor  # int32 [n + 1]
     indices: torch.Tensor  # int32 [nnz]
     data: torch.Tensor  # float64 [nnz]
     dinv: torch.Tensor  # float64 [n]  (1 / divisor, 0 where it is 0)
+    done: torch.Tensor  # int64 [n, 2]
+    ctl: torch.Tensor  # int32 [2]
+
+    @classmethod
+    def from_arrays(cls, indptr, indices, data, dinv, device) -> "GSMatrix":
+        """From host arrays (any integer / float dtype), with fresh sweep
+        state."""
+        dev = torch.device(device)
+        n = len(dinv)
+        return cls(
+            indptr=torch.from_numpy(np.asarray(indptr, np.int32)).to(dev),
+            indices=torch.from_numpy(np.asarray(indices, np.int32)).to(dev),
+            data=torch.from_numpy(np.asarray(data, np.float64)).to(dev),
+            dinv=torch.from_numpy(np.asarray(dinv, np.float64)).to(dev),
+            done=torch.zeros((n, 2), dtype=torch.int64, device=dev),
+            ctl=torch.zeros(2, dtype=torch.int32, device=dev))
 
     @classmethod
     def build(cls, A: CSRMatrix, divisor: Optional[np.ndarray],
@@ -84,16 +107,13 @@ class GSMatrix:
         if A.nnz >= 2**31:
             raise ValueError(f"GS sweep: {A.nnz} entries need 64-bit indices")
         div = divisor if divisor is not None else A.to_scipy().diagonal()
-        dev = torch.device(device)
-        return cls(
-            indptr=torch.from_numpy(A.indptr.astype(np.int32)).to(dev),
-            indices=torch.from_numpy(A.indices.astype(np.int32)).to(dev),
-            data=torch.from_numpy(np.asarray(A.data, np.float64)).to(dev),
-            dinv=torch.from_numpy(_inverse(np.asarray(div))).to(dev))
+        return cls.from_arrays(A.indptr, A.indices, A.data,
+                               _inverse(np.asarray(div)), device)
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.indptr, self.indices, self.data, self.dinv))
+                   for t in (self.indptr, self.indices, self.data, self.dinv,
+                             self.done, self.ctl))
 
 
 @dataclasses.dataclass(eq=False)
@@ -101,10 +121,17 @@ class GSSchedule:
     """Wavefront schedule of one sweep direction (or one CF half of it).
 
     On `mat`'s device: `order` lists the schedule's rows wavefront by
-    wavefront, wf_ptr[l]..wf_ptr[l+1] bounding wavefront l; `hazard[l]`
+    wavefront, wf_ptr[l]..wf_ptr[l+1] bounding wavefront l; `wave[i]` is
+    row i's wavefront (-1 for a row outside the schedule); `hazard[l]`
     is 1 where a row of wavefront l reads another row of it (only a
-    nonsymmetric pattern has one), which the kernel then updates in two
-    phases so every row reads the values from before the wavefront.
+    nonsymmetric pattern has one), which the wavefront kernel then
+    updates in two phases so every row reads the values from before the
+    wavefront.  The read rule of a sweep: row i reads u_j new if and
+    only if 0 <= wave[j] < wave[i], else as it was before the sweep.
+    `slots` is `order` with each wavefront padded by -1 to a multiple of
+    SLOT_ALIGN positions, so a warp's pass of the sync-free kernel (a
+    power of two of them, at most SLOT_ALIGN, aligned) never holds rows
+    of two wavefronts.
 
     The JAX package's padded slabs (rows [L, W] with the sentinel n,
     acols / adata [L, W, width], dinv [L, W], relax.py:64-78) are packed
@@ -115,6 +142,8 @@ class GSSchedule:
     mat: GSMatrix
     order: torch.Tensor  # int32 [rows in the schedule]
     wf_ptr: torch.Tensor  # int32 [L + 1]
+    wave: torch.Tensor  # int32 [n]
+    slots: torch.Tensor  # int32 [sum of the widths rounded up to SLOT_ALIGN]
     hazard: torch.Tensor  # uint8 [L]
     widths: np.ndarray  # rows of each wavefront (host)
     max_row: int  # entries of the longest row in the schedule
@@ -130,6 +159,11 @@ class GSSchedule:
     @property
     def max_width(self) -> int:
         return int(self.widths.max(initial=0))
+
+    @property
+    def full(self) -> bool:
+        """Whether every row of the level is in the schedule."""
+        return self.order.numel() == self.n
 
     def host_slabs(self) -> tuple:
         """(rows, acols, adata, dinv) as numpy, bitwise the JAX package's
@@ -150,7 +184,8 @@ class GSSchedule:
         """Bytes of this schedule's own tensors on its device (the shared
         GSMatrix not included)."""
         return sum(t.numel() * t.element_size()
-                   for t in (self.order, self.wf_ptr, self.hazard))
+                   for t in (self.order, self.wf_ptr, self.wave, self.slots,
+                             self.hazard))
 
     @classmethod
     def from_slabs(cls, rows, acols, adata, dinv, n: int,
@@ -177,22 +212,21 @@ class GSSchedule:
         data = adata[real][by_row][keep[by_row]]
         div_inv = np.zeros(n)
         div_inv[order] = dinv[real]
-        dev = torch.device(device)
-        mat = GSMatrix(
-            indptr=torch.from_numpy(indptr.astype(np.int32)).to(dev),
-            indices=torch.from_numpy(indices.astype(np.int32)).to(dev),
-            data=torch.from_numpy(data.astype(np.float64)).to(dev),
-            dinv=torch.from_numpy(div_inv).to(dev))
+        mat = GSMatrix.from_arrays(indptr, indices, data, div_inv, device)
         sched = _schedule(n, indptr, indices, order, widths, mat)
         sched._slabs = (rows, acols, adata, dinv)
         return sched
 
 
+# the sync-free kernel's passes: 32 / S rows of a warp (S the lanes a row)
+SLOT_ALIGN = 32
+
+
 def _schedule(n: int, indptr, indices, order, widths, mat,
               pack_args=None) -> GSSchedule:
     """The device schedule of `order` (rows wavefront by wavefront,
-    `widths` rows each) over the CSR pattern (indptr, indices), with its
-    hazard flags."""
+    `widths` rows each) over the CSR pattern (indptr, indices), with each
+    row's wavefront and the hazard flags."""
     nwf = len(widths)
     wave = np.full(n, -1, dtype=np.int64)
     wave[order] = np.repeat(np.arange(nwf), widths)
@@ -202,12 +236,22 @@ def _schedule(n: int, indptr, indices, order, widths, mat,
     same = (wave[r] >= 0) & (r != c) & (wave[c] == wave[r])
     hazard = np.zeros(nwf, dtype=np.uint8)
     hazard[wave[r[same]]] = 1
+    # each wavefront from a multiple of SLOT_ALIGN on, pads -1
+    padded = -(-np.asarray(widths, np.int64) // SLOT_ALIGN) * SLOT_ALIGN
+    slots = np.full(int(padded.sum()), -1, dtype=np.int32)
+    if len(order):
+        l_of = np.repeat(np.arange(nwf), widths)
+        start = np.concatenate([[0], np.cumsum(padded)[:-1]])
+        first = np.concatenate([[0], np.cumsum(widths)[:-1]])
+        slots[start[l_of] + np.arange(len(order)) - first[l_of]] = order
     dev = mat.indptr.device
     return GSSchedule(
         n=n, mat=mat,
         order=torch.from_numpy(np.asarray(order, np.int32)).to(dev),
         wf_ptr=torch.from_numpy(
             np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)).to(dev),
+        wave=torch.from_numpy(wave.astype(np.int32)).to(dev),
+        slots=torch.from_numpy(slots).to(dev),
         hazard=torch.from_numpy(hazard).to(dev),
         widths=np.asarray(widths, dtype=np.int64),
         max_row=int(rn[order].max(initial=0)) if len(order) else 0,

@@ -1,6 +1,7 @@
 """The CUDA kernels (K1, the ELL SpMV, each in its four forms, K1 with a
 COO tail in its launch, the gathers, the COO tail, the cell-dense
-kernel and the Gauss-Seidel sweep) and the lattice operators that run
+kernel and the Gauss-Seidel sweep in its sync-free and wavefront forms)
+and the lattice operators that run
 on them, on
 the card against their plain versions, and the device RAP's pass and
 the device setup chain on the card against the same on the CPU (marker
@@ -736,19 +737,33 @@ def _gs_matrix(kind):
     return CSRMatrix.from_scipy(M), True
 
 
+@pytest.fixture
+def no_gs_fault(cuda):
+    """The device's GS fault word is 0 before the test and after it."""
+    from hypre_tpu_torch.ops.gs_kernel import clear_fault, read_fault
+
+    clear_fault(cuda)
+    yield
+    torch.cuda.synchronize()
+    assert read_fault(cuda) == 0, "a sync-free GS wait gave up"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["laplacian", "nonsymmetric"])
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("omega", [1.0, 0.8])
-@pytest.mark.parametrize("coop,lanes", [(False, None), (True, None),
-                                        (False, 1), (True, 32)])
+@pytest.mark.parametrize("form,coop,lanes", [
+    ("wavefront", False, None), ("wavefront", True, None),
+    ("wavefront", False, 1), ("wavefront", True, 32),
+    ("syncfree", None, None), ("syncfree", None, 1), ("syncfree", None, 32)])
 @pytest.mark.parametrize("vdt,tol", [(torch.float64, 1e-12),
                                      (torch.float32, 1e-6)])
-def test_gs_sweep_matches_plain_on_card(cuda, kind, forward, omega, coop,
-                                        lanes, vdt, tol):
-    """One launch a sweep, in the one-block and the cooperative-grid
-    form, against the plain version over the JAX layout's slabs on the
-    same inputs: relative to max |u| within tol; the same bits twice."""
+def test_gs_sweep_matches_plain_on_card(cuda, no_gs_fault, kind, forward,
+                                        omega, form, coop, lanes, vdt, tol):
+    """One launch a sweep, in the sync-free form and the wavefront form's
+    one-block and cooperative-grid variants, against the plain version
+    over the JAX layout's slabs on the same inputs: relative to max |u|
+    within tol; the same bits twice."""
     from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda, gs_sweep_reference
     from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
 
@@ -759,20 +774,22 @@ def test_gs_sweep_matches_plain_on_card(cuda, kind, forward, omega, coop,
     u, f, v = (torch.from_numpy(rng.standard_normal(A.shape[0])).to(cuda, vdt)
                for _ in range(3))
     before = gs_sweep_cuda.launches
-    got = gs_sweep_cuda(sched, u, f, 0.9, omega, v, coop=coop, lanes=lanes)
+    got = gs_sweep_cuda(sched, u, f, 0.9, omega, v, form=form, coop=coop,
+                        lanes=lanes)
     assert gs_sweep_cuda.launches == before + 1
     want = gs_sweep_reference(sched.slabs(cuda), sched.n, u, f, 0.9, omega, v)
     torch.cuda.synchronize()
     assert _rel(got, want) <= tol
-    assert torch.equal(
-        gs_sweep_cuda(sched, u, f, 0.9, omega, v, coop=coop, lanes=lanes), got)
+    assert torch.equal(gs_sweep_cuda(sched, u, f, 0.9, omega, v, form=form,
+                                     coop=coop, lanes=lanes), got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("forward", [True, False])
-def test_gs_sweep_masked_halves_on_card(cuda, forward):
+def test_gs_sweep_masked_halves_on_card(cuda, no_gs_fault, forward):
     """The C and F halves of a CF-ordered sweep (relax_order 1): only the
-    half's rows change, each against the plain version."""
+    half's rows change, each against the plain version, the sync-free
+    form bitwise the wavefront form."""
     from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda, gs_sweep_reference
     from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
 
@@ -789,6 +806,76 @@ def test_gs_sweep_masked_halves_on_card(cuda, forward):
         assert _rel(got, want) <= 1e-12
         still = torch.from_numpy(~mask).to(cuda)
         assert torch.equal(got[still], u[still])
+        assert torch.equal(got, gs_sweep_cuda(sched, u, f, 1.0,
+                                              form="wavefront"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["laplacian", "nonsymmetric"])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("omega", [1.0, 0.8])
+@pytest.mark.parametrize("vdt", [torch.float64, torch.float32])
+def test_gs_syncfree_is_the_wavefront_form_bitwise(cuda, no_gs_fault, kind,
+                                                   forward, omega, vdt):
+    """At each lane count S from 1 to 32 (the sum's lane order depends on
+    S, so both forms take the same S): the sync-free form's bits are the
+    wavefront form's, in its one-block and its grid variant, plain and
+    omega forms, f64 and f32, on the hazard matrix too."""
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda
+    from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
+
+    A, _ = _gs_matrix(kind)
+    sched = build_gs_schedule(A, forward, device=cuda)
+    rng = np.random.default_rng(12)
+    u, f, v = (torch.from_numpy(rng.standard_normal(A.shape[0])).to(cuda, vdt)
+               for _ in range(3))
+    for s in (1, 2, 4, 8, 16, 32):
+        got = gs_sweep_cuda(sched, u, f, 0.9, omega, v, form="syncfree",
+                            lanes=s)
+        for coop in (False, True):
+            want = gs_sweep_cuda(sched, u, f, 0.9, omega, v, form="wavefront",
+                                 coop=coop, lanes=s)
+            assert torch.equal(got, want), (s, coop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [0, 3])
+def test_gs_syncfree_repeats_its_bits(cuda, no_gs_fault, blocks):
+    """100 sweeps of one schedule back to back (the level's epoch advances
+    on the device each time): the same bits every time, also with the
+    grid capped to 3 blocks (many passes a warp); the level's epoch
+    counts the sweeps."""
+    from hypre_tpu_torch.ops.gs_kernel import free_lanes, gs_sweep_cuda
+    from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
+
+    A = laplacian_7pt(30, 28, 26)
+    sched = build_gs_schedule(A, True, device=cuda)
+    rng = np.random.default_rng(21)
+    u, f = (torch.from_numpy(rng.standard_normal(A.shape[0])).to(cuda)
+            for _ in range(2))
+    first = gs_sweep_cuda(sched, u, f, 0.9, form="wavefront",
+                          lanes=free_lanes(sched.max_row))
+    outs = [gs_sweep_cuda(sched, u, f, 0.9, blocks=blocks) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    assert int(sched.mat.ctl[0]) == 100 and int(sched.mat.ctl[1]) == 0
+    # every row's words carry the last sweep's epoch and its value
+    assert int((sched.mat.done >> 32).min()) == 100
+    lo, hi = (sched.mat.done & 0xFFFFFFFF).unbind(1)
+    assert torch.equal((hi << 32 | lo).view(torch.float64), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["published", "flag"])
+def test_gs_step_probe_on_card(cuda, mode):
+    """t_step, a cross-SM step (the sync-free form's, and the flag design
+    it replaced): two SMs, every value right, a time between 50 ns and
+    20 us."""
+    from hypre_tpu_torch.ops.gs_kernel import step_probe
+
+    r = step_probe(cuda, 2000, mode)
+    assert r["sms"][0] != r["sms"][1]
+    assert 50 <= r["ns"] <= 20000
 
 
 @pytest.mark.cuda
@@ -808,6 +895,10 @@ def test_gs_sweep_refuses_what_it_does_not_take(cuda):
         gs_sweep_cuda(sched, u.cpu(), u.cpu())
     with pytest.raises(ValueError, match="lanes"):
         gs_sweep_cuda(sched, u, u, lanes=3)
+    with pytest.raises(ValueError, match="form"):
+        gs_sweep_cuda(sched, u, u, form="barrier")
+    with pytest.raises(ValueError, match="coop"):
+        gs_sweep_cuda(sched, u, u, form="syncfree", coop=True)
     cpu_sched = build_gs_schedule(A, True, device="cpu")
     with pytest.raises(ValueError, match="device"):
         gs_sweep_cuda(cpu_sched, u, u)
