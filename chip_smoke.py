@@ -16,9 +16,14 @@ Phases (any failure raises and the script exits non-zero):
      then K1's fused forms (resid, axpy, jacobi) at 96^3 against their
      plain versions, each timed beside the unfused sequence it replaces
      (the plain kernel and torch's elementwise ops);
-  4. the gathers (counterparts of the TPU gather probes K2/K3): run the
-     probes' four gathers through the kernels, hold each against its
-     plain version bitwise, and time each;
+  4. the gathers (counterparts of the TPU gather probes K2/K3): the
+     ptxas report of csrc/gather.cu's tiled instances (0 bytes spilled
+     required); the probes' four gathers through the kernels' default
+     (tiled) form, counted; both forms bitwise against the plain
+     versions there and on a ragged and a too-wide (L2-instance) shape
+     for each axis; each probe timed, the tiled and the elementwise
+     (earlier) form in turns, beside the empty kernel, the bytes bound,
+     the plain version and the library call;
   5. the 24^3 f64 slice on the card against the same on the CPU, with
      the plain forms and with the lattice forms (relocate_min_n2=0, the
      level-1 values from the host branch, device_rap=False);
@@ -393,15 +398,62 @@ def phase_k1_forms(dev, flush, card):
     return out
 
 
-def phase_gathers(dev, flush, card):
+def gather_ptxas(out: str) -> list[tuple[str, int, int]]:
+    """[(kernel instance, registers, spill bytes)] of csrc/gather.cu from
+    its build's ptxas report (empty when the library was current)."""
+    rows = []
+    for block in out.split("Compiling entry function")[1:]:
+        mangled = re.match(r"\s*'(\S+)'", block).group(1)
+        name = re.search(r"(take_along_axis|flat_take)\w*?_kernel", mangled)
+        args = re.search(r"_kernelI(.*?)E+v", mangled)
+        tmpl = args.group(1) if args else ""
+        take = re.fullmatch(r"Li(\d)ELb(\d)ELi(\d+)", tmpl)
+        if take:
+            tmpl = (f"{take.group(1)}, {('l2', 'shared')[int(take.group(2))]}, "
+                    f"{take.group(3)}")
+        else:
+            tmpl = {"f": "float", "d": "double"}.get(tmpl, tmpl)
+        regs = re.search(r"Used (\d+) registers", block)
+        rows.append((f"{name.group(0) if name else mangled}<{tmpl}>",
+                     int(regs.group(1)) if regs else -1,
+                     sum(int(b) for b in re.findall(r"(\d+) bytes spill", block))))
+    return rows
+
+
+def time_in_turns(new, old, flush, floor=None):
+    """(new form's ms, earlier form's ms, empty kernel's ms or None): each
+    the mean of two medians of time_cuda_ms, taken in turns new, old,
+    [empty kernel,] old, new in one call."""
+    t = [time_cuda_ms(new, flush), time_cuda_ms(old, flush)]
+    f = time_cuda_ms(floor, flush) if floor is not None else None
+    t += [time_cuda_ms(old, flush), time_cuda_ms(new, flush)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, f
+
+
+def phase_gathers(dev, flush, card, build_log):
     """The TPU gather probes' four gathers (scripts/exp_mosaic_gather.py
     K2 (a) :35, (b) :43, (c) :52; K3 :65) at their shapes, through the
-    kernels, then held bitwise against the plain versions and timed.
-    Returns ({kernel: launches}, {probe: (ms, plain_ms, library_ms,
-    bound_ms, bound_by, max_abs_err)})."""
+    kernels' default (tiled) form, counted, then both forms held bitwise
+    against the plain versions there and on a ragged and a too-wide
+    (L2-instance) shape for each axis, and each probe timed: the tiled
+    form and the elementwise form in turns, the empty kernel, the bytes
+    bound, the plain version and the library call.  Returns ({kernel:
+    launches}, {probe: {ms, earlier_ms, floor_ms, plain_ms, library_ms,
+    bound_ms, bound_by, max_abs_err}})."""
+    from hypre_tpu_torch.lane_sweep import time_clean_l2_ms
     from hypre_tpu_torch.ops.gather_kernel import (
         flat_take_cuda, flat_take_reference, take_along_axis_cuda,
-        take_along_axis_reference)
+        take_along_axis_reference, take_plan)
+
+    rows = gather_ptxas(build_log)
+    new = [r for r in rows if "elementwise" not in r[0]]
+    for name, regs, spill in rows:
+        log(f"gather.cu ptxas: {name}: {regs} registers, {spill} bytes spilled")
+    if rows:
+        require(len(new) == 10 and all(sp == 0 for _, _, sp in new),
+                f"gather.cu: the tiled instances {new} spill or are missing")
+    else:
+        log("gather.cu was current (not built in this run): no ptxas report")
 
     rng = np.random.default_rng(0)
     g = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
@@ -431,13 +483,50 @@ def phase_gathers(dev, flush, card):
         errs[label] = float((out - ref).abs().max())
         require(torch.equal(out, ref),
                 f"take_along_axis differs from its plain version on {label}")
-        log(f"take_along_axis vs plain [{label}, x {tuple(x.shape)}, idx "
-            f"{tuple(i.shape)}, axis {axis}]: bitwise equal")
     ref = flat_take_reference(xf, iF)
     errs["K2 (c) flat"] = float((out_c - ref).abs().max())
     require(torch.equal(out_c, ref), "flat_take differs from its plain version")
-    log("flat_take vs plain [K2 (c), table 131072, idx (64, 512)]: "
-        "bitwise equal")
+
+    # both forms, bitwise, on the probes' shapes and on ragged and too-wide
+    # shapes.  Each call gets inputs of its own and a NaN-filled block of
+    # its output's size freed just before it, so no block the allocator
+    # hands the kernel can hold its answer from an earlier call: an
+    # element the kernel leaves unwritten shows
+    def poison(n, dt):
+        torch.full((n,), float("nan"), dtype=dt, device=dev)
+
+    held = [(label, tuple(x.shape), tuple(i.shape), axis)
+            for label, x, i, axis in taa]
+    held += [("ragged axis 1", (8, 37), (24, 513), 1),
+             ("ragged axis 0", (7, 33), (5, 99), 0),
+             ("wide axis 1", (1, 60_000), (3, 60_000), 1),
+             ("wide axis 0", (2000, 40), (10, 80), 0)]
+    for label, xs, ish, axis in held:
+        for form in ("tiled", "elementwise"):
+            x = g(rng.standard_normal(xs).astype(np.float32))
+            i = g(rng.integers(0, xs[1] if axis == 1 else xs[0],
+                               size=ish).astype(np.int32))
+            poison(i.numel(), x.dtype)
+            out = take_along_axis_cuda(x, i, axis, form=form)
+            require(torch.equal(out, take_along_axis_reference(x, i, axis)),
+                    f"take_along_axis ({form}) differs from its plain "
+                    f"version on {label}")
+        plan = take_plan(xs, ish, axis)
+        log(f"take_along_axis vs plain [{label}, x {xs}, idx {ish}, axis "
+            f"{axis}; {plan.instance} instance, grid {plan.grid}, "
+            f"{plan.smem} B shared]: both forms bitwise equal")
+    for n, dt in ((32_768, torch.float32), (1_003, torch.float64),
+                  (1_003, torch.float32)):
+        for form in ("tiled", "elementwise"):
+            tbl = g(rng.standard_normal(131_072)).to(dt)
+            i = g(rng.integers(0, 131_072, size=n).astype(np.int32))
+            poison(n, dt)
+            out = flat_take_cuda(tbl, i, form=form)
+            require(torch.equal(out, flat_take_reference(tbl, i)),
+                    f"flat_take ({form}) differs from its plain version on "
+                    f"{n} {dt}")
+    log("flat_take vs plain [K2 (c), table 131072, idx (64, 512); 1,003 "
+        "ragged, f64 and f32]: both forms bitwise equal")
 
     def taa_library(x, i, axis):
         il = i.long()  # take_along_dim takes int64 only; cast outside the timing
@@ -446,27 +535,45 @@ def phase_gathers(dev, flush, card):
         return lambda: torch.take_along_dim(x.unsqueeze(0), il.view(G, S, L),
                                             dim=2)
 
-    times = {}
     cases = []
     for label, x, i, axis in taa:
         cases.append((label, x.numel(),
                       lambda x=x, i=i, a=axis: take_along_axis_cuda(x, i, a),
+                      lambda x=x, i=i, a=axis: take_along_axis_cuda(
+                          x, i, a, form="elementwise"),
                       lambda x=x, i=i, a=axis: take_along_axis_reference(x, i, a),
                       "take_along_dim", taa_library(x, i, axis), i.numel()))
     iF_flat = iF.view(-1)
     cases.append(("K2 (c) flat", xf.numel(), lambda: flat_take_cuda(xf, iF),
+                  lambda: flat_take_cuda(xf, iF, form="elementwise"),
                   lambda: flat_take_reference(xf, iF), "index_select",
                   lambda: torch.index_select(xf, 0, iF_flat), iF.numel()))
-    for label, tbl, fn, plain, lib_name, lib, ne in cases:
+    times = {}
+    for label, tbl, fn, old, plain, lib_name, lib, ne in cases:
         nbytes = 4 * (2 * ne + tbl)  # idx in, out back, the table once
         bms, by = bound_ms(nbytes, 0, torch.float32)
-        ms, plain_ms, lib_ms = (time_cuda_ms(f, flush) for f in (fn, plain, lib))
-        times[label] = (ms, plain_ms, lib_ms, bms, by, errs[label])
-        log(f"  time [{label}, {ne} gathers; {card}], L2 flushed, median of "
-            f"{REPS}: kernel {ms * 1e3:.2f} us = {ms * 1e6 / ne:.4f} ns/elem, "
+        ms, earlier_ms, floor_ms = time_in_turns(
+            fn, old, flush, lambda: torch.cuda._sleep(0))
+        plain_ms, lib_ms = (time_cuda_ms(f, flush) for f in (plain, lib))
+        times[label] = {"ms": ms, "earlier_ms": earlier_ms,
+                        "floor_ms": floor_ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "bound_ms": bms,
+                        "bound_by": by, "max_abs_err": errs[label]}
+        log(f"  time [{label}, {ne} gathers; {card}], L2 flushed, medians of "
+            f"{REPS}, in turns: tiled {ms * 1e3:.2f} us = "
+            f"{ms * 1e6 / ne:.4f} ns/elem, elementwise (earlier) "
+            f"{earlier_ms * 1e3:.2f} us, empty kernel {floor_ms * 1e3:.2f} us; "
             f"plain {plain_ms * 1e3:.2f} us, torch {lib_name} "
-            f"{lib_ms * 1e3:.2f} us; floor {bms * 1e3:.2f} us "
+            f"{lib_ms * 1e3:.2f} us; bound {bms * 1e3:.2f} us "
             f"({nbytes / 1e6:.2f} MB)")
+        if label == "K3 grid":
+            # the same after a flush that reads (clean L2 lines): what the
+            # write-back of the usual flush's dirty lines adds to K3
+            clean = [time_clean_l2_ms(f, flush) for f in (fn, old)]
+            times[label]["clean_l2"] = {"ms": clean[0], "earlier_ms": clean[1]}
+            log(f"  time [K3 grid; {card}], L2 flushed by a read (clean "
+                f"lines): tiled {clean[0] * 1e3:.2f} us, elementwise "
+                f"{clean[1] * 1e3:.2f} us")
     return launches, times
 
 
@@ -1050,35 +1157,46 @@ def hierarchy_gathers(amg):
 
 def phase_path_gathers(amg, flush, card, label):
     """`flat_take` at the shapes the lattice path gives it (every
-    GatherOp's x[pos]) against its plain version, bitwise, timed beside
-    its bound (pos and the taken rows in, the result out) and
-    torch.index_select.  Returns per-V-cycle sums (ms, plain_ms,
-    library_ms, bound_ms, "bytes") and the shapes."""
+    GatherOp's x[pos]) against its plain version, bitwise, both forms,
+    timed in turns (tiled, elementwise) beside its bound (pos and the
+    taken rows in, the result out) and torch.index_select.  Returns
+    per-V-cycle sums (ms, plain_ms, library_ms, bound_ms, "bytes",
+    earlier_ms) and the shapes."""
     from hypre_tpu_torch.ops.gather_kernel import flat_take_cuda, flat_take_reference
 
     rng = np.random.default_rng(29)
     vdt = amg.levels[0].dinv.dtype
-    tot, shapes = np.zeros(4), []
+    tot, shapes = np.zeros(5), []
     for name, pos, n_in, k in hierarchy_gathers(amg):
         x = torch.from_numpy(rng.standard_normal(n_in)).to(pos.device, vdt)
-        out, ref = flat_take_cuda(x, pos), flat_take_reference(x, pos)
-        torch.cuda.synchronize()
-        require(torch.equal(out, ref), f"flat_take differs from its plain "
-                                       f"version on {label} {name}")
+        # the reference and both outputs held at once: no call can be
+        # handed a block that holds another's answer
+        ref = flat_take_reference(x, pos)
+        outs = [flat_take_cuda(x, pos, form=form)
+                for form in ("tiled", "elementwise")]
+        for form, out in zip(("tiled", "elementwise"), outs):
+            require(torch.equal(out, ref),
+                    f"flat_take ({form}) differs from its plain version on "
+                    f"{label} {name}")
         ne = pos.numel()
         nbytes = ne * (4 + 2 * x.element_size())
         bms, _ = bound_ms(nbytes, 0, vdt)
-        ms = time_cuda_ms(lambda: flat_take_cuda(x, pos), flush)
+        ms, earlier_ms, _ = time_in_turns(
+            lambda: flat_take_cuda(x, pos),
+            lambda: flat_take_cuda(x, pos, form="elementwise"), flush)
         plain_ms = time_cuda_ms(lambda: flat_take_reference(x, pos), flush)
         lib_ms = time_cuda_ms(lambda: torch.index_select(x, 0, pos), flush)
-        tot += k * np.array([ms, plain_ms, lib_ms, bms])
+        tot += k * np.array([ms, plain_ms, lib_ms, bms, earlier_ms])
         shapes.append({"operator": name, "table": n_in, "gathers": ne,
-                       "dtype": str(vdt).split(".")[-1]})
+                       "dtype": str(vdt).split(".")[-1], "ms": ms,
+                       "earlier_ms": earlier_ms})
         log(f"flat_take [{label} {name}: {ne} gathers from {n_in} rows of "
-            f"{vdt}, {k}/cycle; {card}]: bitwise equal; kernel {ms * 1e3:.2f} "
-            f"us, plain {plain_ms * 1e3:.2f} us, torch index_select "
-            f"{lib_ms * 1e3:.2f} us; floor {bms * 1e3:.2f} us")
-    return (*tot, "bytes"), shapes
+            f"{vdt}, {k}/cycle; {card}]: both forms bitwise equal; in turns "
+            f"tiled {ms * 1e3:.2f} us, elementwise (earlier) "
+            f"{earlier_ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us, "
+            f"torch index_select {lib_ms * 1e3:.2f} us; bound "
+            f"{bms * 1e3:.2f} us")
+    return (*tot[:4], "bytes", tot[4]), shapes
 
 
 def phase_hold_operators(amg, tol, label):
@@ -2199,7 +2317,9 @@ def main() -> int:
 
     # -- 2. builds ---------------------------------------------------------
     t0 = time.perf_counter()
+    build_logs = {}
     for name, secs, out in build_all():
+        build_logs[name] = out
         log(f"build: {name} {secs:.2f} s; {ptxas_summary(out)}")
     log(f"build: all libraries in {time.perf_counter() - t0:.2f} s")
 
@@ -2211,7 +2331,10 @@ def main() -> int:
     k1 = phase_k1(dev, flush, card)
     k1_forms = phase_k1_forms(dev, flush, card)
     # -- 4. the gathers (K2, K3) --------------------------------------------
-    gather_launches, gather_times = phase_gathers(dev, flush, card)
+    t_gathers = time.perf_counter()
+    gather_launches, gather_times = phase_gathers(dev, flush, card,
+                                                  build_logs["gather.cu"])
+    log(f"the gather phase took {time.perf_counter() - t_gathers:.1f} s")
 
     # -- 5. small-input agreement of the whole slice: card vs CPU -----------
     o64 = slice_options(dtype="float64")
@@ -2443,23 +2566,26 @@ def main() -> int:
     for name, probe, replaces in (
             ("take_along_axis", "K3 grid", "scripts/exp_mosaic_gather.py:65"),
             ("flat_take", "K2 (c) flat", "scripts/exp_mosaic_gather.py:52")):
-        ms, plain_ms, lib_ms, bms, by, err = gather_times[probe]
+        t = gather_times[probe]
         extra = {}
         if name == "take_along_axis":
             # the probes' shapes: K2 (a), (b) and K3
-            keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "max_abs_err")
-            extra = {"probes": {p: dict(zip(keys, gather_times[p])) for p in (
+            extra = {"probes": {p: gather_times[p] for p in (
                 "K2 (a) lanes", "K2 (b) sublanes", "K3 grid")}}
         if name == "flat_take":
             # on the path: one f64 lattice V-cycle's gathers (bitwise
             # equal to the plain version), beside the probe's shape
-            keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "earlier_ms")
             extra = {"v_cycle": dict(zip(keys, take64)), "shapes": take_shapes}
+        # ms: the tiled form; earlier_ms: the elementwise form, in turns
+        # with it; floor_ms: an empty kernel, in the same turns
         kernels.append(entry(name, "hypre_tpu_torch/csrc/gather.cu", replaces,
-                             err, ms, plain_ms, lib_ms, bms, by, per="launch",
-                             probe=probe, probe_launches=gather_launches[name],
-                             **extra))
+                             t["max_abs_err"], t["ms"], t["plain_ms"],
+                             t["library_ms"], t["bound_ms"], t["bound_by"],
+                             per="launch", earlier_ms=t["earlier_ms"],
+                             floor_ms=t["floor_ms"], probe=probe,
+                             probe_launches=gather_launches[name], **extra))
     # one f64 lattice V-cycle's tails, each timed alone and summed; the
     # library time is the three-call torch form
     kernels.append(entry("coo_tail", "hypre_tpu_torch/csrc/coo_tail.cu",

@@ -1,8 +1,9 @@
 """Time the ELL kernel at every slot-lane count on the 96^3 operators,
-K1 at every offset-lane count on the 96^3 lattice operators, or the GS
-sweep at every lane count in both its forms on the 96^3 levels.
+K1 at every offset-lane count on the 96^3 lattice operators, the GS
+sweep at every lane count in both its forms on the 96^3 levels, or the
+gathers' tiled form under several launch plans at the probes' shapes.
 
-    python -m hypre_tpu_torch.lane_sweep [--k1 | --gs]
+    python -m hypre_tpu_torch.lane_sweep [--k1 | --gs | --gathers]
 
 Sets up the slice's hierarchy at 96^3 in float64, and in float32 with
 bfloat16 matrices and nongalerkin_tol 0.02, and times the ELL kernel's
@@ -25,13 +26,24 @@ forms) and times one forward and one backward sweep of every level
 row in the wavefront form's one-block and cooperative-grid variants and
 in the sync-free form, then the sync-free form by grid cap, beside the
 form and S the wrapper picks (ONE_BLOCK_MAX_ROWS, row_lanes,
-free_lanes, DEFAULT_FORM): what those were chosen from.  Needs a CUDA
-device.
+free_lanes, DEFAULT_FORM): what those were chosen from.
+
+With --gathers it times the tiled take_along_axis at the TPU gather
+probes' shapes (K2 (a), (b), K3; scripts/exp_mosaic_gather.py) under
+launch plans that override `take_plan`'s choices (instance, span of an
+idx row a segment, blocks a group, threads), and the tiled flat_take
+(K2 (c), the lattice path's 1,529 f64 / 1,731 f32 gathers, 2M and 8M)
+by block size and grid, each beside the plan's own choice and the
+elementwise form, timed before and after the row, with K3 also after an
+L2 flush that reads (`time_clean_l2_ms`): what the plans' rules were
+chosen from.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 
 import torch
 
@@ -40,10 +52,12 @@ from .ops import (DIAMatrix, DIAWithTail, ELLMatrix, ParityInterpOp,
                   ParityRestrictOp)
 from .ops.dia_kernel import MAX_BY_VALUE, dia_spmv_cuda, offset_lanes
 from .ops.ell_kernel import ell_spmv_cuda, slot_lanes
+from .ops.gather_kernel import (flat_plan, flat_take_cuda,
+                                take_along_axis_cuda, take_plan)
 from .ops.gs_kernel import (DEFAULT_FORM, ONE_BLOCK_MAX_ROWS, clear_fault,
                              free_lanes, gs_sweep_cuda, read_fault, row_lanes)
 from .solvers.amg import BoomerAMG, BoomerAMGOptions
-from .utils.timing import time_cuda_ms
+from .utils.timing import LEAD_CYCLES, REPS, time_cuda_ms
 
 NX = 96
 CONFIGS = {"f64": dict(dtype="float64"),
@@ -143,6 +157,103 @@ def gs_sweep(dev, flush, gen) -> None:
                          f"{read_fault(dev)}")
 
 
+def time_clean_l2_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
+    """time_cuda_ms's method with L2 flushed by reading `flush`: clean
+    lines, so fn's misses evict nothing that must be written back.  A
+    diagnostic of K3 (the write-back's share of its time); every number
+    the port reports uses time_cuda_ms."""
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.sum()
+        torch.cuda._sleep(LEAD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def gather_sweep(dev, flush, gen) -> None:
+    print(f"{torch.cuda.get_device_name(0)}; gathers, us, median of 50, L2 "
+          "flushed (written); each row: the plan's knobs, its grid and "
+          "threads, then its time; 'plan' is take_plan's / flat_plan's own "
+          "choice, 'elementwise' the earlier form, timed first and last")
+
+    def ints(shape, hi):
+        return torch.randint(0, hi, shape, device=dev, generator=gen,
+                             dtype=torch.int32)
+
+    takes = {
+        "K2 (a)": ((64, 512), (64, 512), 1, [
+            {}, {"batch": 8}, {"span": 256, "spread": 2},
+            {"span": 128, "spread": 4}, {"span": 64, "spread": 8},
+            {"instance": "l2"}, {"instance": "l2", "span": 128,
+                                 "spread": 4}]),
+        "K2 (b)": ((64, 512), (64, 512), 0, [
+            {}, {"batch": 8}, {"spread": 1}, {"spread": 2}, {"spread": 8},
+            {"spread": 16},
+            {"instance": "l2"}, {"instance": "l2", "spread": 1},
+            {"instance": "l2", "spread": 16}]),
+        "K3": ((512, 512), (4096, 512), 1, [
+            {}, {"spread": 2}, {"spread": 4}, {"spread": 8},
+            {"spread": 8, "batch": 8}, {"spread": 2, "threads": 64},
+            {"instance": "l2"}, {"instance": "l2", "spread": 4}]),
+    }
+    for label, (xs, ish, axis, knobs) in takes.items():
+        x = torch.randn(xs, device=dev, generator=gen)
+        i = ints(ish, xs[1] if axis == 1 else xs[0])
+        old = time_cuda_ms(lambda: take_along_axis_cuda(
+            x, i, axis, form="elementwise"), flush)
+        cells = []
+        for kw in knobs:
+            plan = take_plan(xs, ish, axis, **kw)
+            t = time_cuda_ms(lambda: take_along_axis_cuda(x, i, axis,
+                                                          plan=plan), flush)
+            cells.append(f"{kw or 'plan'} {plan.instance} {plan.grid}x"
+                         f"{plan.threads}: {t * 1e3:.2f}")
+        old2 = time_cuda_ms(lambda: take_along_axis_cuda(
+            x, i, axis, form="elementwise"), flush)
+        print(f"{label} x {xs} idx {ish} axis {axis}: elementwise "
+              f"{old * 1e3:.2f} / {old2 * 1e3:.2f}; " + "; ".join(cells),
+              flush=True)
+        if label == "K3":
+            t = [time_clean_l2_ms(lambda f=f: take_along_axis_cuda(
+                x, i, axis, form=f), flush)
+                for f in ("tiled", "elementwise")]
+            print(f"K3 after a read flush (clean L2): tiled {t[0] * 1e3:.2f}, "
+                  f"elementwise {t[1] * 1e3:.2f}", flush=True)
+    for label, n, table, dt in (("K2 (c)", 32_768, 131_072, torch.float32),
+                                ("path f64", 1_529, 3_456, torch.float64),
+                                ("path f32", 1_731, 3_456, torch.float32),
+                                ("2M", 2_097_152, 131_072, torch.float32),
+                                ("8M", 8_388_608, 131_072, torch.float32)):
+        tbl = torch.randn(table, device=dev, generator=gen, dtype=dt)
+        i = ints((n,), table)
+        old = time_cuda_ms(lambda: flat_take_cuda(tbl, i, form="elementwise"),
+                           flush)
+        cells = []
+        # the plan's (a thread an element), then with fewer threads a
+        # block, and on the grid the card holds at once
+        for kw in ({}, {"threads": 128}, {"threads": 64},
+                   {"blocks": min(-(-n // 256), 132 * 8)}):
+            plan = flat_plan(n, **kw)
+            t = time_cuda_ms(lambda: flat_take_cuda(tbl, i, plan=plan), flush)
+            cells.append(f"{kw or 'plan'} {plan.blocks}x{plan.threads}: "
+                         f"{t * 1e3:.2f}")
+        old2 = time_cuda_ms(lambda: flat_take_cuda(tbl, i, form="elementwise"),
+                            flush)
+        print(f"flat_take {label} {n} from {table} {dt}: elementwise "
+              f"{old * 1e3:.2f} / {old2 * 1e3:.2f}; " + "; ".join(cells),
+              flush=True)
+    empty = time_cuda_ms(lambda: torch.cuda._sleep(0), flush)
+    print(f"empty kernel {empty * 1e3:.2f}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1", action="store_true",
@@ -151,6 +262,9 @@ def main() -> None:
     ap.add_argument("--gs", action="store_true",
                     help="sweep the GS kernel's lanes and forms on the "
                          "relax 13 / 14 levels")
+    ap.add_argument("--gathers", action="store_true",
+                    help="sweep the gathers' launch plans at the probes' "
+                         "shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("lane_sweep needs a CUDA device")
@@ -162,6 +276,9 @@ def main() -> None:
         return
     if args.gs:
         gs_sweep(dev, flush, gen)
+        return
+    if args.gathers:
+        gather_sweep(dev, flush, gen)
         return
     print(f"{torch.cuda.get_device_name(0)}; us, median of 50, L2 flushed; "
           "plain / resid at each S")

@@ -12,6 +12,7 @@ neither jax nor hypre_tpu, so it runs on a GPU machine without them:
 """
 
 import functools
+import zlib
 
 import numpy as np
 import pytest
@@ -31,12 +32,13 @@ from hypre_tpu_torch.ops.ell_kernel import (
 from hypre_tpu_torch.ops.forms import FORMS
 from hypre_tpu_torch.solvers.amg.relax import jacobi
 from hypre_tpu_torch.ops.gather_kernel import (
-    flat_take_cuda, flat_take_reference, take_along_axis_cuda,
-    take_along_axis_reference)
+    flat_plan, flat_take_cuda, flat_take_reference, take_along_axis_cuda,
+    take_along_axis_reference, take_plan)
 from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda, coo_tail_reference
 from hypre_tpu_torch.ops.cell_dense_kernel import (
     cell_dense_cuda, cell_dense_reference)
 from hypre_tpu_torch.ops.forms import epilogue
+from test_torch_gather import TAKE_CASES, take_inputs
 
 
 @pytest.fixture
@@ -152,6 +154,93 @@ def test_gathers_reject_what_they_do_not_take(cuda):
         take_along_axis_cuda(x, i[:63], 1)
     with pytest.raises(ValueError, match="1-D"):
         flat_take_cuda(x, i)
+    with pytest.raises(ValueError, match="CUDA"):
+        take_along_axis_cuda(x.cpu(), i, 1)
+    with pytest.raises(ValueError, match="tile"):
+        take_along_axis_cuda(x, i[:, :100].contiguous(), 0, form="elementwise")
+    with pytest.raises(ValueError, match="form"):
+        flat_take_cuda(x.reshape(-1), i, form="rowwise")
+
+
+def _seed(*parts) -> int:
+    """A seed of each case's own, so that no earlier case's output (or its
+    reference), left in a block the allocator hands a kernel, holds the
+    answer: an output element the kernel leaves unwritten then shows."""
+    return zlib.crc32(repr(parts).encode())
+
+
+def _poison(n: int, dtype, dev) -> None:
+    """Fill a block of n elements with NaN and free it, just before a
+    kernel allocates its output of that size."""
+    torch.full((n,), float("nan"), dtype=dtype, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,batch", [("elementwise", None), ("tiled", None),
+                                        ("tiled", 1), ("tiled", 8)])
+@pytest.mark.parametrize("case", TAKE_CASES)
+def test_take_along_axis_forms_on_card_bitwise(cuda, case, form, batch):
+    """Both forms, one launch each, bitwise the plain version on the
+    probes' shapes, ragged, narrow and tall shapes, and every instance of
+    the tiled form (x's part in shared memory, or through L2 when too
+    wide; one quad or eight a thread in flight)."""
+    xs, ish, axis, instance = TAKE_CASES[case]
+    plan = take_plan(xs, ish, axis, batch=batch)
+    assert plan.instance == instance
+    x, i = (torch.from_numpy(a).to(cuda) for a in take_inputs(
+        xs, ish, axis, _seed(case, form, batch)))
+    _poison(i.numel(), x.dtype, cuda)
+    before = take_along_axis_cuda.launches
+    out = take_along_axis_cuda(x, i, axis, form=form,
+                               plan=plan if form == "tiled" else None)
+    assert take_along_axis_cuda.launches == before + 1
+    assert torch.equal(out, take_along_axis_reference(x, i, axis))
+
+
+def _unaligned(a: np.ndarray, dev):
+    """a on the card 4 bytes past a 16-byte boundary, contiguous."""
+    buf = torch.empty(a.size + 1, dtype=getattr(torch, str(a.dtype)), device=dev)
+    view = buf[1:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["K2a-lanes", "K2b-sublanes", "ic%4=1",
+                                  "axis0-ic=2xc-aligned"])
+def test_take_along_axis_unaligned_pointers_on_card(cuda, case):
+    """x and idx off the 16-byte boundary: the tiled form moves scalars."""
+    xs, ish, axis, _ = TAKE_CASES[case]
+    x, i = (_unaligned(a, cuda) for a in take_inputs(
+        xs, ish, axis, _seed(case, "unaligned")))
+    assert x.data_ptr() % 16 and i.data_ptr() % 16
+    _poison(i.numel(), x.dtype, cuda)
+    assert torch.equal(take_along_axis_cuda(x, i, axis),
+                       take_along_axis_reference(x, i, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,blocks", [
+    ("elementwise", None), ("tiled", None), ("tiled", 132 * 8),
+    ("tiled", 1)])
+@pytest.mark.parametrize("n", [32_768, 1_529, 1_731, 7, 1_000_003])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_flat_take_forms_on_card_bitwise(cuda, n, dtype, form, blocks):
+    """K2 (c), the lattice path's shapes, ragged counts and more than the
+    resident grid's threads, each form, the tiled one on the plan's grid
+    and on fewer blocks (a thread walks several elements); idx aligned
+    and not, each with indices of its own."""
+    rng = np.random.default_rng(_seed(n, dtype, form, blocks))
+    table = torch.from_numpy(rng.standard_normal(131_072).astype(dtype)).to(cuda)
+    plan = flat_plan(n, blocks=blocks) if form == "tiled" else None
+    for place in (lambda a: torch.from_numpy(a).to(cuda),
+                  lambda a: _unaligned(a, cuda)):
+        i = place(rng.integers(0, 131_072, size=n).astype(np.int32))
+        _poison(n, table.dtype, cuda)
+        before = flat_take_cuda.launches
+        out = flat_take_cuda(table, i, form=form, plan=plan)
+        assert flat_take_cuda.launches == before + 1
+        assert torch.equal(out, flat_take_reference(table, i))
 
 
 DTYPES = [("float64", torch.float64, 1e-12), ("float32", torch.float32, 1e-5),
