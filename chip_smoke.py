@@ -100,9 +100,22 @@ Phases (any failure raises and the script exits non-zero):
      of 20, device busy and kernels an iteration; setup by phase (DS_*)
      and time to a first solution, medians of 3, in turns with the host
      setup and the plain path.
+ 12. the cycle options and the coarsening family at 96^3, each through
+     the user's entry points with the counts at 0 before and read
+     after: W-cycles (f64, f32/bf16/ngt 0.02, and f64 on the lattice
+     forms), the F-cycle, additive / mult_additive / simple from level
+     0, C / F l1-Jacobi point sweeps (grid_relax_points),
+     grid_relax_type (13, 13, 14, 9), HMIS and RS coarsening: the JAX
+     package's counts (CYCLES96; f32/bf16 within one), a right
+     solution, launches exactly `cycle_launches` x the cycles plus
+     PCG's matvecs, with the statistics, the setup by phase, the
+     solve's median of 20 and device busy; every operator of the
+     lattice W hierarchy held against its plain version; at 24^3 CLJP,
+     Falgout, CGC, CR, strength_abs, seq_threshold 150 and SolveT card
+     against CPU (the same counts, residuals within 1e-10).
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
-the GS family, the device setup chain), the kernel report and
-{"ok": true, ...}.
+the GS family, the device setup chain, the cycle options), the kernel
+report and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -2227,6 +2240,204 @@ def card_vs_cpu(nx, opts, dev, label, want_its):
             "launches": counts}
 
 
+# -- 12. the cycle options and the coarsening family -------------------------
+
+# the JAX package's PCG counts on the CPU at 96^3 (the bench protocol: b =
+# ones, two-norm, tol 1e-6; the plain forms, f64 unless marked), recomputed
+# by `python -m pytest -m slow tests/test_torch_cycles.py -k chip_pin`
+# (~1 min each on a CPU).  {label: (options beyond slice_options(), count,
+# slack)}; f32/bf16 within one, as PRODUCTION_F32
+F32_BF16 = dict(dtype="float32", mat_dtype="bfloat16", nongalerkin_tol=0.02)
+CF_SWEEPS = ((1, -1), (1, -1), (-1, 1), (0,))  # C then F down, F then C up
+CYCLES96 = {
+    "W f64": (dict(cycle_type=2), 14, 0),
+    "W f32/bf16": (dict(cycle_type=2, **F32_BF16), 14, 1),
+    "F f64": (dict(fcycle=True), 13, 0),
+    "additive=0": (dict(additive=0), 59, 0),
+    "mult_additive=0": (dict(mult_additive=0), 25, 0),
+    "simple=0": (dict(simple=0), 33, 0),
+    "grid_relax_points C/F l1-Jacobi": (dict(
+        grid_relax_type=(18, 18, 18, 9), grid_relax_points=CF_SWEEPS), 24, 0),
+    "grid_relax_type (13, 13, 14, 9)": (dict(
+        grid_relax_type=(13, 13, 14, 9)), 17, 0),
+    "hmis": (dict(coarsen_type="hmis"), 12, 0),
+    "rs": (dict(coarsen_type="rs"), 12, 0),
+}
+# the W-cycle on the lattice forms: the plain W count.  The lattice forms
+# are exact re-layouts of the same hierarchy (the device RAP's level 1
+# differs by rounding); the JAX package's 96^3 lattice build needs ~50 GB
+# of host memory, so its count is held at 24^3 instead
+# (tests/test_torch_cycles.py::test_lattice_cycles_match_jax)
+W96_LATTICE = 14
+# the JAX package's counts at 24^3 (PCG as above; SolveT: the stationary
+# transpose solve of difconv_7pt(24, 24, 24, ax=6, ay=3, az=1), tol 1e-8)
+CYCLES24 = {
+    "cljp": (dict(coarsen_type="cljp"), 8),
+    "falgout": (dict(coarsen_type="falgout"), 9),
+    "cgc": (dict(coarsen_type="cgc"), 9),
+    "cr": (dict(coarsen_type="cr"), 13),
+    "strength_abs": (dict(strength_abs=True), 15),
+    "seq_threshold=150": (dict(seq_threshold=150), 16),
+}
+SOLVET24 = 54
+CYCLE_PHASES = ("SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP", "FREEZE",
+                "GS_SCHEDULE", "DEVICE_RAP", "COLLAPSE")
+
+
+def statistics(amg) -> dict:
+    """par_stats.c's numbers of a hierarchy."""
+    return {"num_levels": amg.num_levels,
+            "num_frozen_levels": amg.num_frozen_levels,
+            "grid_complexity": amg.grid_complexity(),
+            "operator_complexity": amg.operator_complexity(),
+            "cycle_complexity": amg.cycle_complexity()}
+
+
+def solve_median_ms(solve, reps: int = 20):
+    """(median, min, max) ms of `reps` warm solves, CUDA events around
+    each."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        solve()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), min(times), max(times)
+
+
+def run_cycle(opts, dev, card, label, want, slack):
+    """One 96^3 run of a cycle option through run_slice, the counts set
+    to 0 just before and read just after: the JAX package's count, a
+    right solution, launches exactly `cycle_launches` x the cycles plus
+    PCG's matvecs; then the statistics, the setup by phase, the solve's
+    median of 20 and one profiled solve.  Returns (amg, numbers)."""
+    from hypre_tpu_torch.profile_slice import profile_solve
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    GLOBAL_TIMER.clear()
+    zero_counts()
+    amg, res, setup_s, solve_s = run_slice(NX, opts, dev)
+    counts = read_counts()
+    require_no_gs_fault(dev, f"cycles {label} solve")
+    phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in CYCLE_PHASES
+              if GLOBAL_TIMER.seconds(k)}
+    rel, bound = check_solution(amg, res, NX**3)
+    its = res.num_iterations
+    expected = expected_launches(amg, its)
+    per_cycle = {k: v for k, v in amg.cycle_launches().items() if v}
+    solve = make_solve(amg, NX)
+    med, lo, hi = solve_median_ms(solve)
+    _, wall, busy_us, events, _ = profile_solve(solve)
+    require_no_gs_fault(dev, f"cycles {label} timed solves")
+    stats = statistics(amg)
+    log(f"cycles [{label} {NX}^3; {card}]: {its} iterations (JAX package: "
+        f"{want}{f' +- {slack}' if slack else ''}), final rel residual "
+        f"{float(res.rel_residual_norm):.3e} (true, in f64: {rel:.3e}, bound "
+        f"{bound:.1e}); statistics {stats}; setup {setup_s:.2f} s (phases "
+        f"{phases}); solve median of 20 {med:.2f} ms ({lo:.2f}-{hi:.2f}); "
+        f"under the profiler wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms (idle {100 * (1 - busy_us / 1e6 / wall):.1f}"
+        f"%), {len(events)} device events ({len(events) / max(its, 1):.0f} "
+        f"an iteration); per cycle {per_cycle}; launches {counts}")
+    require(res.converged and abs(its - want) <= slack,
+            f"cycles {label}: {its} iterations, the JAX package's {want}")
+    require(counts == expected,
+            f"cycles {label}: launches {counts} are not the hierarchy's "
+            f"{expected}")
+    return amg, {"iterations": its, "statistics": stats, "setup_s": setup_s,
+                 "phases": phases, "solve_median_ms": med,
+                 "solve_min_max_ms": [lo, hi], "busy_ms": busy_us / 1e3,
+                 "wall_ms": wall * 1e3,
+                 "kernels_per_iteration": len(events) / max(its, 1),
+                 "per_cycle": per_cycle, "launches": counts}
+
+
+def solveT_card_vs_cpu(dev, label, want):
+    """SolveT at 24^3 on the nonsymmetric convection-diffusion operator,
+    card against CPU: the JAX package's count on both; the residual
+    histories within 1e-10 relative while above 1e-4 of the first and
+    within 1e-14 of the first everywhere (a stationary solve's b - A^T x
+    cancels as it converges: the final 9e-9 differs in its 9th digit
+    between the card's FMAs and the CPU); the card's launches exactly
+    its iterations x `cycle_launches(levels_T, from_zero=False)` plus a
+    fine-level residual each and one more."""
+    from hypre_tpu_torch.models import difconv_7pt
+    from hypre_tpu_torch.ops.dia import kernel_launches
+    from hypre_tpu_torch.solvers.amg import BoomerAMG
+
+    A = difconv_7pt(24, 24, 24, ax=6.0, ay=3.0, az=1.0)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        amg = BoomerAMG(A, slice_options(dtype="float64"), device=where)
+        levels = amg.levels_T  # frozen before the counts start
+        b = torch.ones(24**3, dtype=torch.float64, device=where)
+        zero_counts()
+        res = amg.solveT(b, tol=1e-8, max_iter=60)
+        counts = read_counts()
+        its = res.num_iterations
+        want_l = {k: 0 for k in counts}
+        for k, v in amg.cycle_launches(levels, from_zero=False).items():
+            want_l[k] += its * v
+        for k, v in kernel_launches(levels[0].A).items():
+            want_l[k] += (its + 1) * v
+        out[where.type] = (res, counts, want_l)
+    (rg, cg, wg), (rc, _, _) = out["cuda"], out["cpu"]
+    a, b_ = float(rg.rel_residual_norm), float(rc.rel_residual_norm)
+    hg, hc = rg.res_norms.cpu().numpy(), rc.res_norms.numpy()
+    ok = ~np.isnan(hc)
+    early = ok & (hc >= 1e-4 * hc[0])
+    early_rel = float(np.max(np.abs(hg[early] - hc[early]) / hc[early]))
+    late_abs = float(np.max(np.abs(hg[ok] - hc[ok])) / hc[0])
+    log(f"{label} 24^3 card vs CPU: iterations {rg.num_iterations} vs "
+        f"{rc.num_iterations} (JAX package: {want}); rel residual {a:.10e} "
+        f"vs {b_:.10e}; histories: {early_rel:.2e} relative above 1e-4 of "
+        f"the first, {late_abs:.2e} of the first everywhere; launches {cg}")
+    require(rg.num_iterations == rc.num_iterations == want and rg.converged,
+            f"{label}: iterations {rg.num_iterations} (card), "
+            f"{rc.num_iterations} (CPU), JAX {want}")
+    require(np.array_equal(np.isnan(hg), np.isnan(hc)) and early_rel <= 1e-10
+            and late_abs <= 1e-14, f"{label}: the card's residual history "
+                                   f"differs from the CPU's")
+    require(cg == wg, f"{label}: launches {cg} are not {wg}")
+    return {"iterations": rg.num_iterations, "rel_residual_norm": a,
+            "cpu_rel_residual_norm": b_, "launches": cg}
+
+
+def phase_cycles(dev, card):
+    """12. The cycle options (W, F, the additive family, the grid_relax
+    arrays) and the coarsening family at 96^3 (`run_cycle`), the
+    W-cycle also on the lattice forms with every operator of that
+    hierarchy held (`phase_hold_operators`); at 24^3 CLJP, Falgout,
+    CGC, CR, strength_abs, seq_threshold and SolveT card against CPU.
+    Returns ({label: numbers} at 96^3, {label: numbers} at 24^3)."""
+    out = {}
+    for label, (kw, want, slack) in CYCLES96.items():
+        amg, out[label] = run_cycle(slice_options(**{"dtype": "float64", **kw}),
+                                    dev, card, label, want, slack)
+        del amg
+        torch.cuda.empty_cache()
+    label = "W lattice f64"
+    amg, out[label] = run_cycle(lattice_options(NX, dtype="float64",
+                                                cycle_type=2),
+                                dev, card, label, W96_LATTICE, 0)
+    g = gates(amg)
+    log(f"cycles [{label}] gates {g}")
+    require(g["embed_level1"] and g["relocated_levels"] and not g["collapsed"],
+            f"{label}: the lattice forms did not engage as expected ({g})")
+    out[label]["gates"] = g
+    out[label]["held"] = phase_hold_operators(amg, 1e-12, label)
+    del amg
+    torch.cuda.empty_cache()
+    small = {label: card_vs_cpu(24, slice_options(dtype="float64", **kw), dev,
+                                label, want)
+             for label, (kw, want) in CYCLES24.items()}
+    small["solveT"] = solveT_card_vs_cpu(dev, "solveT", SOLVET24)
+    return out, small
+
+
 def counted_wrappers():
     """{kernel name: its wrapper}; each wrapper's `launches` counts its
     kernel's launches."""
@@ -2502,6 +2713,11 @@ def main() -> int:
     # -- (c) extended+i interpolation ---------------------------------------
     ext = phase_ext(dev, card)
 
+    # -- 12. the cycle options and the coarsening family -------------------
+    cyc_t0 = time.perf_counter()
+    cycles, cycles24 = phase_cycles(dev, card)
+    log(f"the cycle phase took {time.perf_counter() - cyc_t0:.1f} s")
+
     # `launches` counts the two f64 96^3 runs, the plain path's and the
     # lattice path's, each driven with the counts at 0 just before and
     # read just after; "per" says what the times cover
@@ -2520,7 +2736,9 @@ def main() -> int:
                                   **{f"device setup {k}": v["launches"][name]
                                      for k, v in ds.items()},
                                   **{k: v["launches"][name]
-                                     for k, v in gs_runs.items()}},
+                                     for k, v in gs_runs.items()},
+                                  **{f"cycles {k}": v["launches"][name]
+                                     for k, v in cycles.items()}},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -2612,6 +2830,8 @@ def main() -> int:
         "launches": gs64["launches"]["gs_sweep"],
         "path_launches": {**{k: v["launches"]["gs_sweep"]
                              for k, v in gs_runs.items()},
+                          **{f"cycles {k}": v["launches"]["gs_sweep"]
+                             for k, v in cycles.items()},
                           **{f"device setup {k}": v["launches"]["gs_sweep"]
                              for k, v in ds.items()}},
         "syncfree_launches": {k: v["syncfree_launches"]
@@ -2632,10 +2852,11 @@ def main() -> int:
     log(f"chip_smoke: every phase, the builds included, took "
         f"{time.perf_counter() - t_start:.1f} s")
     # the slice's own numbers: entry(), the device RAP, ext+i, the GS
-    # family, the device setup chain
+    # family, the device setup chain, the cycle options
     log(json.dumps({"entry": entry_run, "device_rap": {"f64": rap64,
                                                        "f32_bf16": rap32},
-                    "ext_i": ext, "gs": gs_runs, "device_setup": ds}))
+                    "ext_i": ext, "gs": gs_runs, "device_setup": ds,
+                    "cycles": cycles, "cycles_24": cycles24}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -609,6 +609,199 @@ int64_t strength_classical_i32(const int32_t *indptr, const int32_t *indices,
     return nnz;
 }
 
+/* Classical Ruge-Stueben first pass (par_coarsen.c:874 structure):
+ * bucket queue keyed by measure = |S^T row| with the standard
+ * increment/decrement updates.  cf: 1 = C, -1 = F, -3 = isolated. */
+void rs_coarsen(const int64_t *S_indptr, const int64_t *S_indices,
+                const int64_t *ST_indptr, const int64_t *ST_indices,
+                int64_t n, int64_t *cf)
+{
+    int64_t *measure = (int64_t *)malloc(n * sizeof(int64_t));
+    int64_t *settled = (int64_t *)calloc(n, sizeof(int64_t));
+
+    int64_t max_measure = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        measure[i] = ST_indptr[i + 1] - ST_indptr[i];
+        cf[i] = 0;
+        if (measure[i] == 0 && S_indptr[i + 1] == S_indptr[i]) {
+            cf[i] = -3; /* isolated */
+            settled[i] = 1;
+        }
+        if (measure[i] > max_measure) max_measure = measure[i];
+    }
+
+    /* bucket lists by measure (measures can grow to ~2*max) */
+    int64_t nbuckets = 2 * max_measure + n + 2;
+    int64_t *head = (int64_t *)malloc(nbuckets * sizeof(int64_t));
+    int64_t *next = (int64_t *)malloc(n * sizeof(int64_t));
+    int64_t *prev = (int64_t *)malloc(n * sizeof(int64_t));
+    for (int64_t b = 0; b < nbuckets; ++b) head[b] = -1;
+    for (int64_t i = 0; i < n; ++i) next[i] = prev[i] = -1;
+
+#define BUCKET_INSERT(i)                                                  \
+    do {                                                                  \
+        int64_t b = measure[i];                                           \
+        next[i] = head[b];                                                \
+        prev[i] = -1;                                                     \
+        if (head[b] >= 0) prev[head[b]] = (i);                            \
+        head[b] = (i);                                                    \
+    } while (0)
+
+#define BUCKET_REMOVE(i)                                                  \
+    do {                                                                  \
+        if (prev[i] >= 0) next[prev[i]] = next[i];                        \
+        else head[measure[i]] = next[i];                                  \
+        if (next[i] >= 0) prev[next[i]] = prev[i];                        \
+        next[i] = prev[i] = -1;                                           \
+    } while (0)
+
+    for (int64_t i = 0; i < n; ++i)
+        if (!settled[i]) BUCKET_INSERT(i);
+
+    int64_t cur_max = max_measure;
+    for (;;) {
+        while (cur_max > 0 && head[cur_max] < 0) --cur_max;
+        if (cur_max <= 0) break;
+        int64_t i = head[cur_max];
+        BUCKET_REMOVE(i);
+        cf[i] = 1;
+        settled[i] = 1;
+        /* points depending on i become F; their influencers gain measure */
+        for (int64_t k = ST_indptr[i]; k < ST_indptr[i + 1]; ++k) {
+            int64_t j = ST_indices[k];
+            if (settled[j]) continue;
+            BUCKET_REMOVE(j);
+            cf[j] = -1;
+            settled[j] = 1;
+            for (int64_t kk = S_indptr[j]; kk < S_indptr[j + 1]; ++kk) {
+                int64_t m = S_indices[kk];
+                if (settled[m]) continue;
+                BUCKET_REMOVE(m);
+                measure[m] += 1;
+                if (measure[m] >= nbuckets) measure[m] = nbuckets - 1;
+                BUCKET_INSERT(m);
+                if (measure[m] > cur_max) cur_max = measure[m];
+            }
+        }
+        /* i's influencees lose it as a potential C neighbor */
+        for (int64_t k = S_indptr[i]; k < S_indptr[i + 1]; ++k) {
+            int64_t j = S_indices[k];
+            if (settled[j]) continue;
+            BUCKET_REMOVE(j);
+            if (measure[j] > 0) measure[j] -= 1;
+            BUCKET_INSERT(j);
+        }
+    }
+    for (int64_t i = 0; i < n; ++i)
+        if (!settled[i]) cf[i] = -1;
+
+    free(measure);
+    free(settled);
+    free(head);
+    free(next);
+    free(prev);
+}
+
+/* CLJP coarsening (par_coarsen.c:93 hypre_BoomerAMGCoarsen, serial form).
+ * S_indices entries are mutated (sign-encoded edge removal, the
+ * reference's in-place trick).  measure holds |S^T col| + rand on entry.
+ * cf: 0 unassigned -> 1 C / -1 F. */
+void cljp_coarsen(const int64_t *S_indptr, int64_t *S_indices, int64_t n,
+                  double *measure, int64_t *cf)
+{
+    const int64_t C_PT = 1, F_PT = -1, SF_PT = -3, COMMON_C = -2;
+    int64_t *graph = (int64_t *)malloc(n * sizeof(int64_t));
+    int64_t graph_size = n;
+    for (int64_t i = 0; i < n; ++i) { graph[i] = i; cf[i] = 0; }
+
+    for (;;) {
+        /* F-assignment: measure < 1 and all row edges removed */
+        for (int64_t ig = 0; ig < graph_size; ++ig) {
+            int64_t i = graph[ig];
+            if (cf[i] != C_PT && measure[i] < 1.0) {
+                cf[i] = F_PT;
+                for (int64_t p = S_indptr[i]; p < S_indptr[i + 1]; ++p)
+                    if (S_indices[p] > -1) { cf[i] = 0; break; }
+            }
+            if (cf[i]) {
+                measure[i] = 0.0;
+                graph[ig] = graph[--graph_size];
+                graph[graph_size] = i;
+                --ig;
+            }
+        }
+        if (graph_size == 0) break;
+
+        /* independent set: candidates measure > 1, strict loser removal */
+        for (int64_t ig = 0; ig < graph_size; ++ig) {
+            int64_t i = graph[ig];
+            if (measure[i] > 1.0) cf[i] = 1;
+        }
+        for (int64_t ig = 0; ig < graph_size; ++ig) {
+            int64_t i = graph[ig];
+            if (measure[i] > 1.0) {
+                for (int64_t p = S_indptr[i]; p < S_indptr[i + 1]; ++p) {
+                    int64_t j = S_indices[p];
+                    if (j < 0) j = -j - 1;
+                    if (measure[j] > 1.0) {
+                        if (measure[i] > measure[j]) cf[j] = 0;
+                        else if (measure[j] > measure[i]) cf[i] = 0;
+                    }
+                }
+            }
+        }
+
+        /* C assignment + CLJP heuristics (par_coarsen.c:615-800) */
+        for (int64_t ig = 0; ig < graph_size; ++ig) {
+            int64_t i = graph[ig];
+            if (cf[i] > 0) {
+                cf[i] = C_PT;
+                for (int64_t p = S_indptr[i]; p < S_indptr[i + 1]; ++p) {
+                    int64_t j = S_indices[p];
+                    if (j > -1) {
+                        S_indices[p] = -j - 1; /* remove edge */
+                        if (!cf[j]) measure[j] -= 1.0;
+                    }
+                }
+            } else {
+                /* marked dependencies */
+                for (int64_t p = S_indptr[i]; p < S_indptr[i + 1]; ++p) {
+                    int64_t j = S_indices[p];
+                    if (j < 0) j = -j - 1;
+                    if (cf[j] > 0) {
+                        if (S_indices[p] > -1) S_indices[p] = -S_indices[p] - 1;
+                        cf[j] = COMMON_C;
+                    } else if (cf[j] == SF_PT) {
+                        if (S_indices[p] > -1) S_indices[p] = -S_indices[p] - 1;
+                    }
+                }
+                /* unmarked dependencies: common-C heuristic */
+                for (int64_t p = S_indptr[i]; p < S_indptr[i + 1]; ++p) {
+                    if (S_indices[p] > -1) {
+                        int64_t j = S_indices[p];
+                        for (int64_t q = S_indptr[j]; q < S_indptr[j + 1]; ++q) {
+                            int64_t k = S_indices[q];
+                            if (k < 0) k = -k - 1;
+                            if (cf[k] == COMMON_C) {
+                                S_indices[p] = -S_indices[p] - 1;
+                                measure[j] -= 1.0;
+                                break;
+                            }
+                        }
+                    }
+                }
+                /* reset temporary markers */
+                for (int64_t p = S_indptr[i]; p < S_indptr[i + 1]; ++p) {
+                    int64_t j = S_indices[p];
+                    if (j < 0) j = -j - 1;
+                    if (cf[j] == COMMON_C) cf[j] = C_PT;
+                }
+            }
+        }
+    }
+    free(graph);
+}
+
 /* Wavefront levels of the lower(upper)-triangular dependency DAG:
  * level[i] = 1 + max(level[j]) over j < i (forward) with A[i,j] != 0. */
 void gs_levels(const int64_t *indptr, const int64_t *indices, int64_t n,

@@ -1,3 +1,3 @@
-from .laplacian import laplacian_7pt
+from .laplacian import difconv_7pt, laplacian_7pt, laplacian_27pt
 
-__all__ = ["laplacian_7pt"]
+__all__ = ["difconv_7pt", "laplacian_7pt", "laplacian_27pt"]

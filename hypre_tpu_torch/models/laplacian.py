@@ -1,9 +1,13 @@
-"""The 3D 7-point Laplacian (port of hypre_tpu/models/laplacian.py).
+"""The 3D 7-point and 27-point Laplacians and the 7-point
+convection-diffusion operator (port of hypre_tpu/models/laplacian.py:
+laplacian_7pt, laplacian_27pt, difconv_7pt).
 
-Reference analog: parcsr_ls/par_laplace.c (GenerateLaplacian) with the
-stencil values of test/ij.c:7799-7814.  Grid indexing is hypre's: ix
-fastest, global row = ix + nx*(iy + ny*iz).  Homogeneous Dirichlet:
-out-of-grid neighbors are dropped and the diagonal is not adjusted.
+Reference analog: parcsr_ls/par_laplace.c (GenerateLaplacian),
+par_laplace_27pt.c and par_difconv.c with the stencil values of
+test/ij.c:7799-7814 (7-pt), :9011-9016 (27-pt) and :8205-8343
+(difconv).  Grid indexing is hypre's: ix fastest, global row = ix +
+nx*(iy + ny*iz).  Homogeneous Dirichlet: out-of-grid neighbors are
+dropped and the diagonal is not adjusted.
 """
 
 from __future__ import annotations
@@ -88,4 +92,82 @@ def laplacian_7pt(nx, ny=1, nz=1, cx=1.0, cy=1.0, cz=1.0) -> CSRMatrix:
         (0, 0, 1),
     ]
     values = [diag, -cx, -cx, -cy, -cy, -cz, -cz]
+    return _stencil_matrix(nx, ny, nz, offsets, values)
+
+
+def laplacian_27pt(nx, ny, nz) -> CSRMatrix:
+    """3D 27-point Laplacian (ij.c:9011-9016: diag 26, neighbors -1)."""
+    ndim_gt1 = (nx > 1) + (ny > 1) + (nz > 1)
+    diag = {3: 26.0, 2: 8.0}.get(ndim_gt1, 2.0)
+    offsets = [(0, 0, 0)] + [
+        (dx, dy, dz)
+        for dx in (-1, 0, 1)
+        for dy in (-1, 0, 1)
+        for dz in (-1, 0, 1)
+        if (dx, dy, dz) != (0, 0, 0)
+    ]
+    values = [diag] + [-1.0] * 26
+    return _stencil_matrix(nx, ny, nz, offsets, values)
+
+
+def difconv_7pt(
+    nx,
+    ny=1,
+    nz=1,
+    cx=1.0,
+    cy=1.0,
+    cz=1.0,
+    ax=1.0,
+    ay=1.0,
+    az=1.0,
+    atype=0,
+) -> CSRMatrix:
+    """7-pt convection-diffusion (ij.c BuildParDifConv :8205-8343).
+
+    atype 0: forward scheme (a/h on the plus-side neighbor)
+    atype 1: backward scheme
+    atype 2: upwind per sign of a (here: backward, matching a>0)
+    atype 3: centered differences
+    h = 1/(nx+1) etc., as test/ij.c sets hinx.
+    """
+    hx, hy, hz = 1.0 / (nx + 1), 1.0 / (ny + 1), 1.0 / (nz + 1)
+    cx2, cy2, cz2 = cx / hx**2, cy / hy**2, cz / hz**2
+    diag = 0.0
+    if atype == 0:
+        w, s, d = -cx2, -cy2, -cz2
+        e, n_, u = -cx2 + ax / hx, -cy2 + ay / hy, -cz2 + az / hz
+        if nx > 1:
+            diag += 2.0 * cx2 - ax / hx
+        if ny > 1:
+            diag += 2.0 * cy2 - ay / hy
+        if nz > 1:
+            diag += 2.0 * cz2 - az / hz
+    elif atype in (1, 2):
+        w, s, d = -cx2 - ax / hx, -cy2 - ay / hy, -cz2 - az / hz
+        e, n_, u = -cx2, -cy2, -cz2
+        if nx > 1:
+            diag += 2.0 * cx2 + ax / hx
+        if ny > 1:
+            diag += 2.0 * cy2 + ay / hy
+        if nz > 1:
+            diag += 2.0 * cz2 + az / hz
+    else:  # centered
+        w, s, d = -cx2 - ax / (2 * hx), -cy2 - ay / (2 * hy), -cz2 - az / (2 * hz)
+        e, n_, u = -cx2 + ax / (2 * hx), -cy2 + ay / (2 * hy), -cz2 + az / (2 * hz)
+        if nx > 1:
+            diag += 2.0 * cx2
+        if ny > 1:
+            diag += 2.0 * cy2
+        if nz > 1:
+            diag += 2.0 * cz2
+    offsets = [
+        (0, 0, 0),
+        (-1, 0, 0),
+        (1, 0, 0),
+        (0, -1, 0),
+        (0, 1, 0),
+        (0, 0, -1),
+        (0, 0, 1),
+    ]
+    values = [diag, w, e, s, n_, d, u]
     return _stencil_matrix(nx, ny, nz, offsets, values)

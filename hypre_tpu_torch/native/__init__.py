@@ -114,6 +114,8 @@ def _bind(lib) -> None:
              ctypes.c_int, I32, I32]),
         "pmis_loop": (
             None, [I64, I64, ctypes.c_int64, F64, I64, ctypes.c_int]),
+        "rs_coarsen": (None, [I64, I64, I64, I64, ctypes.c_int64, I64]),
+        "cljp_coarsen": (None, [I64, I64, ctypes.c_int64, F64, I64]),
         "classical_interp_fill": (
             ctypes.c_int64,
             [I64, I64, F64, F64, I64, I64, I64, I64, ctypes.c_int64,
@@ -190,8 +192,10 @@ def gs_levels(indptr, indices, n: int, forward: bool) -> np.ndarray:
     return level
 
 
-def strength_classical(M: sp.csr_matrix, theta: float, max_row_sum: float):
-    """Classical strength pattern (par_strength.c); scipy pattern CSR
+def strength_classical(M: sp.csr_matrix, theta: float, max_row_sum: float,
+                       sabs: bool = False):
+    """Classical strength pattern (par_strength.c), or with sabs the
+    absolute-value one (hypre_BoomerAMGCreateSabs); scipy pattern CSR
     with data ones and the diagonal excluded."""
     lib = load()
     ai, aj, ad = _i32_csr(M)
@@ -199,8 +203,8 @@ def strength_classical(M: sp.csr_matrix, theta: float, max_row_sum: float):
     Sp = np.empty(n + 1, dtype=np.int32)
     Si = np.empty(max(M.nnz, 1), dtype=np.int32)
     nnz = lib.strength_classical_i32(
-        _p(ai, I32), _p(aj, I32), _p(ad, F64), n, theta, max_row_sum, 0,
-        _p(Sp, I32), _p(Si, I32))
+        _p(ai, I32), _p(aj, I32), _p(ad, F64), n, theta, max_row_sum,
+        1 if sabs else 0, _p(Sp, I32), _p(Si, I32))
     return sp.csr_matrix(
         (np.ones(int(nnz), dtype=np.float32), Si[:nnz], Sp), shape=(n, n))
 
@@ -217,6 +221,33 @@ def pmis_loop(S_indptr, S_indices, n: int, measure, cf,
     lib.pmis_loop(_p(sp_, I64), _p(si_, I64), n, _p(meas, F64), _p(cfa, I64),
                   1 if first_round_is else 0)
     return cfa
+
+
+def rs_coarsen(S: sp.csr_matrix) -> np.ndarray:
+    """Ruge-Stueben first pass (par_coarsen.c:874) over the strength
+    pattern S; returns the CF marker (1 C, -1 F, -3 isolated)."""
+    lib = load()
+    n = S.shape[0]
+    ST = S.T.tocsr()
+    ST.sort_indices()
+    args = [np.ascontiguousarray(a, dtype=np.int64)
+            for a in (S.indptr, S.indices, ST.indptr, ST.indices)]
+    cf = np.zeros(n, dtype=np.int64)
+    lib.rs_coarsen(*(_p(a, I64) for a in args), n, _p(cf, I64))
+    return cf
+
+
+def cljp_coarsen(S_indptr, S_indices, n: int, measure) -> np.ndarray:
+    """CLJP coarsening (par_coarsen.c:93); returns the CF marker.  The
+    kernel consumes its copies of S_indices and measure."""
+    lib = load()
+    indptr = np.ascontiguousarray(S_indptr, dtype=np.int64)
+    indices = np.array(S_indices, dtype=np.int64)
+    meas = np.array(measure, dtype=np.float64)
+    cf = np.zeros(n, dtype=np.int64)
+    lib.cljp_coarsen(_p(indptr, I64), _p(indices, I64), n, _p(meas, F64),
+                     _p(cf, I64))
+    return cf
 
 
 def classical_interp_fill(A: sp.csr_matrix, S: sp.csr_matrix, cf, cmap):

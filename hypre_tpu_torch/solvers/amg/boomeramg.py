@@ -1,16 +1,19 @@
-"""BoomerAMG: hierarchy setup + V-cycle (port of the host-setup part of
+"""BoomerAMG: hierarchy setup + cycles (port of the host-setup part of
 hypre_tpu/solvers/amg/boomeramg.py).
 
 Reference: parcsr_ls/par_amg_setup.c (hypre_BoomerAMGSetup), par_cycle.c
 (hypre_BoomerAMGCycle).
 
 Setup is host-side numpy/scipy plus the native C kernels, as in the JAX
-package: PMIS coarsening, modified classical or extended+i
+package: classical or absolute strength, PMIS / HMIS / RS / CLJP /
+Falgout / CGC / CR coarsening, modified classical or extended+i
 interpolation, truncation, Galerkin RAP and the optional non-Galerkin
-filter.  Each level is then
-frozen into torch tensors on an explicit device, and the V-cycle runs
-eagerly on that device.  The fine operator is DIA (its matvec is the
-hand-written kernel K1 on CUDA).
+filter; the smoothed solve-phase P of mult_additive / simple, and the
+nested coarse BoomerAMG of seq_threshold.  Each level is then frozen
+into torch tensors on an explicit device, and the cycle runs eagerly on
+that device: hypre's nonrecursive state machine (V, W and F cycles,
+par_cycle.c) or the additive cycle (par_add_cycle.c).  The fine
+operator is DIA (its matvec is the hand-written kernel K1 on CUDA).
 
 With the lattice forms off (embed_level1=False, relocate_level2=False,
 collapse_coarse_n=0) coarse levels are ELL or dense.  With the JAX
@@ -35,15 +38,19 @@ up the deeper levels.  Level-0 P / R and the embedded level-1 A stay
 the device's DIA tables (`_install_fast_levels`).  device_coarsen runs
 only the level-0 PMIS on the device.
 
-The port implements the options of the bench protocol (V-cycles,
-classical or ext+i interpolation, relax_coarse 0/5/7/18/9), the
+The port implements the options of the bench protocol (classical or
+ext+i interpolation, relax_coarse 0/5/7/18/9), the cycle options (V, W
+and F cycles, the additive family, seq_threshold, grid_relax_type /
+grid_relax_points), the coarsening family and strength_abs, the
 smoother family of the JAX package for the down and up sweeps (relax
 0/5/7/18 Jacobi, 1-4/6/8/13/14 level-scheduled Gauss-Seidel with omega
 and the CF-ordered sweeps of relax_order 1, 15 CG, 16 Chebyshev, 17
-FCF-Jacobi), the stationary solve (`solve`, hypre's solver 0) and the
-lattice path with the device setup chain; every other option must keep
-its default (the offset budgets, grid_relax_type / grid_relax_points):
-`check_options` raises NotImplementedError otherwise.
+FCF-Jacobi), the stationary solve (`solve`, hypre's solver 0) and its
+transpose (`solveT`), the statistics of par_stats.c and the lattice
+path with the device setup chain; every other option must keep its
+default (aggressive coarsening, the other interpolations, AIR, nodal /
+GSMG, smooth_type, the offset budgets): `check_options` raises
+NotImplementedError otherwise.
 """
 
 from __future__ import annotations
@@ -69,13 +76,14 @@ from ...ops.dia import (DENSE_MAX_ROWS, DIA_MAX_OFFSETS, DenseMatrix,
                         spmv_axpy, spmv_resid, tail_min_count)
 from ...utils.timing import timed
 from ..krylov.common import SolverResult
-from .coarsen import pmis_coarsen
+from .coarsen import (cljp_coarsen, cr_coarsen, falgout_coarsen,
+                      hmis_coarsen, pmis_coarsen, ruge_stuben_coarsen)
 from .device_coarsen import device_pmis
 from .interp import classical_interp, extended_i_interp, truncate_interp
 from .rap import galerkin_rap, nongalerkin_filter
 from .relax import (ChebyData, GSMatrix, build_gs_schedule,
                     cheby_setup, chebyshev, gauss_seidel, jacobi, jacobi_cf)
-from .strength import strength_matrix
+from .strength import strength_matrix, strength_matrix_abs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +200,10 @@ _IMPLEMENTED = frozenset({
     "lattice_shape", "relocate_min_n2", "relocate_max_bytes",
     "max_relocated_offsets", "relocate_tail", "collapse_coarse_n",
     "device_setup", "device_coarsen", "lattice_coeffs",
+    "seq_threshold", "strength_abs", "fcycle", "grid_relax_type",
+    "grid_relax_points", "additive", "mult_additive", "simple",
+    "add_last_lvl", "add_P_max_elmts", "add_trunc_factor", "add_rlx",
+    "add_rlx_wt",
 })
 _JACOBI = (0, 5, 7, 18)
 # level-scheduled Gauss-Seidel: 1/2/3/13 forward, 4/14 backward, 6/8 both
@@ -202,9 +214,42 @@ _GS_TYPES = (1, 2, 3, 4, 6, 8, 13, 14)
 _UPDOWN = _JACOBI + _GS_TYPES + (15, 16, 17)
 # interp_type -> host interpolation (hypre interp_type 0 / 6)
 _INTERP = {"classical": classical_interp, "ext+i": extended_i_interp}
+# coarsen_type -> host coarsening of S (and A, which CR relaxes on).
+# CGC (par_cgc_coarsen.c) picks among RS grids by subdomain; on one
+# subdomain its only choice is the RS grid
+_COARSEN = {
+    "pmis": lambda S, A, seed: pmis_coarsen(S, seed=seed),
+    "hmis": lambda S, A, seed: hmis_coarsen(S, seed=seed),
+    "rs": lambda S, A, seed: ruge_stuben_coarsen(S),
+    "cgc": lambda S, A, seed: ruge_stuben_coarsen(S),
+    "cljp": lambda S, A, seed: cljp_coarsen(S, seed=seed),
+    "falgout": lambda S, A, seed: falgout_coarsen(S, seed=seed),
+    "cr": lambda S, A, seed: cr_coarsen(A, seed=seed),
+}
 # (vector dtype, matrix dtype) pairs; K1 takes exactly these
 _DTYPES = {("float64", "float64"), ("float32", "float32"),
            ("float32", "bfloat16")}
+
+
+def _updown_relax_types(o) -> set:
+    """Effective down / up relax types: grid_relax_type[:3] when the
+    old-style array (par_amg.h grid_relax_type[4]) is set, else
+    {relax_down, relax_up}."""
+    if o.grid_relax_type is not None:
+        return {int(t) for t in o.grid_relax_type[:3]}
+    return {o.relax_down, o.relax_up}
+
+
+def _grid_arrays_ok(o) -> tuple[bool, bool]:
+    """(grid_relax_type, grid_relax_points) well formed: four relax
+    types, the first three down / up ones and the last a coarse one;
+    four tuples of point classes, 0 all, 1 C, -1 F."""
+    t, p = o.grid_relax_type, o.grid_relax_points
+    t_ok = t is None or (len(t) == 4 and {int(x) for x in t[:3]} <= set(_UPDOWN)
+                         and int(t[3]) in _JACOBI + (9,))
+    p_ok = p is None or (len(p) == 4 and all(
+        {int(x) for x in pos} <= {-1, 0, 1} for pos in p))
+    return t_ok, p_ok
 
 
 def check_options(o: BoomerAMGOptions) -> None:
@@ -218,14 +263,18 @@ def check_options(o: BoomerAMGOptions) -> None:
                 raise NotImplementedError(
                     f"{f.name}={v!r} is not implemented in the port "
                     f"(only the default {f.default!r})")
+    grid_type_ok, grid_points_ok = _grid_arrays_ok(o)
     checks = (
-        ("coarsen_type", o.coarsen_type == "pmis"),
+        ("coarsen_type", o.coarsen_type in _COARSEN),
         ("interp_type", o.interp_type in _INTERP),
         ("relax_down", o.relax_down in _UPDOWN),
         ("relax_up", o.relax_up in _UPDOWN),
         ("relax_coarse", o.relax_coarse in _JACOBI + (9,)),
         ("relax_order", o.relax_order in (0, 1)),
-        ("cycle_type", o.cycle_type == 1),
+        ("cycle_type", o.cycle_type >= 1),
+        ("grid_relax_type", grid_type_ok),
+        ("grid_relax_points", grid_points_ok),
+        ("add_rlx", o.add_rlx in (0, 18)),
         ("nongalerkin_lump", o.nongalerkin_lump in ("diag", "strong")),
         ("mat_dtype", (o.dtype, o.mat_dtype or o.dtype) in _DTYPES),
     )
@@ -272,6 +321,9 @@ class BoomerAMG:
         self._host_A1_unf: Optional[sp.csr_matrix] = None
         # the device setup chain's products (device_setup), else None
         self._fast: Optional[dict] = None
+        # seq_threshold's nested coarse BoomerAMG, else None
+        self._seq_coarse: Optional["BoomerAMG"] = None
+        self._levels_T: Optional[list] = None  # levels_T, made on request
         self._setup(A)
         self._freeze_hierarchy()
 
@@ -287,7 +339,8 @@ class BoomerAMG:
         self.levels = list(levels)
         self._host_A, self._host_P, self._cf = [], [], []
         self._reloc_cells = {}
-        self._host_A1_unf = self._fast = None
+        self._host_A1_unf = self._fast = self._seq_coarse = None
+        self._levels_T = None
         return self
 
     # ------------------------------------------------------------------
@@ -319,14 +372,23 @@ class BoomerAMG:
             while True:
                 n = A.shape[0]
                 last = (len(self._host_A) >= o.max_levels - 1
-                        or n <= o.max_coarse_size)
+                        or n <= o.max_coarse_size
+                        or (o.seq_threshold > 0 and n <= o.seq_threshold
+                            and len(self._host_A) > 0))
                 if not last:
                     with timed("STRENGTH"):
-                        S = strength_matrix(A, o.strong_threshold, o.max_row_sum)
+                        if o.strength_abs:
+                            # the reference's useSabs call hardwires
+                            # max_row_sum 1.0 (par_amg_setup.c:1040-1045):
+                            # the user's max_row_sum is ignored here
+                            S = strength_matrix_abs(A, o.strong_threshold, 1.0)
+                        else:
+                            S = strength_matrix(A, o.strong_threshold,
+                                                o.max_row_sum)
                     with timed("COARSEN"):
                         cf = self._device_cf0(A)
                         if cf is None:
-                            cf = pmis_coarsen(S, seed=o.seed)
+                            cf = _COARSEN[o.coarsen_type](S, A, o.seed)
                     nc = int((cf > 0).sum())
                     if nc == 0 or nc == n or nc < o.min_coarse_size:
                         last = True
@@ -350,6 +412,57 @@ class BoomerAMG:
                 self._host_P.append(P)
                 self._cf.append(cf)
                 A = Ac
+            self._apply_mult_additive_P()
+        # outside SETUP's scope: the nested instance times its own
+        self._build_seq_coarse()
+
+    def _apply_mult_additive_P(self) -> None:
+        """mult_additive / simple: the solve-phase P of the levels in
+        [mult_addlvl, add_end] becomes C^ns P, C = I - D^{-1} A (D the
+        l1 row norms for add_rlx 18, diag / add_rlx_wt for 0;
+        par_amg_setup.c:2485-2665 hypre_CreateC), then truncated
+        (hypre_BoomerAMGTruncandBuild).  The coarse operators keep the
+        Galerkin product of the original P; R = P^T follows at freeze."""
+        o = self.opts
+        maddlvl = max(o.mult_additive, o.simple)
+        if maddlvl < 0:
+            return
+        L = len(self._host_A)
+        add_end = L - 2 if o.add_last_lvl < 0 else min(o.add_last_lvl, L - 2)
+        ns = o.num_sweeps_down if o.num_sweeps_down is not None else o.num_sweeps
+        for l in range(maddlvl, add_end + 1):
+            P, A = self._host_P[l], self._host_A[l]
+            if o.add_rlx == 0:
+                d = A.diagonal() / o.add_rlx_wt
+            else:
+                d = np.asarray(np.abs(A).sum(axis=1)).ravel()
+            dinv = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 0.0)
+            Dinv = sp.diags(dinv)
+            for _ in range(max(int(ns), 1)):
+                P = (P - Dinv @ (A @ P)).tocsr()
+            if o.add_P_max_elmts or o.add_trunc_factor:
+                P = truncate_interp(P, o.add_trunc_factor, o.add_P_max_elmts)
+            P.sort_indices()
+            self._host_P[l] = P
+
+    def _build_seq_coarse(self) -> None:
+        """seq_threshold's nested coarse solver (gen_redcs_mat.c:131-157):
+        a BoomerAMG on the last level's operator inheriting these
+        options, on the same device; the coarse solve runs one cycle of
+        it (MaxIter 1, Tol 0)."""
+        o = self.opts
+        Ac = self._host_A[-1]
+        if (o.seq_threshold <= 0 or Ac.shape[0] <= o.max_coarse_size
+                or len(self._host_A) < 2):
+            return
+        nested = dataclasses.replace(
+            o, seq_threshold=0, device_setup=False, device_rap=False,
+            device_coarsen=False, lattice_shape=None, lattice_coeffs=None,
+            embed_level1=False, relocate_level2=False,
+            additive=-1, mult_additive=-1, simple=-1,
+        )
+        self._seq_coarse = BoomerAMG(CSRMatrix.from_scipy(Ac.tocsr()), nested,
+                                     device=self.device)
 
     def _device_cf0(self, A) -> Optional[np.ndarray]:
         """With device_coarsen, at level 0 of a lattice operator of few
@@ -357,6 +470,7 @@ class BoomerAMG:
         on A's f64 DIA table, bitwise pmis_coarsen's; else None."""
         o = self.opts
         if (not o.device_coarsen or self._host_A or o.lattice_shape is None
+                or o.coarsen_type != "pmis"
                 or len(native.dia_offsets_only(A)) > DIA_MAX_OFFSETS):
             return None
         D0 = csr_to_dia(CSRMatrix.from_scipy(A), "float64", self.device)
@@ -370,15 +484,17 @@ class BoomerAMG:
     def _fast_eligible(self, A) -> bool:
         """The JAX package's gate of the device chain.  Its other
         conditions (one function, no GSMG, nodal or aggressive
-        coarsening, no post-interpolation or AIR, no seq_threshold or
-        additive cycles, no smoother-type arrays) hold in the port
+        coarsening, no post-interpolation or AIR) hold in the port
         whenever check_options passes."""
         o = self.opts
         if not o.device_setup or o.lattice_shape is None:
             return False
         if o.coarsen_type != "pmis" or o.interp_type != "classical":
             return False
-        if {o.relax_down, o.relax_up} - {0, 7, 18}:
+        if (o.seq_threshold > 0
+                or max(o.additive, o.mult_additive, o.simple) >= 0):
+            return False
+        if not self._jacobi_updown():
             return False
         n, m = A.shape
         if n != m or int(np.prod(o.lattice_shape)) != n or A.nnz == 0:
@@ -588,7 +704,7 @@ class BoomerAMG:
         n = A.shape[0]
         dinv, l1inv = self._inverses(A)
         coarse_inv = None
-        if coarsest:
+        if coarsest and self._seq_coarse is None:
             coarse_inv = to_device(
                 np.linalg.pinv(A.toarray(), rcond=1e-12), dt, dev)
         if skip_A:
@@ -597,8 +713,12 @@ class BoomerAMG:
             A_frozen = freeze_auto(CSRMatrix.from_scipy(A), dt, dev)
         else:
             A_frozen = self._freeze_compact(A)
-        relax_types = ({o.relax_down, o.relax_up} if not coarsest
-                       else {o.relax_coarse})
+        if coarsest:
+            relax_types = ({int(o.grid_relax_type[3])}
+                           if o.grid_relax_type is not None
+                           else {o.relax_coarse})
+        else:
+            relax_types = _updown_relax_types(o)
         gs_fwd = gs_bwd = cheby = None
         if not coarsest and relax_types & set(_GS_TYPES):
             with timed("GS_SCHEDULE", device=dev):
@@ -623,10 +743,10 @@ class BoomerAMG:
     def _gs_schedules(self, A, cf):
         """(forward, backward) GS schedules of a host level, sharing one
         GSMatrix on the device; each a (C, F) pair of masked schedules
-        with relax_order 1 (par_cycle.c:398).  The divisor is the
-        diagonal, 1 where it is 0: option-4's l1 divisor degenerates to
-        |diag| on one partition, the sign following the diagonal
-        (ams.c:642-660)."""
+        with relax_order 1 (par_cycle.c:398) or C / F point sweeps in
+        grid_relax_points.  The divisor is the diagonal, 1 where it is
+        0: option-4's l1 divisor degenerates to |diag| on one partition,
+        the sign following the diagonal (ams.c:642-660)."""
         Ah = CSRMatrix.from_scipy(A)
         diag = A.diagonal()
         gs_div = np.where(diag == 0, 1.0, diag)
@@ -636,7 +756,10 @@ class BoomerAMG:
             return build_gs_schedule(Ah, forward, gs_div, mask=mask,
                                      device=self.device, mat=mat)
 
-        if self.opts.relax_order == 1 and cf is not None:
+        o = self.opts
+        point_sweeps = o.grid_relax_points is not None and any(
+            p for pos in o.grid_relax_points for p in pos)
+        if (o.relax_order == 1 or point_sweeps) and cf is not None:
             cm = cf > 0
             return ((build(True, cm), build(True, ~cm)),
                     (build(False, cm), build(False, ~cm)))
@@ -646,9 +769,11 @@ class BoomerAMG:
     # the lattice forms (host planning, device build)
     # ------------------------------------------------------------------
     def _jacobi_updown(self) -> bool:
-        """The lattice levels smooth with the Jacobi family only."""
+        """The lattice levels and the device chain smooth with the
+        Jacobi family only, and without C / F point sweeps."""
         o = self.opts
-        return not ({o.relax_down, o.relax_up} - {0, 7, 18})
+        return (not (_updown_relax_types(o) - {0, 7, 18})
+                and o.grid_relax_points is None)
 
     def _embedded_level_vectors(self, A, cf, pos, n_emb):
         """(dinv, l1inv, cmask) of a level whose points sit at lattice
@@ -706,7 +831,8 @@ class BoomerAMG:
         branch) level-0 R is the device transpose of the embedded P
         (bitwise the host-built one) and level-1 A the device pass over
         the fine A and the embedded P (ops/device_rap.py), timed as
-        DEVICE_RAP; otherwise both are built from the host values."""
+        DEVICE_RAP; otherwise, and when level 0's P was smoothed for the
+        cycle, both are built from the host values."""
         o = self.opts
         mdt = torch_dtype(o.mat_dtype or o.dtype)
         dev = self.device
@@ -714,7 +840,12 @@ class BoomerAMG:
         A1, P0 = self._host_A[1], self._host_P[0]
         idx = np.arange(n0, dtype=np.int64)
         P0e = build_embedded_dia(P0, idx, cpos0, n0, mdt, dev)
-        if o.device_rap and self._host_A1_unf is not None:
+        # the device pass forms R A P over the cycle's P0; once
+        # mult_additive / simple has smoothed that P, level 1 must stay
+        # the Galerkin product of the original one, so it comes from
+        # the host (the JAX package's device pass takes the smoothed P)
+        if (o.device_rap and self._host_A1_unf is not None
+                and max(o.mult_additive, o.simple) != 0):
             p = self._device_rap_plan(cpos0)
             with timed("DEVICE_RAP", device=dev):
                 R0e = dia_transpose_device(P0e)
@@ -1039,17 +1170,62 @@ class BoomerAMG:
         )]
 
     # ------------------------------------------------------------------
+    # statistics (par_stats.c)
+    # ------------------------------------------------------------------
+    @property
+    def num_levels(self) -> int:
+        """The setup hierarchy's depth (par_stats.c "Number of levels");
+        the frozen hierarchy is shorter where the coarse sub-cycle was
+        collapsed."""
+        return len(self._host_A)
+
+    @property
+    def num_frozen_levels(self) -> int:
+        return len(self.levels)
+
+    def grid_complexity(self) -> float:
+        n0 = self._host_A[0].shape[0]
+        return sum(a.shape[0] for a in self._host_A) / n0
+
+    def operator_complexity(self) -> float:
+        nnz0 = self._host_A[0].nnz
+        return sum(a.nnz for a in self._host_A) / nnz0
+
+    def cycle_complexity(self) -> float:
+        """nnz-weighted work of a V-cycle relative to the fine nnz, the
+        JAX package's formula: num_sweeps down and up a level (twice
+        with relax_order 1), the coarsest level once."""
+        o = self.opts
+        nnz0 = self._host_A[0].nnz
+        sweeps = 2 * o.num_sweeps * (2 if o.relax_order == 1 else 1)
+        last = len(self._host_A) - 1
+        return sum(a.nnz * (1 if l == last else sweeps)
+                   for l, a in enumerate(self._host_A)) / nnz0
+
+    # ------------------------------------------------------------------
     # cycle (device)
     # ------------------------------------------------------------------
-    def _relax_plan(self, position: str):
-        """(relax_type, sweeps) for "down", "up" or "coarse"."""
+    def _relax_plan(self, cycle_param: int):
+        """(relax_type, points of each sweep) at a cycle position:
+        0 the finest level's down sweeps, 1 down, 2 up, 3 the coarsest
+        (par_cycle.c:288/333 grid_relax_type[cycle_param] and
+        grid_relax_points[cycle_param][j]); the scalar options fill in
+        where the old-style arrays are unset.  points: 0 all, 1 C, -1 F."""
         o = self.opts
-        if position == "coarse":
+        if o.grid_relax_type is not None:
+            rt = int(o.grid_relax_type[cycle_param])
+        elif cycle_param == 3:
             rt = o.relax_coarse
-            return rt, ((o.num_sweeps_coarse or o.num_sweeps) if rt != 9 else 1)
-        if position == "down":
-            return o.relax_down, o.num_sweeps_down or o.num_sweeps
-        return o.relax_up, o.num_sweeps_up or o.num_sweeps
+        else:
+            rt = o.relax_down if cycle_param in (0, 1) else o.relax_up
+        if o.grid_relax_points is not None:
+            return rt, tuple(int(p) for p in o.grid_relax_points[cycle_param])
+        if cycle_param == 3:
+            ns = (o.num_sweeps_coarse or o.num_sweeps) if rt != 9 else 1
+        else:
+            ns = (o.num_sweeps_down if cycle_param in (0, 1)
+                  else o.num_sweeps_up) or o.num_sweeps
+        return rt, (0,) * ns
 
     def _level_weight(self, level: int) -> float:
         """relax_weight[level] with the scalar fallback; deeper levels
@@ -1070,22 +1246,35 @@ class BoomerAMG:
         return float(lo[min(level, len(lo) - 1)])
 
     def _smooth(self, lvl: AMGLevel, relax_type: int, u, f, up: bool,
-                level: int, u_zero: bool = False):
-        """u_zero: the caller guarantees u == 0 (the first down-smooth
-        of every level inside a preconditioner cycle); Jacobi sweeps
-        then skip the A @ 0 matvec with a bitwise-identical result.  The
-        other smoothers ignore it, as in the JAX package (GS sweeps the
-        zero vector)."""
+                level: int, u_zero: bool = False, points: int = 0):
+        """One relaxation call.  u_zero: the caller guarantees u == 0
+        (the first down-smooth of every level inside a preconditioner
+        cycle); Jacobi sweeps then skip the A @ 0 matvec with a
+        bitwise-identical result.  The other smoothers ignore it, as in
+        the JAX package (GS sweeps the zero vector).  points: 0 all, 1
+        only the C points, -1 only the F points (grid_relax_points)."""
         w = self._level_weight(level)
         if relax_type == 9:
             ci = lvl.coarse_inv
+            if ci is None:
+                # seq_threshold: one cycle of the nested BoomerAMG
+                # (gen_redcs_mat.c hypre_seqAMGCycle, MaxIter 1)
+                return self._seq_coarse.cycle(f)
             # the dense pinv, or the collapsed sub-cycle as an operator
             return ci @ f if isinstance(ci, torch.Tensor) else spmv(ci, f)
         if relax_type not in _JACOBI:
-            return self._smooth_other(lvl, relax_type, u, f, up, level, w)
+            return self._smooth_other(lvl, relax_type, u, f, up, level, w,
+                                      points)
         # 0/7 weighted Jacobi; 5 chaotic GS (== Jacobi on a data-parallel
         # machine); 18 l1-Jacobi
         div = lvl.l1inv if relax_type == 18 else lvl.dinv
+        if points:
+            # a grid_relax_points sweep (par_relax.c relax_points: update
+            # only C (+1) or F (-1) points)
+            mask = lvl.cmask if points == 1 else ~lvl.cmask
+            if u_zero:
+                return torch.where(mask, w * div * f, 0.0)
+            return jacobi_cf(lvl.A, div, u, f, mask, w)
         if self.opts.relax_order == 1:
             # CF-ordered sweeps (par_cycle.c:398): down C then F, up F then C
             order = ((~lvl.cmask, lvl.cmask) if up
@@ -1102,7 +1291,7 @@ class BoomerAMG:
         return jacobi(lvl.A, div, u, f, w)
 
     def _smooth_other(self, lvl: AMGLevel, relax_type: int, u, f, up: bool,
-                      level: int, w: float):
+                      level: int, w: float, points: int):
         """The Gauss-Seidel family, Chebyshev, FCF-Jacobi and the CG
         smoother (the JAX package's _smooth, boomeramg.py:1861-1908)."""
         if relax_type in (1, 2, 3, 13):
@@ -1113,9 +1302,9 @@ class BoomerAMG:
             # the pure-sequential 1/2 branches carry no omega term.
             om = (self._level_omega(level) if relax_type in (3, 13)
                   else 1.0)
-            return self._gs(lvl.gs_fwd, u, f, w, up, omega=om)
+            return self._gs(lvl.gs_fwd, u, f, w, up, points, omega=om)
         if relax_type in (4, 14):
-            return self._gs(lvl.gs_bwd, u, f, w, up,
+            return self._gs(lvl.gs_bwd, u, f, w, up, points,
                             omega=self._level_omega(level))
         if relax_type in (6, 8):
             # hybrid SSOR / L1-SSOR (same degenerate divisor at np=1).
@@ -1123,8 +1312,8 @@ class BoomerAMG:
             # backward half-sweep's S_pre uses the pre-FORWARD iterate.
             om = self._level_omega(level)
             v0 = u if om != 1.0 else None
-            u = self._gs(lvl.gs_fwd, u, f, w, up, omega=om, v=v0)
-            return self._gs(lvl.gs_bwd, u, f, w, up, omega=om, v=v0)
+            u = self._gs(lvl.gs_fwd, u, f, w, up, points, omega=om, v=v0)
+            return self._gs(lvl.gs_bwd, u, f, w, up, points, omega=om, v=v0)
         if relax_type == 16:
             return chebyshev(lvl.A, lvl.cheby, u, f)
         if relax_type == 17:
@@ -1156,108 +1345,241 @@ class BoomerAMG:
                                   f"implemented in the port")
 
     @staticmethod
-    def _gs(sched, u, f, w, up, omega: float = 1.0, v=None):
+    def _gs(sched, u, f, w, up, points: int = 0, omega: float = 1.0, v=None):
         """One GS relaxation call: a sweep of `sched`, or with a (C, F)
-        pair (relax_order 1) down C then F, up F then C (par_cycle.c:398),
-        each half-sweep its own hypre Relax call (a fresh Vtemp unless
-        the caller pinned one: SSOR)."""
+        pair down C then F, up F then C (par_cycle.c:398), each half-sweep
+        its own hypre Relax call (a fresh Vtemp unless the caller pinned
+        one: SSOR); a grid_relax_points sweep runs just the half it
+        names."""
         if isinstance(sched, tuple):
             sc, sf = sched
+            if points:
+                return gauss_seidel(sc if points == 1 else sf, u, f, w,
+                                    omega=omega, v=v)
             for sd in ((sf, sc) if up else (sc, sf)):
                 u = gauss_seidel(sd, u, f, w, omega=omega, v=v)
             return u
+        if points:
+            # only on a level built without a CF split: every level with
+            # one gets (C, F) schedule pairs when point sweeps are set.
+            # The reference cannot run this either: a nonzero
+            # relax_points with a NULL CF_marker dereferences it
+            # (par_relax.c:109)
+            raise NotImplementedError(
+                "grid_relax_points with GS relaxation on a level with no "
+                "CF split (the coarsest); use 0 (all points) there")
         return gauss_seidel(sched, u, f, w, omega=omega, v=v)
 
-    def _smooth_launches(self, lvl: AMGLevel, relax_type: int, sweeps: int,
-                         u_zero: bool) -> tuple[int, int]:
-        """(applications of A, GS sweeps) of one `_smooth` position of
-        `sweeps` sweeps; u_zero: the first sweep starts from zero."""
-        if relax_type in _JACOBI:
-            halves = 2 if self.opts.relax_order == 1 else 1
-            return sweeps * halves - (1 if u_zero else 0), 0
-        if relax_type in _GS_TYPES:
-            calls = 2 if relax_type in (6, 8) else 1
-            halves = 2 if isinstance(lvl.gs_fwd, tuple) else 1
-            return 0, sweeps * calls * halves
-        if relax_type == 16:
-            return sweeps * lvl.cheby.order, 0
-        return sweeps * {15: 4, 17: 3}[relax_type], 0
+    def _additive(self) -> bool:
+        o = self.opts
+        return max(o.additive, o.mult_additive, o.simple) >= 0
 
-    def cycle_launches(self) -> dict:
-        """{kernel name: launches} of one V-cycle from a zero initial
-        guess (the PCG preconditioner's), from the levels' formats
-        (ops/dia.py::kernel_launches) and the smoothers: the smoothing
-        matvecs, each level's residual, restriction and prolongation,
-        the coarse solve where it is an operator, and "gs_sweep", one
-        launch a GS sweep of a level."""
+    def _mult_steps(self, L: int, fine_u_zero: bool):
+        """hypre's nonrecursive cycle state machine (par_cycle.c:255-621)
+        over L levels, as the steps `_run` executes (see `_run`):
+        lev_counter drives the V / W revisits (cycle_type), fcycle_lev
+        the F-cycle.  With cycle_type 1 and no fcycle this is the
+        V-cycle.  fine_u_zero: the incoming u is exactly zero."""
+        o = self.opts
+        if L == 1:
+            yield "smooth", 0, o.relax_coarse, (0,), False, False
+            return
+        uz = [False] * L  # U[level] is exactly zero
+        uz[0] = fine_u_zero
+        lev_counter = [1] + [1 if o.fcycle else o.cycle_type] * (L - 1)
+        fcycle_lev = L - 2
+        level, cycle_param = 0, 0
+        while True:
+            rt, pts = self._relax_plan(cycle_param)
+            coarsest = cycle_param == 3
+            # the coarsest solve gets no u_zero shortcut
+            yield ("smooth", level, rt, pts, cycle_param == 2,
+                   uz[level] and not coarsest)
+            if coarsest or pts:
+                uz[level] = False
+            lev_counter[level] -= 1
+            if lev_counter[level] >= 0 and level != L - 1:
+                yield "restrict", level, True
+                level += 1
+                uz[level] = True
+                lev_counter[level] = max(lev_counter[level], o.cycle_type)
+                cycle_param = 1 if level < L - 1 else 3
+            elif level != 0:
+                yield "prolong", level - 1
+                level -= 1
+                cycle_param = 2
+                if o.fcycle and fcycle_lev == level:
+                    lev_counter[level] = max(lev_counter[level], 1)
+                    fcycle_lev -= 1
+            else:
+                return
+
+    def _add_steps(self, L: int, fine_u_zero: bool):
+        """hypre_BoomerAMGAdditiveCycle (par_add_cycle.c:22) over L
+        levels, as the steps `_run` executes.  Levels in [addlvl,
+        add_end] are additive: the down pass restricts the raw F (exact
+        as a preconditioner, where u == 0), the band's corrections are
+        applied together ("band") and summed through the up pass.
+        Levels outside the band run the multiplicative V steps with
+        relax_down / relax_up / relax_coarse."""
+        o = self.opts
+        # a start level past the hierarchy still smooths the coarsest
+        # additively (no direct solve exists in this cycle)
+        addlvl = min(max(o.additive, o.mult_additive, o.simple), L - 1)
+        add_end = L - 1 if o.add_last_lvl < 0 else min(o.add_last_lvl, L - 1)
+        ns_down = o.num_sweeps_down or o.num_sweeps
+        ns_up = o.num_sweeps_up or o.num_sweeps
+        ns_coarse = o.num_sweeps_coarse or o.num_sweeps
+        uz = [False] * L
+        uz[0] = fine_u_zero
+        for l in range(L - 1):
+            band = addlvl <= l <= add_end
+            if not band:
+                yield "smooth", l, o.relax_down, (0,) * ns_down, False, uz[l]
+                uz[l] = False
+            yield "restrict", l, not band
+            uz[l + 1] = True
+        for l in range(addlvl, min(add_end, L - 1) + 1):
+            yield "band", l, uz[l]
+            uz[l] = False
+        if add_end < L - 1:
+            yield ("smooth", L - 1, o.relax_coarse, (0,) * ns_coarse, False,
+                   uz[L - 1])
+        for l in range(L - 2, -1, -1):
+            yield "prolong", l
+            if l + 1 <= addlvl or l + 1 > add_end + 1:
+                yield "smooth", l, o.relax_up, (0,) * ns_up, True, False
+
+    def _band_correction(self, lvl: AMGLevel, r):
+        """The additive band's smoother applied to r: Lambda r = D (2r -
+        A D r), the symmetrized two-sweep Jacobi of CreateLambda, with
+        the num_sweeps_down > 1 Neumann step r <- 2r - A Lambda r
+        first; `simple`: D r (CreateDinv).  D is 1 / the l1 row norms
+        for add_rlx 18, add_rlx_wt / a_ii for 0."""
+        o = self.opts
+        d = o.add_rlx_wt * lvl.dinv if o.add_rlx == 0 else lvl.l1inv
+        if o.simple >= 0:
+            return d * r
+        if (o.num_sweeps_down or o.num_sweeps) > 1:
+            r = spmv_resid(lvl.A, d * spmv_resid(lvl.A, d * r, 2.0 * r),
+                           2.0 * r)
+        return d * spmv_resid(lvl.A, d * r, 2.0 * r)
+
+    def _run(self, levels, steps, u, f):
+        """Execute a cycle's steps (`_mult_steps`, `_add_steps`) on the
+        frozen `levels`:
+          ("smooth", l, relax_type, points, up, u_zero): one relaxation
+              call a sweep, points[j] the class sweep j updates; u_zero:
+              U[l] is exactly zero before the first;
+          ("restrict", l, resid): F[l+1] = R (F[l] - A U[l]), or with
+              resid False R F[l] (the additive band); U[l+1] = 0;
+          ("band", l, u_zero): U[l] += the band's correction;
+          ("prolong", l): U[l] += P U[l+1].
+        The residual and the prolongation are K1's / the ELL kernel's
+        fused forms."""
+        L = len(levels)
+        U, F = [None] * L, [None] * L
+        U[0], F[0] = u, f
+        for step in steps:
+            kind, l = step[0], step[1]
+            lvl = levels[l]
+            if kind == "smooth":
+                _, _, rt, pts, up, u_zero = step
+                for j, p in enumerate(pts):
+                    U[l] = self._smooth(lvl, rt, U[l], F[l], up, l,
+                                        u_zero=u_zero and j == 0, points=p)
+            elif kind == "restrict":
+                r = spmv_resid(lvl.A, U[l], F[l]) if step[2] else F[l]
+                F[l + 1] = spmv(lvl.R, r)
+                U[l + 1] = torch.zeros_like(F[l + 1])
+            elif kind == "band":
+                c = self._band_correction(lvl, F[l])
+                U[l] = c if step[2] else U[l] + c
+            else:
+                U[l] = spmv_axpy(lvl.P, U[l + 1], U[l])
+        return U[0]
+
+    def _sweep_launches(self, lvl: AMGLevel, relax_type: int, point: int,
+                        u_zero: bool) -> dict:
+        """{kernel name: launches} of one `_smooth` call."""
         from ...ops.dia import kernel_launches
 
+        if relax_type == 9:
+            ci = lvl.coarse_inv
+            if ci is None:
+                return self._seq_coarse.cycle_launches()
+            return {} if isinstance(ci, torch.Tensor) else kernel_launches(ci)
+        if relax_type in _GS_TYPES:
+            calls = 2 if relax_type in (6, 8) else 1
+            halves = 2 if isinstance(lvl.gs_fwd, tuple) and not point else 1
+            return {"gs_sweep": calls * halves}
+        if relax_type in _JACOBI:
+            halves = 2 if self.opts.relax_order == 1 and not point else 1
+            n = halves - (1 if u_zero else 0)
+        elif relax_type == 16:
+            n = lvl.cheby.order
+        else:
+            n = {15: 4, 17: 3}[relax_type]
+        return {k: n * c for k, c in kernel_launches(lvl.A).items()}
+
+    def cycle_launches(self, levels=None, from_zero: bool = True) -> dict:
+        """{kernel name: launches} of one `cycle` over `levels` (this
+        instance's by default) from a zero initial guess (the PCG
+        preconditioner's), or with from_zero False of one `solve`
+        cycle (multiplicative, from a guess), found by walking the
+        cycle's own steps (`_mult_steps` / `_add_steps`) with the
+        launches of each: the smoothing matvecs and GS sweeps
+        ("gs_sweep", one launch a sweep of a level), each residual,
+        restriction, prolongation and band correction, the coarse solve
+        where it is an operator or the nested cycle of seq_threshold
+        (ops/dia.py::kernel_launches gives an operator's)."""
+        from ...ops.dia import kernel_launches
+
+        levels = self.levels if levels is None else levels
         out: dict = {"gs_sweep": 0}
 
-        def add(op, k):
-            for name, c in kernel_launches(op).items():
+        def add(counts: dict, k: int = 1):
+            for name, c in counts.items():
                 out[name] = out.get(name, 0) + k * c
 
-        levels = self.levels
-        L = len(levels)
-        rt_c, ns_c = self._relax_plan("coarse")
-        if L > 1:
-            rt_d, ns_d = self._relax_plan("down")
-            rt_u, ns_u = self._relax_plan("up")
-            for lvl in levels[:-1]:
-                for rt, ns, uz in ((rt_d, ns_d, True), (rt_u, ns_u, False)):
-                    na, gs = self._smooth_launches(lvl, rt, ns, uz)
-                    add(lvl.A, na)
-                    out["gs_sweep"] += gs
-                add(lvl.A, 1)  # the residual
-                add(lvl.R, 1)
-                add(lvl.P, 1)
-        if rt_c == 9:
-            ci = levels[-1].coarse_inv
-            if not isinstance(ci, torch.Tensor):
-                add(ci, 1)
+        if from_zero and self._additive():
+            steps = self._add_steps(len(levels), True)
         else:
-            add(levels[-1].A, self._smooth_launches(
-                levels[-1], rt_c, ns_c if L > 1 else 1, False)[0])
+            steps = self._mult_steps(len(levels), from_zero)
+        for step in steps:
+            kind, l = step[0], step[1]
+            lvl = levels[l]
+            if kind == "smooth":
+                _, _, rt, pts, _, u_zero = step
+                for j, p in enumerate(pts):
+                    add(self._sweep_launches(lvl, rt, p, u_zero and j == 0))
+            elif kind == "restrict":
+                if step[2]:
+                    add(kernel_launches(lvl.A))
+                add(kernel_launches(lvl.R))
+            elif kind == "band":
+                if self.opts.simple < 0:
+                    o = self.opts
+                    add(kernel_launches(lvl.A),
+                        3 if (o.num_sweeps_down or o.num_sweeps) > 1 else 1)
+            else:
+                add(kernel_launches(lvl.P))
         return out
 
-    def cycle(self, f, u=None):
-        """One V-cycle (cycle_type 1, par_cycle.c).  With u None the
-        initial guess is zero and the first down-smooths skip their
-        A @ 0 matvecs."""
-        levels = self.levels
-        L = len(levels)
-        u_zero = u is None
-        U = [None] * L
-        F = [None] * L
-        F[0] = f
-        U[0] = torch.zeros_like(f) if u is None else u
-        if L == 1:
-            return self._smooth(levels[0], self.opts.relax_coarse, U[0], f,
-                                up=False, level=0)
-        rt, ns = self._relax_plan("down")
-        for l in range(L - 1):
-            lvl = levels[l]
-            for _ in range(ns):
-                U[l] = self._smooth(lvl, rt, U[l], F[l], up=False, level=l,
-                                    u_zero=u_zero)
-                u_zero = False
-            r = spmv_resid(lvl.A, U[l], F[l])
-            F[l + 1] = spmv(lvl.R, r)
-            U[l + 1] = torch.zeros_like(F[l + 1])
-            u_zero = True
-        # the coarsest solve gets no u_zero shortcut, as in the state
-        # machine's cycle_param 3
-        rt, ns = self._relax_plan("coarse")
-        for _ in range(ns):
-            U[L - 1] = self._smooth(levels[L - 1], rt, U[L - 1], F[L - 1],
-                                    up=False, level=L - 1)
-        rt, ns = self._relax_plan("up")
-        for l in range(L - 2, -1, -1):
-            U[l] = spmv_axpy(levels[l].P, U[l + 1], U[l])
-            for _ in range(ns):
-                U[l] = self._smooth(levels[l], rt, U[l], F[l], up=True, level=l)
-        return U[0]
+    def cycle(self, f, u=None, levels=None):
+        """One cycle (par_cycle.c; the additive cycle when additive,
+        mult_additive or simple is set) over `levels`, this instance's
+        by default.  With u None the initial guess is zero and the first
+        down-smooths skip their A @ 0 matvecs."""
+        levels = self.levels if levels is None else levels
+        steps = (self._add_steps if self._additive() else self._mult_steps)(
+            len(levels), u is None)
+        return self._run(levels, steps, torch.zeros_like(f) if u is None
+                         else u, f)
+
+    def _vcycle(self, levels, u, f):
+        """One multiplicative cycle from the guess u (`solve`'s)."""
+        return self._run(levels, self._mult_steps(len(levels), False), u, f)
 
     @property
     def precond(self):
@@ -1265,16 +1587,51 @@ class BoomerAMG:
         return lambda r: self.cycle(r)
 
     # ------------------------------------------------------------------
+    # transpose solve (par_amg_solve.c hypre_BoomerAMGSolveT)
+    # ------------------------------------------------------------------
+    @property
+    def levels_T(self) -> list:
+        """The frozen transposed hierarchy, made on first request: A^T on
+        every level with the same P and R = P^T (a transpose cycle
+        interpolates with R^T and restricts with P^T, and R = P^T
+        here), the l1 norms and GS schedules those of A^T.  It equals
+        the forward hierarchy for symmetric A; SolveT serves the
+        nonsymmetric ones."""
+        if self._levels_T is None:
+            L = len(self._host_A)
+            with timed("FREEZE_T", device=self.device):
+                self._levels_T = [self._freeze_level(
+                    self._host_A[k].T.tocsr(),
+                    None if k == L - 1 else self.host_P(k),
+                    None if k == L - 1 else self._cf[k],
+                    fine=k == 0, coarsest=k == L - 1) for k in range(L)]
+        return self._levels_T
+
+    def cycleT(self, f, u=None):
+        """One cycle on A^T (the SolveT preconditioner hook)."""
+        return self._vcycle(self.levels_T,
+                            torch.zeros_like(f) if u is None else u, f)
+
+    def solveT(self, b, x0=None, tol: float = 1e-7, max_iter: int = 20,
+               min_iter: int = 0) -> SolverResult:
+        """Iterate transpose cycles until ||b - A^T x|| / ||b|| < tol
+        (par_amg_solve.c SolveT)."""
+        return self.solve(b, x0=x0, tol=tol, max_iter=max_iter,
+                          min_iter=min_iter, levels=self.levels_T)
+
+    # ------------------------------------------------------------------
     # standalone solve (par_amg_solve.c)
     # ------------------------------------------------------------------
     def solve(self, b, x0=None, tol: float = 1e-7, max_iter: int = 20,
-              min_iter: int = 0) -> SolverResult:
-        """Iterate V-cycles until ||r||/||b|| < tol (par_amg_solve.c:243;
+              min_iter: int = 0, levels=None) -> SolverResult:
+        """Iterate multiplicative cycles over `levels` (this instance's
+        by default) until ||r||/||b|| < tol (par_amg_solve.c:243;
         hypre's solver 0).  x0 defaults to zeros of the fine operator's
         dtype.  A Python loop that reads the stop test on the host once
         an iteration, as pcg's does; the residual history lands in a
         NaN-padded [max_iter + 1] tensor."""
-        A = self.levels[0].A
+        levels = self.levels if levels is None else levels
+        A = levels[0].A
         x = (torch.zeros(A.num_rows, dtype=A.data.dtype, device=b.device)
              if x0 is None else x0)
         b_norm = torch.sqrt(torch.dot(b, b))
@@ -1287,7 +1644,7 @@ class BoomerAMG:
         norms[0] = rnorm
         i = 0
         while i < max_iter and (i < min_iter or bool(rnorm / den >= tol)):
-            x = self.cycle(b, x)
+            x = self._vcycle(levels, x, b)
             r = spmv_resid(A, x, b)
             rnorm = torch.sqrt(torch.dot(r, r))
             i += 1

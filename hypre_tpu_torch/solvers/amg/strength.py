@@ -1,5 +1,6 @@
 """Strength-of-connection graph S (port of
-hypre_tpu/solvers/amg/strength.py::strength_matrix).
+hypre_tpu/solvers/amg/strength.py: strength_matrix,
+strength_matrix_abs).
 
 Reference: parcsr_ls/par_strength.c hypre_BoomerAMGCreateSHost:
 
@@ -24,3 +25,13 @@ def strength_matrix(A, theta: float = 0.25,
     a CSRMatrix or a scipy CSR."""
     M = A.to_scipy() if hasattr(A, "to_scipy") else A.tocsr()
     return native.strength_classical(M, theta, max_row_sum)
+
+
+def strength_matrix_abs(A, theta: float = 0.25,
+                        max_row_sum: float = 0.9) -> sp.csr_matrix:
+    """Absolute-value strength (par_strength.c hypre_BoomerAMGCreateSabs):
+    j strong iff |a_ij| > theta * max_{k != i} |a_ik|; with max_row_sum
+    < 1 the diagonally dominant rows (sum |a_ij| < |a_ii| (2 -
+    max_row_sum)) go weak.  Same pattern CSR as strength_matrix."""
+    M = A.to_scipy() if hasattr(A, "to_scipy") else A.tocsr()
+    return native.strength_classical(M, theta, max_row_sum, sabs=True)

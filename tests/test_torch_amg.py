@@ -130,9 +130,9 @@ def test_levels_from_numpy_layouts(jax_amg):
 
 @pytest.mark.parametrize("field,value", [
     ("interp_type", "direct"), ("relocate_offset_budget", 64),
-    ("post_interp_type", 1), ("grid_relax_type", (13, 13, 14, 9)),
-    ("coarsen_type", "hmis"),
-    ("cycle_type", 2), ("seq_threshold", 100), ("mat_dtype", "float32"),
+    ("post_interp_type", 1), ("agg_num_levels", 1),
+    ("interp_type", "standard"),
+    ("restrict_type", 1), ("gsmg", 1), ("mat_dtype", "float32"),
 ])
 def test_unimplemented_options_raise(field, value):
     kw = dict(SLICE, dtype="float64")

@@ -385,10 +385,10 @@ def test_entry_options_hierarchy_equals_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(grid_relax_points=((0,), (0,), (0,), (0,))), "grid_relax_points"),
+    (dict(smooth_type=9), "smooth_type"),
     (dict(relocate_offset_budget=64), "relocate_offset_budget"),
     (dict(transfer_offset_budget=64), "transfer_offset_budget"),
-    (dict(coarsen_type="cljp"), "coarsen_type"),
+    (dict(num_functions=2), "num_functions"),
     (dict(post_interp_type=1), "post_interp_type"),
     (dict(nodal=1), "nodal"),
 ])

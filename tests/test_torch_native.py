@@ -1,18 +1,57 @@
 """The port's host library builds from the port's own C source, with
 the JAX package absent: `hypre_tpu_torch/` alone is copied into a
 temporary directory, and a subprocess there builds the library and
-runs a 10^3 setup, which must equal this process's bitwise."""
+runs a 10^3 setup, which must equal this process's bitwise.  Every
+function of that source is byte for byte the JAX package's."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 import hypre_tpu_torch
 from hypre_tpu_torch.models import laplacian_7pt
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_C = os.path.join(REPO, "hypre_tpu_torch", "csrc", "host_kernels.c")
+JAX_C = os.path.join(REPO, "hypre_tpu", "native", "kernels.c")
+
+
+def c_functions(path: str) -> dict:
+    """{name: text} of the functions defined at the top level of a C
+    file, from the line that opens the definition to its closing brace
+    at column 0."""
+    lines = open(path).read().split("\n")
+    out, i = {}, 0
+    while i < len(lines):
+        m = re.match(r"^(?:static\s+)?(?:inline\s+)?[A-Za-z_][\w\s*]*?\b(\w+)\s*\(",
+                     lines[i])
+        if m and not lines[i].rstrip().endswith(";"):
+            j = lines.index("}", i)
+            out[m.group(1)] = "\n".join(lines[i:j + 1])
+            i = j + 1
+        else:
+            i += 1
+    return out
+
+
+PORT_FUNCTIONS = sorted(c_functions(PORT_C))
+
+
+def test_port_c_defines_the_setup_kernels():
+    assert {"rs_coarsen", "cljp_coarsen", "pmis_loop",
+            "strength_classical_i32"} <= set(PORT_FUNCTIONS)
+
+
+@pytest.mark.parametrize("name", PORT_FUNCTIONS)
+def test_port_c_function_is_the_jax_packages(name):
+    assert c_functions(PORT_C)[name] == c_functions(JAX_C)[name]
+
 
 SLICE = dict(coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
              relax_down=18, relax_up=18, embed_level1=False,
