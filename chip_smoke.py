@@ -113,9 +113,23 @@ Phases (any failure raises and the script exits non-zero):
      lattice W hierarchy held against its plain version; at 24^3 CLJP,
      Falgout, CGC, CR, strength_abs, seq_threshold 150 and SolveT card
      against CPU (the same counts, residuals within 1e-10).
+ 13. aggressive coarsening, the interpolation family and AIR: at 96^3
+     on the plain forms with ext+i and P_max_elmts 4, one aggressive
+     level in the multipass form (f64 and f32/bf16/ngt 0.02), the
+     two-stage form and MFEM's CPU default (HMIS, relax 8), each as in
+     12 (AGG96: the JAX package's counts, launches exactly, statistics,
+     setup by phase, median of 20, device busy), every operator of the
+     f64 multipass hierarchy held against its plain version; at 24^3
+     card against CPU standard, standard-sep, ff, ff1, ext, direct and
+     multipass interpolation, post_interp_type 1, num_paths 2 with
+     agg_P_max_elmts 4 (INTERP24) and one aggressive level on the
+     lattice defaults with the JAX package's gates (AGG_LATTICE24); AIR
+     on the convection-diffusion operator through the stationary solve
+     (restrict_type 1, 2, 2 with air_neumann_degree 2, and SolveT with
+     1; AIR24), every operator of each Solve hierarchy held.
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
-the GS family, the device setup chain, the cycle options), the kernel
-report and {"ok": true, ...}.
+the GS family, the device setup chain, the cycle options, aggressive
+coarsening and AIR), the kernel report and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -2210,17 +2224,26 @@ def run_gs(nx, opts, dev, card, label, want_its):
                  "syncfree_launches": syncfree}
 
 
-def card_vs_cpu(nx, opts, dev, label, want_its):
+def card_vs_cpu(nx, opts, dev, label, want_its, want_gates=None):
     """The nx^3 solve on the card (counts at 0 before, read after: as the
     hierarchy says) and on the CPU: both the JAX package's count, the
     final relative residuals within 1e-10 of each other, x within
-    1e-9."""
+    1e-9.  want_gates: {key: value} of `gates` both hierarchies must
+    show (the JAX package's decisions)."""
     zero_counts()
     amg_g, res_g, _, solve_s = run_slice(nx, opts, dev)
     counts = read_counts()
     require_no_gs_fault(dev, f"{label} card solve")
     expected = expected_launches(amg_g, res_g.num_iterations)
     amg_c, res_c, _, cpu_s = run_slice(nx, opts, "cpu")
+    got_gates = None
+    if want_gates is not None:
+        got_gates = [{k: gates(a)[k] for k in want_gates}
+                     for a in (amg_g, amg_c)]
+        log(f"{label} {nx}^3 gates: card {got_gates[0]}, CPU "
+            f"{got_gates[1]} (JAX package: {want_gates})")
+        require(got_gates[0] == got_gates[1] == want_gates,
+                f"{label}: gates {got_gates}, the JAX package's {want_gates}")
     rg, rc = float(res_g.rel_residual_norm), float(res_c.rel_residual_norm)
     dx = float((res_g.x.cpu() - res_c.x).abs().max() / res_c.x.abs().max())
     log(f"{label} {nx}^3 card vs CPU: iterations {res_g.num_iterations} vs "
@@ -2235,9 +2258,12 @@ def card_vs_cpu(nx, opts, dev, label, want_its):
             f"{label}: the card's solve differs from the CPU's")
     require(counts == expected, f"{label}: launches {counts} are not the "
                                 f"hierarchy's {expected}")
-    return {"iterations": res_g.num_iterations, "rel_residual_norm": rg,
-            "cpu_rel_residual_norm": rc, "solve_s": solve_s,
-            "launches": counts}
+    out = {"iterations": res_g.num_iterations, "rel_residual_norm": rg,
+           "cpu_rel_residual_norm": rc, "solve_s": solve_s,
+           "launches": counts}
+    if got_gates is not None:
+        out["gates"] = got_gates[0]
+    return out
 
 
 # -- 12. the cycle options and the coarsening family -------------------------
@@ -2355,28 +2381,36 @@ def run_cycle(opts, dev, card, label, want, slack):
                  "per_cycle": per_cycle, "launches": counts}
 
 
-def solveT_card_vs_cpu(dev, label, want):
-    """SolveT at 24^3 on the nonsymmetric convection-diffusion operator,
-    card against CPU: the JAX package's count on both; the residual
-    histories within 1e-10 relative while above 1e-4 of the first and
-    within 1e-14 of the first everywhere (a stationary solve's b - A^T x
-    cancels as it converges: the final 9e-9 differs in its 9th digit
-    between the card's FMAs and the CPU); the card's launches exactly
-    its iterations x `cycle_launches(levels_T, from_zero=False)` plus a
-    fine-level residual each and one more."""
+def stationary_card_vs_cpu(dev, label, want, opts, transpose: bool,
+                           max_iter: int = 60, hold: bool = False):
+    """The stationary solve (Solve, or SolveT with transpose) at 24^3 on
+    the nonsymmetric convection-diffusion operator, card against CPU:
+    the JAX package's count on both; the residual histories within
+    1e-10 relative while above 1e-4 of the first and within 1e-14 of
+    the first everywhere (a stationary solve's b - A x cancels as it
+    converges: the final 9e-9 differs in its 9th digit between the
+    card's FMAs and the CPU); the card's launches exactly its
+    iterations x `cycle_launches(levels, from_zero=False)` plus a
+    fine-level residual each and one more.  hold: every operator of
+    the card's hierarchy against its plain version after the solve
+    (`phase_hold_operators`, 1e-12)."""
     from hypre_tpu_torch.models import difconv_7pt
     from hypre_tpu_torch.ops.dia import kernel_launches
     from hypre_tpu_torch.solvers.amg import BoomerAMG
 
     A = difconv_7pt(24, 24, 24, ax=6.0, ay=3.0, az=1.0)
-    out = {}
+    out, held = {}, None
     for where in (dev, torch.device("cpu")):
-        amg = BoomerAMG(A, slice_options(dtype="float64"), device=where)
-        levels = amg.levels_T  # frozen before the counts start
+        amg = BoomerAMG(A, opts, device=where)
+        # the transposed hierarchy is frozen before the counts start
+        levels = amg.levels_T if transpose else amg.levels
         b = torch.ones(24**3, dtype=torch.float64, device=where)
         zero_counts()
-        res = amg.solveT(b, tol=1e-8, max_iter=60)
+        res = (amg.solveT if transpose else amg.solve)(b, tol=1e-8,
+                                                         max_iter=max_iter)
         counts = read_counts()
+        if hold and where.type == "cuda":
+            held = phase_hold_operators(amg, 1e-12, label)
         its = res.num_iterations
         want_l = {k: 0 for k in counts}
         for k, v in amg.cycle_launches(levels, from_zero=False).items():
@@ -2402,8 +2436,11 @@ def solveT_card_vs_cpu(dev, label, want):
             and late_abs <= 1e-14, f"{label}: the card's residual history "
                                    f"differs from the CPU's")
     require(cg == wg, f"{label}: launches {cg} are not {wg}")
-    return {"iterations": rg.num_iterations, "rel_residual_norm": a,
-            "cpu_rel_residual_norm": b_, "launches": cg}
+    out = {"iterations": rg.num_iterations, "rel_residual_norm": a,
+           "cpu_rel_residual_norm": b_, "launches": cg}
+    if held is not None:
+        out["held"] = held
+    return out
 
 
 def phase_cycles(dev, card):
@@ -2434,8 +2471,99 @@ def phase_cycles(dev, card):
     small = {label: card_vs_cpu(24, slice_options(dtype="float64", **kw), dev,
                                 label, want)
              for label, (kw, want) in CYCLES24.items()}
-    small["solveT"] = solveT_card_vs_cpu(dev, "solveT", SOLVET24)
+    small["solveT"] = stationary_card_vs_cpu(
+        dev, "solveT", SOLVET24, slice_options(dtype="float64"), True)
     return out, small
+
+
+# -- 13. aggressive coarsening, the interpolation family, AIR ----------------
+
+# the JAX package's PCG counts at 96^3 on the plain forms (the bench
+# protocol: b = ones, two-norm, tol 1e-6) with ext+i, P_max_elmts 4 and
+# one aggressive level, recomputed by `python -m pytest -m slow
+# tests/test_torch_agg.py -k chip_pin` (~1 min each on a CPU).  {label:
+# (options beyond slice_options("ext+i"), count, slack)}
+AGG96 = {
+    "(a) multipass f64": (dict(agg_num_levels=1), 23, 0),
+    "(b) multipass f32/bf16": (dict(agg_num_levels=1, **F32_BF16), 27, 1),
+    "(c) two-stage f64": (dict(agg_num_levels=1, agg_interp_type=1), 20, 0),
+    # MFEM's HypreBoomerAMG CPU defaults: HMIS, agg 1, ext+i, P_max 4,
+    # relax 8
+    "(d) MFEM default f64": (dict(coarsen_type="hmis", agg_num_levels=1,
+                                  relax_down=8, relax_up=8), 11, 0),
+}
+# the JAX package's counts at 24^3 (PCG as above; slice_options(), so
+# classical interpolation where none is named)
+INTERP24 = {
+    "standard": (dict(interp_type="standard"), 11),
+    "standard-sep": (dict(interp_type="standard-sep"), 11),
+    "ff": (dict(interp_type="ff"), 12),
+    "ff1": (dict(interp_type="ff1"), 12),
+    "ext": (dict(interp_type="ext"), 12),
+    "direct": (dict(interp_type="direct"), 16),
+    "multipass": (dict(interp_type="multipass"), 16),
+    "post_interp_type=1": (dict(post_interp_type=1), 11),
+    "agg num_paths=2 agg_P_max_elmts=4": (dict(
+        interp_type="ext+i", agg_num_levels=1, num_paths=2,
+        agg_P_max_elmts=4), 18),
+}
+# one aggressive level on the lattice defaults at 24^3: (options beyond
+# lattice_options(24), count, the JAX package's gates).  The embedding
+# declines the multipass level 1 (547 embedded offsets, above
+# max_embedded_offsets 512); the sub-cycle below level 1 collapses
+AGG_LATTICE24 = (dict(interp_type="ext+i", agg_num_levels=1), 19,
+                 {"embed_level1": False, "relocated_levels": [],
+                  "collapsed": True, "setup_levels": 5})
+# AIR on difconv_7pt(24, 24, 24, ax=6, ay=3, az=1) through BoomerAMG.solve
+# (b = ones, tol 1e-8, at most 80 cycles) on the plain forms with the
+# JAX package's AIR smoother (weighted Jacobi, 0.7): {label: (options,
+# count, transpose)}, the JAX package's counts
+AIR24_OPTIONS = dict(dtype="float64", relax_down=0, relax_up=0,
+                     relax_weight=0.7)
+AIR24 = {
+    "restrict_type=1": (dict(restrict_type=1), 56, False),
+    "restrict_type=2": (dict(restrict_type=2), 29, False),
+    "restrict_type=2 air_neumann_degree=2": (dict(
+        restrict_type=2, air_neumann_degree=2), 34, False),
+    "solveT restrict_type=1": (dict(restrict_type=1), 62, True),
+}
+
+
+def phase_agg(dev, card):
+    """13. Aggressive coarsening at 96^3 (`run_cycle`): multipass in f64
+    and f32/bf16/ngt 0.02, two-stage, and MFEM's default (HMIS + relax
+    8), every operator of the f64 multipass hierarchy held against its
+    plain version; at 24^3 card against CPU the seven interpolations
+    beyond classical and ext+i, Jacobi post-interpolation, num_paths 2
+    with agg_P_max_elmts 4, and one aggressive level on the lattice
+    defaults with the JAX package's gates; AIR (restrict_type 1, 2, 2
+    with a Neumann degree 2, and SolveT with 1) through the stationary
+    solve, each Solve hierarchy's operators held.  Returns ({label:
+    numbers} at 96^3, {label: numbers} at 24^3, {label: numbers} of
+    AIR)."""
+    out = {}
+    for label, (kw, want, slack) in AGG96.items():
+        amg, out[label] = run_cycle(
+            slice_options("ext+i", **{"dtype": "float64", **kw}), dev, card,
+            label, want, slack)
+        out[label]["levels"] = [a.shape[0] for a in amg._host_A]
+        if label.startswith("(a)"):
+            out[label]["held"] = phase_hold_operators(amg, 1e-12, label)
+        del amg
+        torch.cuda.empty_cache()
+    small = {label: card_vs_cpu(24, slice_options(dtype="float64", **kw), dev,
+                                label, want)
+             for label, (kw, want) in INTERP24.items()}
+    kw, want, want_gates = AGG_LATTICE24
+    small["agg lattice defaults"] = card_vs_cpu(
+        24, lattice_options(24, dtype="float64", **kw), dev,
+        "agg lattice defaults", want, want_gates)
+    air = {label: stationary_card_vs_cpu(
+        dev, f"AIR {label}", want,
+        slice_options(**AIR24_OPTIONS, **kw), transpose, max_iter=80,
+        hold=not transpose)
+        for label, (kw, want, transpose) in AIR24.items()}
+    return out, small, air
 
 
 def counted_wrappers():
@@ -2718,6 +2846,12 @@ def main() -> int:
     cycles, cycles24 = phase_cycles(dev, card)
     log(f"the cycle phase took {time.perf_counter() - cyc_t0:.1f} s")
 
+    # -- 13. aggressive coarsening, the interpolation family, AIR ----------
+    agg_t0 = time.perf_counter()
+    agg, agg24, air24 = phase_agg(dev, card)
+    log(f"the aggressive coarsening / interpolation / AIR phase took "
+        f"{time.perf_counter() - agg_t0:.1f} s")
+
     # `launches` counts the two f64 96^3 runs, the plain path's and the
     # lattice path's, each driven with the counts at 0 just before and
     # read just after; "per" says what the times cover
@@ -2738,7 +2872,9 @@ def main() -> int:
                                   **{k: v["launches"][name]
                                      for k, v in gs_runs.items()},
                                   **{f"cycles {k}": v["launches"][name]
-                                     for k, v in cycles.items()}},
+                                     for k, v in cycles.items()},
+                                  **{f"agg {k}": v["launches"][name]
+                                     for k, v in agg.items()}},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -2832,6 +2968,8 @@ def main() -> int:
                              for k, v in gs_runs.items()},
                           **{f"cycles {k}": v["launches"]["gs_sweep"]
                              for k, v in cycles.items()},
+                          **{f"agg {k}": v["launches"]["gs_sweep"]
+                             for k, v in agg.items()},
                           **{f"device setup {k}": v["launches"]["gs_sweep"]
                              for k, v in ds.items()}},
         "syncfree_launches": {k: v["syncfree_launches"]
@@ -2856,7 +2994,8 @@ def main() -> int:
     log(json.dumps({"entry": entry_run, "device_rap": {"f64": rap64,
                                                        "f32_bf16": rap32},
                     "ext_i": ext, "gs": gs_runs, "device_setup": ds,
-                    "cycles": cycles, "cycles_24": cycles24}))
+                    "cycles": cycles, "cycles_24": cycles24, "agg": agg,
+                    "agg_24": agg24, "air_24": air24}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

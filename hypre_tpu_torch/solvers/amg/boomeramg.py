@@ -6,14 +6,17 @@ Reference: parcsr_ls/par_amg_setup.c (hypre_BoomerAMGSetup), par_cycle.c
 
 Setup is host-side numpy/scipy plus the native C kernels, as in the JAX
 package: classical or absolute strength, PMIS / HMIS / RS / CLJP /
-Falgout / CGC / CR coarsening, modified classical or extended+i
-interpolation, truncation, Galerkin RAP and the optional non-Galerkin
-filter; the smoothed solve-phase P of mult_additive / simple, and the
-nested coarse BoomerAMG of seq_threshold.  Each level is then frozen
-into torch tensors on an explicit device, and the cycle runs eagerly on
-that device: hypre's nonrecursive state machine (V, W and F cycles,
-par_cycle.c) or the additive cycle (par_add_cycle.c).  The fine
-operator is DIA (its matvec is the hand-written kernel K1 on CUDA).
+Falgout / CGC / CR coarsening, the aggressive second round on the first
+agg_num_levels levels (multipass or the two-stage product), the nine
+interpolations of interp_type, truncation, Jacobi post-interpolation,
+Galerkin RAP (R A P with an AIR restriction R != P^T) and the optional
+non-Galerkin filter; the smoothed solve-phase P of mult_additive /
+simple, and the nested coarse BoomerAMG of seq_threshold.  Each level
+is then frozen into torch tensors on an explicit device, and the cycle
+runs eagerly on that device: hypre's nonrecursive state machine (V, W
+and F cycles, par_cycle.c) or the additive cycle (par_add_cycle.c).
+The fine operator is DIA (its matvec is the hand-written kernel K1 on
+CUDA).
 
 With the lattice forms off (embed_level1=False, relocate_level2=False,
 collapse_coarse_n=0) coarse levels are ELL or dense.  With the JAX
@@ -26,7 +29,10 @@ cell lattices with parity-factored transfers and exact COO tails
 (`_plan_reloc`, `_build_relocated`; needs `lattice_shape`), and the
 sub-cycle below the first small level is collapsed into one dense
 operator (`_build_coarse_collapse`).  A hierarchy that fails a gate
-keeps the plain forms, as in the JAX package.
+keeps the plain forms, as in the JAX package.  With an AIR restriction
+(restrict_type > 0) the port declines the level-1 embedding and so the
+relocation, which the JAX package does not: both build level 0's R (and
+the relocated levels' parity R) from P^T, which would drop AIR's R.
 
 With device_setup (bench.py's path at 96^3) level 0 -> 1 of the setup
 runs on the device (`_device_setup_level0`: ops/device_setup.py and
@@ -38,18 +44,20 @@ up the deeper levels.  Level-0 P / R and the embedded level-1 A stay
 the device's DIA tables (`_install_fast_levels`).  device_coarsen runs
 only the level-0 PMIS on the device.
 
-The port implements the options of the bench protocol (classical or
-ext+i interpolation, relax_coarse 0/5/7/18/9), the cycle options (V, W
-and F cycles, the additive family, seq_threshold, grid_relax_type /
-grid_relax_points), the coarsening family and strength_abs, the
-smoother family of the JAX package for the down and up sweeps (relax
-0/5/7/18 Jacobi, 1-4/6/8/13/14 level-scheduled Gauss-Seidel with omega
-and the CF-ordered sweeps of relax_order 1, 15 CG, 16 Chebyshev, 17
-FCF-Jacobi), the stationary solve (`solve`, hypre's solver 0) and its
-transpose (`solveT`), the statistics of par_stats.c and the lattice
-path with the device setup chain; every other option must keep its
-default (aggressive coarsening, the other interpolations, AIR, nodal /
-GSMG, smooth_type, the offset budgets): `check_options` raises
+The port implements the options of the bench protocol (relax_coarse
+0/5/7/18/9), the whole interpolation family (classical, direct, ext+i,
+multipass, standard, standard-sep, ff, ff1, ext), aggressive coarsening
+(agg_interp_type 4 and 1), Jacobi post-interpolation, AIR (restrict_type
+1 / 2), the cycle options (V, W and F cycles, the additive family,
+seq_threshold, grid_relax_type / grid_relax_points), the coarsening
+family and strength_abs, the smoother family of the JAX package for the
+down and up sweeps (relax 0/5/7/18 Jacobi, 1-4/6/8/13/14
+level-scheduled Gauss-Seidel with omega and the CF-ordered sweeps of
+relax_order 1, 15 CG, 16 Chebyshev, 17 FCF-Jacobi), the stationary
+solve (`solve`, hypre's solver 0) and its transpose (`solveT`), the
+statistics of par_stats.c and the lattice path with the device setup
+chain; every other option must keep its default (systems, nodal / GSMG,
+smooth_type, the offset budgets): `check_options` raises
 NotImplementedError otherwise.
 """
 
@@ -79,11 +87,14 @@ from ..krylov.common import SolverResult
 from .coarsen import (cljp_coarsen, cr_coarsen, falgout_coarsen,
                       hmis_coarsen, pmis_coarsen, ruge_stuben_coarsen)
 from .device_coarsen import device_pmis
-from .interp import classical_interp, extended_i_interp, truncate_interp
+from .interp import (air_restriction, classical_interp, direct_interp,
+                     extended_i_interp, extended_interp, ff_interp,
+                     jacobi_interp, multipass_interp, standard_interp,
+                     truncate_interp)
 from .rap import galerkin_rap, nongalerkin_filter
 from .relax import (ChebyData, GSMatrix, build_gs_schedule,
                     cheby_setup, chebyshev, gauss_seidel, jacobi, jacobi_cf)
-from .strength import strength_matrix, strength_matrix_abs
+from .strength import second_strength, strength_matrix, strength_matrix_abs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +214,10 @@ _IMPLEMENTED = frozenset({
     "seq_threshold", "strength_abs", "fcycle", "grid_relax_type",
     "grid_relax_points", "additive", "mult_additive", "simple",
     "add_last_lvl", "add_P_max_elmts", "add_trunc_factor", "add_rlx",
-    "add_rlx_wt",
+    "add_rlx_wt", "agg_num_levels", "agg_P_max_elmts", "agg_trunc_factor",
+    "agg_interp_type", "num_paths", "post_interp_type",
+    "jacobi_trunc_threshold", "restrict_type", "filter_threshold_r",
+    "air_neumann_degree",
 })
 _JACOBI = (0, 5, 7, 18)
 # level-scheduled Gauss-Seidel: 1/2/3/13 forward, 4/14 backward, 6/8 both
@@ -212,8 +226,20 @@ _GS_TYPES = (1, 2, 3, 4, 6, 8, 13, 14)
 # FCF-Jacobi (the coarsest level builds no GS schedule: relax_coarse
 # keeps _JACOBI and 9)
 _UPDOWN = _JACOBI + _GS_TYPES + (15, 16, 17)
-# interp_type -> host interpolation (hypre interp_type 0 / 6)
-_INTERP = {"classical": classical_interp, "ext+i": extended_i_interp}
+# interp_type -> host interpolation (hypre interp_type 0, 3, 6, multipass,
+# 8, 9, 12, 13, 14)
+_INTERP = {
+    "classical": classical_interp,
+    "direct": direct_interp,
+    "ext+i": extended_i_interp,
+    "multipass": multipass_interp,
+    "standard": standard_interp,
+    "standard-sep": lambda A, S, cf: standard_interp(A, S, cf,
+                                                     sep_weight=True),
+    "ff": ff_interp,
+    "ff1": lambda A, S, cf: ff_interp(A, S, cf, ff1=True),
+    "ext": extended_interp,
+}
 # coarsen_type -> host coarsening of S (and A, which CR relaxes on).
 # CGC (par_cgc_coarsen.c) picks among RS grids by subdomain; on one
 # subdomain its only choice is the RS grid
@@ -229,6 +255,16 @@ _COARSEN = {
 # (vector dtype, matrix dtype) pairs; K1 takes exactly these
 _DTYPES = {("float64", "float64"), ("float32", "float32"),
            ("float32", "bfloat16")}
+
+
+def _combine_cf(cf: np.ndarray, cf2: np.ndarray) -> np.ndarray:
+    """The aggressive round's CF marker: C where a point is C in both
+    rounds (cf2 is over cf's C points, in order), the first round's C
+    points F otherwise, its F and SF points as they were."""
+    cidx1 = np.flatnonzero(cf > 0)
+    out = np.where(cf > 0, -1, cf).astype(np.int64)
+    out[cidx1[cf2 > 0]] = 1
+    return out
 
 
 def _updown_relax_types(o) -> set:
@@ -275,6 +311,12 @@ def check_options(o: BoomerAMGOptions) -> None:
         ("grid_relax_type", grid_type_ok),
         ("grid_relax_points", grid_points_ok),
         ("add_rlx", o.add_rlx in (0, 18)),
+        ("agg_num_levels", o.agg_num_levels >= 0),
+        ("agg_interp_type", o.agg_interp_type in (1, 4)),
+        ("num_paths", o.num_paths >= 1),
+        ("post_interp_type", o.post_interp_type >= 0),
+        ("restrict_type", o.restrict_type in (0, 1, 2)),
+        ("air_neumann_degree", o.air_neumann_degree >= -1),
         ("nongalerkin_lump", o.nongalerkin_lump in ("diag", "strong")),
         ("mat_dtype", (o.dtype, o.mat_dtype or o.dtype) in _DTYPES),
     )
@@ -291,7 +333,7 @@ class AMGLevel:
     l1inv: torch.Tensor
     cmask: torch.Tensor  # bool: CF_marker > 0 (all False on coarsest)
     P: Optional[object]  # None on coarsest
-    R: Optional[object]  # P^T
+    R: Optional[object]  # P^T, or the AIR restriction
     # on the coarsest level: the dense pinv (a tensor), or the collapsed
     # sub-cycle as an operator (DenseMatrix, or that behind Scatter/Gather)
     coarse_inv: Optional[object]
@@ -314,6 +356,8 @@ class BoomerAMG:
         self.levels: list[AMGLevel] = []
         self._host_A: list[sp.csr_matrix] = []
         self._host_P: list[sp.csr_matrix] = []
+        # each level's AIR restriction, None where R = P^T
+        self._host_R: list[Optional[sp.csr_matrix]] = []
         self._cf: list[np.ndarray] = []
         self._reloc_cells: dict = {}  # level -> (cells of its points, ncells)
         # the level-1 Galerkin product before the non-Galerkin filter:
@@ -337,7 +381,7 @@ class BoomerAMG:
         self.opts = opts
         self.device = torch.device(device)
         self.levels = list(levels)
-        self._host_A, self._host_P, self._cf = [], [], []
+        self._host_A, self._host_P, self._host_R, self._cf = [], [], [], []
         self._reloc_cells = {}
         self._host_A1_unf = self._fast = self._seq_coarse = None
         self._levels_T = None
@@ -367,6 +411,7 @@ class BoomerAMG:
                 self._fast = fast
                 self._host_A.append(A)
                 self._host_P.append(None)  # device-resident (host_P(0))
+                self._host_R.append(None)
                 self._cf.append(fast["cf0"])
                 A = fast["A1_host"]
             while True:
@@ -397,10 +442,18 @@ class BoomerAMG:
                     self._cf.append(np.zeros(n, dtype=np.int64))
                     break
                 with timed("INTERP"):
-                    P = truncate_interp(_INTERP[o.interp_type](A, S, cf),
-                                        o.trunc_factor, o.P_max_elmts)
+                    P, cf = self._interp_level(A, S, cf)
                 with timed("RAP"):
-                    Ac = galerkin_rap(A, P)
+                    R = None  # R = P^T, made at freeze
+                    if o.restrict_type > 0:
+                        R = air_restriction(
+                            A, S, cf, o.filter_threshold_r,
+                            distance=o.restrict_type,
+                            neumann_degree=o.air_neumann_degree)
+                        Ac = (R @ (A @ P)).tocsr()
+                        Ac.sort_indices()
+                    else:
+                        Ac = galerkin_rap(A, P)
                     if not self._host_A:
                         self._host_A1_unf = Ac
                     ngt = self._level_ngt(len(self._host_A))
@@ -410,11 +463,61 @@ class BoomerAMG:
                         Ac = nongalerkin_filter(Ac, ngt, lump=lump)
                 self._host_A.append(A)
                 self._host_P.append(P)
+                self._host_R.append(R)
                 self._cf.append(cf)
                 A = Ac
             self._apply_mult_additive_P()
         # outside SETUP's scope: the nested instance times its own
         self._build_seq_coarse()
+
+    def _interp_level(self, A, S, cf):
+        """(P, CF marker) of one level (the JAX package's boomeramg.py
+        :503-572).  On the first agg_num_levels levels the aggressive
+        round: with agg_interp_type 4 a second coarsening of the C
+        points on the S S + 2 S graph (`second_strength`; PMIS with
+        hypre's CF_init 3, HMIS with S2-isolated points kept C), the
+        combined CF marker, multipass interpolation on A; with 1 the
+        two-stage product P1 P2 through the intermediate Galerkin
+        operator; either truncated by agg_trunc_factor /
+        agg_P_max_elmts.  Else interp_type, truncated by trunc_factor /
+        P_max_elmts.  Then post_interp_type Jacobi steps."""
+        o = self.opts
+        agg = len(self._host_A) < o.agg_num_levels
+        if agg and o.agg_interp_type == 4:
+            S2 = second_strength(S, cf, o.num_paths)
+            if o.coarsen_type == "pmis":
+                cf2 = pmis_coarsen(S2, seed=o.seed, isolated_to_c=True)
+            else:
+                cf2 = _COARSEN[o.coarsen_type](S2, A, o.seed)
+                if o.coarsen_type == "hmis":
+                    # measure_type + 3 keeps S2-isolated points coarse
+                    # (par_coarsen.c:960, 1141)
+                    cf2 = np.where(np.diff(S2.indptr) == 0, 1, cf2)
+            if 0 < (cf2 > 0).sum() < (cf > 0).sum():
+                cf = _combine_cf(cf, cf2)
+            P = truncate_interp(multipass_interp(A, S, cf),
+                                o.agg_trunc_factor, o.agg_P_max_elmts)
+        elif agg:
+            P = P1 = truncate_interp(_INTERP[o.interp_type](A, S, cf),
+                                     o.trunc_factor, o.P_max_elmts)
+            A_mid = galerkin_rap(A, P1)
+            S2 = strength_matrix(A_mid, o.strong_threshold, o.max_row_sum)
+            # CR relaxes on the level's own A, as the JAX package's
+            # _coarsen does here
+            cf2 = _COARSEN[o.coarsen_type](S2, A, o.seed)
+            if 0 < (cf2 > 0).sum() < A_mid.shape[0]:
+                P2 = truncate_interp(_INTERP[o.interp_type](A_mid, S2, cf2),
+                                     o.trunc_factor, o.P_max_elmts)
+                P = truncate_interp((P1 @ P2).tocsr(), o.agg_trunc_factor,
+                                    o.agg_P_max_elmts)
+                cf = _combine_cf(cf, cf2)
+        else:
+            P = truncate_interp(_INTERP[o.interp_type](A, S, cf),
+                                o.trunc_factor, o.P_max_elmts)
+        if o.post_interp_type > 0:
+            P = jacobi_interp(A, P, cf, o.post_interp_type,
+                              o.jacobi_trunc_threshold)
+        return P, cf
 
     def _apply_mult_additive_P(self) -> None:
         """mult_additive / simple: the solve-phase P of the levels in
@@ -422,7 +525,8 @@ class BoomerAMG:
         l1 row norms for add_rlx 18, diag / add_rlx_wt for 0;
         par_amg_setup.c:2485-2665 hypre_CreateC), then truncated
         (hypre_BoomerAMGTruncandBuild).  The coarse operators keep the
-        Galerkin product of the original P; R = P^T follows at freeze."""
+        Galerkin product of the original P; R = P^T follows at freeze,
+        and an AIR R stays as it was (hypre's R_array)."""
         o = self.opts
         maddlvl = max(o.mult_additive, o.simple)
         if maddlvl < 0:
@@ -483,15 +587,16 @@ class BoomerAMG:
     # ------------------------------------------------------------------
     def _fast_eligible(self, A) -> bool:
         """The JAX package's gate of the device chain.  Its other
-        conditions (one function, no GSMG, nodal or aggressive
-        coarsening, no post-interpolation or AIR) hold in the port
-        whenever check_options passes."""
+        conditions (one function, no GSMG or nodal coarsening) hold in
+        the port whenever check_options passes."""
         o = self.opts
         if not o.device_setup or o.lattice_shape is None:
             return False
+        if o.agg_num_levels:
+            return False
         if o.coarsen_type != "pmis" or o.interp_type != "classical":
             return False
-        if (o.seq_threshold > 0
+        if (o.post_interp_type or o.restrict_type or o.seq_threshold > 0
                 or max(o.additive, o.mult_additive, o.simple) >= 0):
             return False
         if not self._jacobi_updown():
@@ -609,6 +714,11 @@ class BoomerAMG:
         self._host_P[0] = Ph
         return Ph
 
+    def _host_R_or_PT(self, l: int):
+        """Host scipy R of level l: the AIR restriction, else P^T."""
+        R = self._host_R[l]
+        return self.host_P(l).T.tocsr() if R is None else R
+
     def host_P(self, l: int):
         """Host scipy P of level l (the device chain's level-0 P is made
         on first request)."""
@@ -650,9 +760,11 @@ class BoomerAMG:
         with timed("FREEZE", device=self.device):
             for k in range(L):
                 coarsest = k == L - 1
+                transfers = not coarsest and k not in skip_PR
                 self.levels.append(self._freeze_level(
                     self._host_A[k],
-                    None if coarsest or k in skip_PR else self._host_P[k],
+                    self._host_P[k] if transfers else None,
+                    self._host_R[k] if transfers else None,
                     None if coarsest else self._cf[k],
                     fine=(k == 0), coarsest=coarsest, skip_A=k in skip_A,
                 ))
@@ -691,13 +803,13 @@ class BoomerAMG:
         return freeze_auto(CSRMatrix.from_scipy(M),
                            torch_dtype(o.mat_dtype or o.dtype), self.device)
 
-    def _freeze_level(self, A, P, cf, fine: bool, coarsest: bool,
+    def _freeze_level(self, A, P, R, cf, fine: bool, coarsest: bool,
                       skip_A: bool = False) -> AMGLevel:
         """dinv, l1inv and the coarsest pinv are computed in numpy f64
         and then cast.  The fine A keeps `dtype` (it defines the
-        residual PCG minimizes); coarse A, P and R use `mat_dtype`.
-        skip_A, and P None above the coarsest level, leave out forms a
-        lattice build step replaces."""
+        residual PCG minimizes); coarse A, P and R use `mat_dtype`.  R
+        None means P^T.  skip_A, and P None above the coarsest level,
+        leave out forms a lattice build step replaces."""
         o = self.opts
         dev = self.device
         dt = torch_dtype(o.dtype)
@@ -733,7 +845,8 @@ class BoomerAMG:
             cmask=torch.from_numpy(
                 cf > 0 if cf is not None else np.zeros(n, bool)).to(dev),
             P=None if P is None else self._freeze_compact(P),
-            R=None if P is None else self._freeze_compact(P.T.tocsr()),
+            R=None if P is None else self._freeze_compact(
+                P.T.tocsr() if R is None else R),
             coarse_inv=coarse_inv,
             gs_fwd=gs_fwd,
             gs_bwd=gs_bwd,
@@ -795,7 +908,7 @@ class BoomerAMG:
         innerP, innerR = lvl.P, lvl.R
         if innerP is None:  # was skipped in the freeze loop
             innerP = self._freeze_compact(self._host_P[k])
-            innerR = self._freeze_compact(self._host_P[k].T.tocsr())
+            innerR = self._freeze_compact(self._host_R_or_PT(k))
         dev = self.device
         return (ScatterOp(inner=innerP, pos=torch.from_numpy(pos).to(dev),
                           n_out=n_emb),
@@ -808,6 +921,11 @@ class BoomerAMG:
         gates mirror what the build needs, nothing is built."""
         o = self.opts
         if not o.embed_level1 or len(self._host_A) < 3:
+            return None
+        if o.restrict_type > 0:
+            # the embedding (and the relocation after it) builds level
+            # 0's R from P^T; the JAX package embeds anyway and so drops
+            # AIR's R there.  The port keeps R on the compact forms
             return None
         if not self._jacobi_updown():
             return None  # embedded smoothing is for the Jacobi family only
@@ -1152,7 +1270,7 @@ class BoomerAMG:
                             dt, dev)[:, None]
             wup = to_device(wl * (l1inv if o.relax_up == 18 else dinv),
                             dt, dev)[:, None]
-            A, P, R = dense(Ah), dense(Ph), dense(Ph.T.tocsr())
+            A, P, R = dense(Ah), dense(Ph), dense(self._host_R_or_PT(l))
             eye = torch.eye(Ah.shape[0], dtype=dt, device=dev)
             X = wdn * eye  # zero-guess first sweep
             for _ in range(sweeps - 1):
@@ -1592,20 +1710,29 @@ class BoomerAMG:
     @property
     def levels_T(self) -> list:
         """The frozen transposed hierarchy, made on first request: A^T on
-        every level with the same P and R = P^T (a transpose cycle
-        interpolates with R^T and restricts with P^T, and R = P^T
-        here), the l1 norms and GS schedules those of A^T.  It equals
-        the forward hierarchy for symmetric A; SolveT serves the
-        nonsymmetric ones."""
+        every level, interpolating with R^T and restricting with P^T
+        (with R = P^T the forward transfers), the l1 norms and GS
+        schedules those of A^T.  It equals the forward hierarchy for
+        symmetric A and R = P^T; SolveT serves the nonsymmetric ones and
+        AIR's R != P^T."""
         if self._levels_T is None:
             L = len(self._host_A)
             with timed("FREEZE_T", device=self.device):
                 self._levels_T = [self._freeze_level(
-                    self._host_A[k].T.tocsr(),
-                    None if k == L - 1 else self.host_P(k),
+                    self._host_A[k].T.tocsr(), *self._transfers_T(k),
                     None if k == L - 1 else self._cf[k],
                     fine=k == 0, coarsest=k == L - 1) for k in range(L)]
         return self._levels_T
+
+    def _transfers_T(self, k: int):
+        """(P, R) of level k in the transposed hierarchy: (R^T, P^T);
+        with R = P^T that is (P, None), the forward transfers."""
+        if k == len(self._host_A) - 1:
+            return None, None
+        R = self._host_R[k]
+        if R is None:
+            return self.host_P(k), None
+        return R.T.tocsr(), self.host_P(k).T.tocsr()
 
     def cycleT(self, f, u=None):
         """One cycle on A^T (the SolveT preconditioner hook)."""

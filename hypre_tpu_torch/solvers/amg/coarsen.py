@@ -38,17 +38,21 @@ def _measures(S: sp.csr_matrix, seed: int = _PMIS_SEED) -> np.ndarray:
 
 
 def pmis_coarsen(S: sp.csr_matrix, cf_init: np.ndarray | None = None,
-                 seed: int = _PMIS_SEED) -> np.ndarray:
+                 seed: int = _PMIS_SEED,
+                 isolated_to_c: bool = False) -> np.ndarray:
     """Returns CF_marker (C_PT / F_PT / SF_PT per row).  cf_init: a
     preset marker (HMIS, the reference's CF_init 1): its nonzero
     entries are kept and the first independent-set round is skipped
-    (par_coarsen.c:2424 `!CF_init || iter`)."""
+    (par_coarsen.c:2424 `!CF_init || iter`).  isolated_to_c: rows with
+    no strong connection become C, not SF (CF_init 3, the aggressive
+    second round, par_coarsen.c:2323: an isolated first-round C point
+    has nothing to interpolate from and stays coarse)."""
     n = S.shape[0]
     measure = _measures(S, seed)
     if cf_init is None:
         cf = np.zeros(n, dtype=np.int64)
         isolated = np.diff(S.indptr) == 0  # no strong connections in the row
-        cf[isolated] = SF_PT
+        cf[isolated] = C_PT if isolated_to_c else SF_PT
         measure[isolated] = 0.0
         return native.pmis_loop(S.indptr, S.indices, n, measure, cf, True)
     cf = cf_init.astype(np.int64).copy()

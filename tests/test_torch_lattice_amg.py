@@ -389,7 +389,7 @@ def test_entry_options_hierarchy_equals_jax():
     (dict(relocate_offset_budget=64), "relocate_offset_budget"),
     (dict(transfer_offset_budget=64), "transfer_offset_budget"),
     (dict(num_functions=2), "num_functions"),
-    (dict(post_interp_type=1), "post_interp_type"),
+    (dict(gsmg=1), "gsmg"),
     (dict(nodal=1), "nodal"),
 ])
 def test_unported_lattice_options_raise(kw, match):
