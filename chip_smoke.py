@@ -127,9 +127,27 @@ Phases (any failure raises and the script exits non-zero):
      on the convection-diffusion operator through the stationary solve
      (restrict_type 1, 2, 2 with air_neumann_degree 2, and SolveT with
      1; AIR24), every operator of each Solve hierarchy held.
+ 14. systems / nodal / GSMG BoomerAMG, the Krylov family and LOBPCG: at
+     96^3 on the plain forms (SYS96) sys_laplacian_7pt(96, 96, 96, 2)
+     with the hypre oracle's nodal protocol (nodal 1, max_row_sum 1.0),
+     K1 alone at its 19-offset level 0 (against its plain version,
+     timed beside it, cuSPARSE CSR and its DIA- and nonzero-bytes
+     bounds) and every operator held; the unknown approach with ext+i;
+     the nodal one in f32/bf16; GSMG with ext+i; each as in 12; the
+     convection-diffusion hierarchy (ext+i) under GMRES, FlexGMRES,
+     LGMRES, COGMRES (CGS 1 and 2) and BiCGSTAB (KRYLOV96: the JAX
+     package's counts, the true residual, the operator applications
+     each solver's loop predicts and exactly their launches, median of
+     20, busy); LOBPCG (m 4, the V-cycle as T) against the closed-form
+     eigenvalues.  At 24^3 card against CPU: nodal 1, 2, 3, 4, 6 with
+     nodal_diag 0 and 1, a user dof_func, GSMG (SYS24), the offset
+     budgets on the lattice defaults with the JAX package's gates
+     (BUDGET24), CGNR with the V-cycle and with the diagonal (CGNR24,
+     the histories), LOBPCG (LOBPCG24).
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
 the GS family, the device setup chain, the cycle options, aggressive
-coarsening and AIR), the kernel report and {"ok": true, ...}.
+coarsening and AIR, the systems phase), the kernel report and {"ok":
+true, ...}.
 """
 
 from __future__ import annotations
@@ -198,32 +216,34 @@ def lattice_options(nx: int, interp_type="classical", **kw):
         relax_down=18, relax_up=18, lattice_shape=(nx, nx, nx), **kw)
 
 
-def make_solve(amg, nx: int):
+def make_solve(amg):
     """The bench protocol's solve over a hierarchy: PCG, two-norm test,
     tol 1e-6, b = ones."""
     from hypre_tpu_torch.ops import spmv
     from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
 
-    b = torch.ones(nx**3, dtype=amg.levels[0].dinv.dtype, device=amg.device)
+    b = torch.ones_like(amg.levels[0].dinv)
     A0 = amg.levels[0].A
     return lambda: pcg(lambda x: spmv(A0, x), b, M=amg.precond,
                        opts=PCGOptions(tol=1e-6, max_iter=200, two_norm=True))
 
 
-def run_slice(nx: int, opts, device):
-    """Setup + freeze + PCG on the nx^3 Poisson problem, as a user
-    calls it.  Returns (amg, result, setup_s, solve_s); on the card the
-    solve is timed with CUDA events, setup with the host clock."""
+def run_slice(nx: int, opts, device, A=None):
+    """Setup + freeze + PCG on the nx^3 Poisson problem (or on the matrix
+    A), as a user calls it.  Returns (amg, result, setup_s, solve_s); on
+    the card the solve is timed with CUDA events, setup with the host
+    clock."""
     from hypre_tpu_torch.models import laplacian_7pt
     from hypre_tpu_torch.solvers.amg import BoomerAMG
 
     dev = torch.device(device)
     t0 = time.perf_counter()
-    amg = BoomerAMG(laplacian_7pt(nx, nx, nx), opts, device=dev)
+    amg = BoomerAMG(laplacian_7pt(nx, nx, nx) if A is None else A, opts,
+                    device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
-    solve = make_solve(amg, nx)
+    solve = make_solve(amg)
     if dev.type != "cuda":
         t0 = time.perf_counter()
         res = solve()
@@ -1608,7 +1628,7 @@ def run_ext(nx, opts, dev, card, label):
         "DEVICE_RAP", "COLLAPSE")}
     rel, bound = check_solution(amg, res, nx**3)
     expected = expected_launches(amg, res.num_iterations)
-    _, wall, busy_us, events, _ = profile_solve(make_solve(amg, nx))
+    _, wall, busy_us, events, _ = profile_solve(make_solve(amg))
     its = res.num_iterations
     for line in level_lines(amg):
         log(f"ext+i [{label}] levels: {line}")
@@ -1806,7 +1826,7 @@ def phase_device_setup(dev, card):
                 f"device setup {tag}: launches {counts} are not the "
                 f"hierarchy's {expected}")
         held = hold_chain_on_cpu(amg, opts, tag)
-        solve = make_solve(amg, NX)
+        solve = make_solve(amg)
         solve()
         times = []
         for _ in range(20):
@@ -2188,7 +2208,7 @@ def run_gs(nx, opts, dev, card, label, want_its):
     its = res.num_iterations
     expected = expected_launches(amg, its)
     per_cycle = amg.cycle_launches()
-    _, wall, busy_us, events, _ = profile_solve(make_solve(amg, nx))
+    _, wall, busy_us, events, _ = profile_solve(make_solve(amg))
     # "gs_sweep_" covers both forms' kernels
     gs_us = sum(e.time_range.end - e.time_range.start for e in events
                 if "gs_sweep_" in e.name)
@@ -2224,18 +2244,19 @@ def run_gs(nx, opts, dev, card, label, want_its):
                  "syncfree_launches": syncfree}
 
 
-def card_vs_cpu(nx, opts, dev, label, want_its, want_gates=None):
-    """The nx^3 solve on the card (counts at 0 before, read after: as the
-    hierarchy says) and on the CPU: both the JAX package's count, the
-    final relative residuals within 1e-10 of each other, x within
-    1e-9.  want_gates: {key: value} of `gates` both hierarchies must
-    show (the JAX package's decisions)."""
+def card_vs_cpu(nx, opts, dev, label, want_its, want_gates=None, A=None):
+    """The nx^3 solve (of the Poisson problem, or of the matrix A) on the
+    card (counts at 0 before, read after: as the hierarchy says) and on
+    the CPU: both the JAX package's count, the final relative residuals
+    within 1e-10 of each other, x within 1e-9.  want_gates: {key:
+    value} of `gates` both hierarchies must show (the JAX package's
+    decisions)."""
     zero_counts()
-    amg_g, res_g, _, solve_s = run_slice(nx, opts, dev)
+    amg_g, res_g, _, solve_s = run_slice(nx, opts, dev, A)
     counts = read_counts()
     require_no_gs_fault(dev, f"{label} card solve")
     expected = expected_launches(amg_g, res_g.num_iterations)
-    amg_c, res_c, _, cpu_s = run_slice(nx, opts, "cpu")
+    amg_c, res_c, _, cpu_s = run_slice(nx, opts, "cpu", A)
     got_gates = None
     if want_gates is not None:
         got_gates = [{k: gates(a)[k] for k in want_gates}
@@ -2334,27 +2355,28 @@ def solve_median_ms(solve, reps: int = 20):
     return float(np.median(times)), min(times), max(times)
 
 
-def run_cycle(opts, dev, card, label, want, slack):
-    """One 96^3 run of a cycle option through run_slice, the counts set
-    to 0 just before and read just after: the JAX package's count, a
-    right solution, launches exactly `cycle_launches` x the cycles plus
-    PCG's matvecs; then the statistics, the setup by phase, the solve's
-    median of 20 and one profiled solve.  Returns (amg, numbers)."""
+def run_cycle(opts, dev, card, label, want, slack, A=None):
+    """One 96^3 run of a cycle option through run_slice (on the Poisson
+    problem, or on the matrix A), the counts set to 0 just before and
+    read just after: the JAX package's count, a right solution, launches
+    exactly `cycle_launches` x the cycles plus PCG's matvecs; then the
+    statistics, the setup by phase, the solve's median of 20 and one
+    profiled solve.  Returns (amg, numbers)."""
     from hypre_tpu_torch.profile_slice import profile_solve
     from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
 
     GLOBAL_TIMER.clear()
     zero_counts()
-    amg, res, setup_s, solve_s = run_slice(NX, opts, dev)
+    amg, res, setup_s, solve_s = run_slice(NX, opts, dev, A)
     counts = read_counts()
     require_no_gs_fault(dev, f"cycles {label} solve")
     phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in CYCLE_PHASES
               if GLOBAL_TIMER.seconds(k)}
-    rel, bound = check_solution(amg, res, NX**3)
+    rel, bound = check_solution(amg, res, amg.levels[0].dinv.shape[0])
     its = res.num_iterations
     expected = expected_launches(amg, its)
     per_cycle = {k: v for k, v in amg.cycle_launches().items() if v}
-    solve = make_solve(amg, NX)
+    solve = make_solve(amg)
     med, lo, hi = solve_median_ms(solve)
     _, wall, busy_us, events, _ = profile_solve(solve)
     require_no_gs_fault(dev, f"cycles {label} timed solves")
@@ -2564,6 +2586,520 @@ def phase_agg(dev, card):
         hold=not transpose)
         for label, (kw, want, transpose) in AIR24.items()}
     return out, small, air
+
+
+# -- 14. systems / nodal / GSMG BoomerAMG, the Krylov family, LOBPCG --------
+
+# the hypre oracle's systems protocol (tests/test_systems_amg.py:87-113):
+# two functions, interleaved, max_row_sum 1.0 (the ij driver's default)
+SYS = dict(num_functions=2, max_row_sum=1.0)
+# The JAX package's counts on the CPU at 96^3 (b = ones, tol 1e-6, PCG
+# with the two-norm test, the plain forms, f64 unless marked), recomputed
+# by `python -m pytest -m slow tests/test_torch_systems.py -k chip_pin`
+# (~1 min each on a CPU; (a)-(c) need ~30 GB of host memory there).
+# {label: (problem, options beyond slice_options(), count, slack)};
+# "sys" is sys_laplacian_7pt(96, 96, 96, 2), 1,769,472 rows.  (c) has no
+# non-Galerkin filter: with nongalerkin_tol 0.02 both packages' systems
+# setups blow up (level-2 entries of 1e33 at 24^3 x 2, a coarse pinv that
+# does not converge at 96^3 x 2; tests/test_torch_systems.py pins it).
+# (d) interpolates ext+i: classical interpolation on the GSMG graph gives
+# NaN on level 2 at 96^3 in both packages.  (c) is held to the port's own
+# count on the CPU, 45 (the f64 count): the JAX package's is
+# SYS96_F32_JAX.  The hierarchy is the same bits; the f32 histories agree
+# to 4 digits until ~3e-5 of the first residual (1e-4 at 48^3 x 2, where
+# the counts are 26 and 27), below which f32 rounding sets the count
+# (the true residual ends at ~2e-4)
+SYS96_F32_JAX = 50
+SYS96 = {
+    "(a) nodal 1 f64": ("sys", dict(nodal=1, **SYS), 45, 0),
+    "(b) unknown ext+i f64": ("sys", dict(interp_type="ext+i", **SYS), 21, 0),
+    "(c) nodal 1 f32/bf16": ("sys", dict(nodal=1, dtype="float32",
+                                         mat_dtype="bfloat16", **SYS),
+                             45, 1),
+    "(d) gsmg ext+i f64": ("laplacian", dict(gsmg=1, interp_type="ext+i"),
+                           29, 0),
+}
+# (e) difconv_7pt(96, 96, 96) with slice_options("ext+i") (`ij -difconv
+# -solver 3`'s setup), one hierarchy, each solver from b = ones to tol
+# 1e-6: {label: (solver, options), the JAX package's count}
+KRYLOV96 = {
+    "gmres": (("gmres", dict(k_dim=5)), 14),
+    "flexgmres": (("flexgmres", dict(k_dim=5)), 14),
+    "lgmres": (("lgmres", dict(k_dim=10)), 14),
+    "cogmres cgs 1": (("cogmres", dict(k_dim=5, cgs=1)), 14),
+    "cogmres cgs 2": (("cogmres", dict(k_dim=5, cgs=2)), 14),
+    "bicgstab": (("bicgstab", dict()), 8),
+}
+# (f) LOBPCG on laplacian_7pt(96^3), m 4, the slice's V-cycle as T column
+# by column, tol 1e-6, X0 standard normal from seed 2026
+LOBPCG_M, LOBPCG_SEED = 4, 2026
+LOBPCG96 = 38
+# at 24^3, card against CPU, the JAX package's counts (PCG as above)
+SYS24 = {
+    **{f"nodal {k} diag {d}": ("sys", dict(nodal=k, nodal_diag=d, **SYS), w)
+       for k, w in ((1, 17), (2, 17), (3, 16), (4, 17), (6, 16))
+       for d in (0, 1)},
+    # the unknowns function-major (not interleaved), dof_func saying so
+    "user dof_func ext+i": ("sys function-major",
+                            dict(interp_type="ext+i", **SYS), 17),
+    "gsmg num_samples 3": ("sys", dict(gsmg=1, num_samples=3, **SYS), 24),
+}
+# the offset budgets on the lattice defaults at 24^3 (relocate_min_n2=0,
+# levels 2 and 3 relocated): (options beyond lattice_options(24), count,
+# the JAX package's gates).  No relocated A is above the dense threshold
+# at 24^3, so relocate_offset_budget only passes through the plan there
+BUDGET24 = {
+    "transfer_offset_budget 8": (dict(transfer_offset_budget=8), 18),
+    "transfer 8, relocate 16 strong": (dict(
+        transfer_offset_budget=8, relocate_offset_budget=16,
+        relocate_lump="strong"), 18),
+}
+BUDGET24_GATES = {"embed_level1": True, "relocated_levels": [2, 3],
+                  "collapsed": True, "setup_levels": 6}
+# CGNR (`ij -solver 5 / 6`) on difconv_7pt(24^3), max_iter 50: neither
+# preconditioner converges in the JAX package either, so the card is held
+# to its count and to the CPU's history
+CGNR24 = {"amg": 50, "diag": 50}
+LOBPCG24 = 28
+
+
+def problem_matrix(kind: str, nx: int):
+    """(CSR matrix, dof_func or None) of a phase-14 problem."""
+    from hypre_tpu_torch.models import (difconv_7pt, laplacian_7pt,
+                                        sys_laplacian_7pt)
+    from hypre_tpu_torch.ops.csr import CSRMatrix
+
+    if kind == "laplacian":
+        return laplacian_7pt(nx, nx, nx), None
+    if kind == "difconv":
+        return difconv_7pt(nx, nx, nx), None
+    A = sys_laplacian_7pt(nx, nx, nx, 2)
+    if kind == "sys":
+        return A, None
+    n = A.shape[0]
+    perm = np.argsort(np.arange(n) % 2, kind="stable")  # function-major
+    Ap = A.to_scipy()[perm][:, perm].tocsr()
+    Ap.sort_indices()
+    return CSRMatrix.from_scipy(Ap), (np.arange(n) % 2)[perm]
+
+
+def predicted_calls(name: str, kw: dict, its: int) -> dict:
+    """The operator applications a solve of `its` iterations makes, from
+    the solver's loop alone: {"A": matvecs, "M": preconditioner
+    applications, "AT": transpose matvecs}.  The restarted solvers run
+    full cycles of k_dim steps but the last; LGMRES's cycle c takes
+    k_dim - min(c, aug_dim) Krylov steps (the others apply no operator)
+    and stores an augmentation pair (A M z) after every cycle but the
+    last; BiCGSTAB checks the true residual once, at convergence."""
+    if name in ("gmres", "flexgmres", "cogmres", "lgmres"):
+        kd = kw["k_dim"]
+        cycles = -(-its // kd)
+        if name == "lgmres":
+            ad = kw.get("aug_dim", 2)
+            last = its - kd * (cycles - 1)
+            kry = sum(kd - min(c, ad) for c in range(cycles - 1)) + min(
+                last, kd - min(cycles - 1, ad))
+            return {"A": 1 + kry + cycles + cycles - 1,
+                    "M": kry + cycles + cycles - 1, "AT": 0}
+        steps_M = its if name == "flexgmres" else its + cycles
+        return {"A": 1 + its + cycles, "M": steps_M, "AT": 0}
+    if name == "bicgstab":
+        return {"A": 2 + 2 * its, "M": 2 * its, "AT": 0}
+    if name == "cgnr":
+        return {"A": 1 + its, "M": 1 + its, "AT": 1 + its}
+    raise ValueError(name)
+
+
+def krylov_solve(amg, name, kw, b, A0, AT0=None, precond="amg"):
+    """solve() -> result: the named solver on A0 (a frozen operator) with
+    the hierarchy's V-cycle (or the diagonal of A0) as M, tol 1e-6,
+    max_iter 200 (CGNR 50); `calls` counts each operator's
+    applications."""
+    from hypre_tpu_torch.ops import spmv
+    from hypre_tpu_torch.solvers import krylov
+
+    calls = {"A": 0, "M": 0, "AT": 0}
+    dinv = amg.levels[0].dinv
+
+    def op(key, fn):
+        def apply(x):
+            calls[key] += 1
+            return fn(x)
+        return apply
+
+    A = op("A", lambda x: spmv(A0, x))
+    M = op("M", amg.precond if precond == "amg" else lambda r: dinv * r)
+    opts_cls = {"gmres": "GMRESOptions", "flexgmres": "FlexGMRESOptions",
+                "lgmres": "LGMRESOptions", "cogmres": "COGMRESOptions",
+                "bicgstab": "BiCGSTABOptions", "cgnr": "CGNROptions"}[name]
+    opts = getattr(krylov, opts_cls)(
+        tol=1e-6, max_iter=50 if name == "cgnr" else 200, **kw)
+    fn = getattr(krylov, name)
+    if name == "cgnr":
+        AT = op("AT", lambda x: spmv(AT0, x))
+        return (lambda: fn(A, AT, b, M=M, opts=opts)), calls
+    return (lambda: fn(A, b, M=M, opts=opts)), calls
+
+
+def krylov_launches(amg, calls: dict, A0, AT0=None, precond="amg") -> dict:
+    """Kernel launches of a Krylov solve's operator applications: each
+    matvec what `kernel_launches` says of its operator, each V-cycle
+    what `cycle_launches` says (the diagonal launches nothing)."""
+    from hypre_tpu_torch.ops.dia import kernel_launches
+
+    out = {name: 0 for name in read_counts()}
+    parts = [(A0, calls["A"])]
+    if AT0 is not None:
+        parts.append((AT0, calls["AT"]))
+    for op, k in parts:
+        for name, c in kernel_launches(op).items():
+            out[name] += k * c
+    if precond == "amg":
+        for name, c in amg.cycle_launches().items():
+            out[name] += calls["M"] * c
+    return out
+
+
+def run_krylov(amg, label, name, kw, want, card, A0):
+    """One Krylov solve at 96^3 over a built hierarchy, the counts set to 0
+    just before and read just after: the JAX package's count, a right
+    solution (the true residual in f64), the operator applications the
+    solver's loop predicts and exactly their launches; then the solve's
+    median of 20 and one profiled solve.  Returns the numbers."""
+    from hypre_tpu_torch.profile_slice import profile_solve
+
+    b = torch.ones_like(amg.levels[0].dinv)
+    solve, calls = krylov_solve(amg, name, kw, b, A0)
+    zero_counts()
+    res = solve()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    its = res.num_iterations
+    made = dict(calls)
+    rel, bound = check_solution(amg, res, b.shape[0])
+    want_calls = predicted_calls(name, kw, its)
+    expected = krylov_launches(amg, made, A0)
+    med, lo, hi = solve_median_ms(solve)
+    _, wall, busy_us, events, _ = profile_solve(solve)
+    log(f"krylov [{label} 96^3; {card}]: {its} iterations (JAX package: "
+        f"{want}), final rel residual {float(res.rel_residual_norm):.3e} "
+        f"(true, in f64: {rel:.3e}, bound {bound:.1e}); applications {made} "
+        f"(predicted {want_calls}); solve median of 20 {med:.2f} ms "
+        f"({lo:.2f}-{hi:.2f}); under the profiler wall {wall * 1e3:.2f} ms, "
+        f"device busy {busy_us / 1e3:.2f} ms (idle "
+        f"{100 * (1 - busy_us / 1e6 / wall):.1f}%), {len(events)} device "
+        f"events ({len(events) / max(its, 1):.0f} an iteration); launches "
+        f"{counts}")
+    require(res.converged and its == want,
+            f"krylov {label}: {its} iterations, the JAX package's {want}")
+    require(made == want_calls, f"krylov {label}: applications {made}, the "
+                                f"solver's loop predicts {want_calls}")
+    require(counts == expected, f"krylov {label}: launches {counts} are not "
+                                f"the applications' {expected}")
+    return {"iterations": its, "rel_residual_norm":
+            float(res.rel_residual_norm), "true_rel_residual": rel,
+            "applications": made, "solve_median_ms": med,
+            "solve_min_max_ms": [lo, hi], "busy_ms": busy_us / 1e3,
+            "wall_ms": wall * 1e3,
+            "kernels_per_iteration": len(events) / max(its, 1),
+            "launches": counts}
+
+
+def lobpcg_run(amg, X0):
+    """LOBPCG (tol 1e-6, at most 100 iterations) over a hierarchy's fine
+    operator with its V-cycle as T, column by column; returns (result,
+    {"A": columns, "T": columns})."""
+    from hypre_tpu_torch.ops import spmv
+    from hypre_tpu_torch.solvers.eigen import LOBPCGOptions, lobpcg
+
+    calls = {"A": 0, "T": 0}
+    A0, cycle = amg.levels[0].A, amg.precond
+
+    def columns(key, fn):
+        def apply(X):
+            calls[key] += X.shape[1]
+            return torch.stack([fn(X[:, k].contiguous())
+                                for k in range(X.shape[1])], 1)
+        return apply
+
+    res = lobpcg(columns("A", lambda x: spmv(A0, x)), X0,
+                 T=columns("T", cycle),
+                 opts=LOBPCGOptions(tol=1e-6, max_iter=100))
+    return res, calls
+
+
+def lobpcg_closed_form(nx: int, m: int) -> np.ndarray:
+    """The m smallest eigenvalues of laplacian_7pt(nx^3): 6 - 2 cos(i pi /
+    (nx + 1)) - 2 cos(j pi / (nx + 1)) - 2 cos(k pi / (nx + 1))."""
+    c = np.cos(np.arange(1, 4) * np.pi / (nx + 1))
+    lam = sorted(6 - 2 * (c[i] + c[j] + c[k]) for i in range(3)
+                 for j in range(3) for k in range(3))
+    return np.asarray(lam[:m])
+
+
+def phase_lobpcg(dev, card):
+    """(f) LOBPCG at 96^3 (m 4, the V-cycle as T): the JAX package's
+    count, the eigenvalues the closed form's to 1e-6, the applications
+    (m (1 + its) matvec columns, m its V-cycles) and exactly their
+    launches.  Returns the numbers."""
+    from hypre_tpu_torch.models import laplacian_7pt
+    from hypre_tpu_torch.ops.dia import kernel_launches
+    from hypre_tpu_torch.profile_slice import profile_solve
+    from hypre_tpu_torch.solvers.amg import BoomerAMG
+
+    t0 = time.perf_counter()
+    amg = BoomerAMG(laplacian_7pt(NX, NX, NX), slice_options(dtype="float64"),
+                    device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    X0 = torch.from_numpy(np.random.default_rng(LOBPCG_SEED).standard_normal(
+        (NX**3, LOBPCG_M))).to(dev)
+    zero_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    res, calls = lobpcg_run(amg, X0)
+    end.record()
+    end.synchronize()
+    counts = read_counts()
+    lam = res.eigenvalues.cpu().numpy()
+    want_lam = lobpcg_closed_form(NX, LOBPCG_M)
+    lam_rel = float(np.max(np.abs(lam - want_lam) / want_lam))
+    its = res.num_iterations
+    expected = {name: 0 for name in counts}
+    for name, c in kernel_launches(amg.levels[0].A).items():
+        expected[name] += calls["A"] * c
+    for name, c in amg.cycle_launches().items():
+        expected[name] += calls["T"] * c
+    ms = start.elapsed_time(end)
+    # where a solve's device time goes: one more run under the profiler
+    _, wall, busy_us, events, _ = profile_solve(lambda: lobpcg_run(amg, X0))
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = [(name[:60], round(us / 1e3, 2)) for name, us in
+           sorted(by_name.items(), key=lambda kv: -kv[1])[:4]]
+    log(f"lobpcg [96^3 m {LOBPCG_M}; {card}]: {its} iterations (JAX "
+        f"package: {LOBPCG96}), eigenvalues {lam.tolist()} (closed form "
+        f"{want_lam.tolist()}, max rel err {lam_rel:.2e}), residual norms "
+        f"{res.residual_norms.cpu().numpy().tolist()}; setup {setup_s:.2f} "
+        f"s, solve {ms:.1f} ms; under the profiler wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy_us / 1e3:.1f} ms (idle "
+        f"{100 * (1 - busy_us / 1e6 / wall):.1f}%), the most device time "
+        f"(ms): {top}; applications {calls}; launches {counts}")
+    require(res.converged and its == LOBPCG96,
+            f"lobpcg: {its} iterations, the JAX package's {LOBPCG96}")
+    require(lam_rel <= 1e-6, f"lobpcg: eigenvalues {lam} are not the closed "
+                             f"form's {want_lam}")
+    require(calls == {"A": LOBPCG_M * (1 + its), "T": LOBPCG_M * its},
+            f"lobpcg: applications {calls}")
+    require(counts == expected, f"lobpcg: launches {counts} are not the "
+                                f"applications' {expected}")
+    return {"iterations": its, "eigenvalues": lam.tolist(),
+            "closed_form": want_lam.tolist(), "max_rel_err": lam_rel,
+            "setup_s": setup_s, "solve_ms": ms, "busy_ms": busy_us / 1e3,
+            "wall_ms": wall * 1e3, "top_device_ms": top,
+            "applications": calls, "launches": counts}
+
+
+def phase_k1_systems(amg, flush, card):
+    """K1 alone on the systems level 0 (19 offsets, 1,769,472 rows, f64):
+    against its plain version, timed beside it and a cuSPARSE CSR product
+    of the same operator's nonzeros; the bound on the DIA bytes (each
+    diagonal, x and y once) and on the nonzero bytes (the values of the
+    nonzeros, x and y).  Returns the numbers."""
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, dia_spmv_reference
+
+    A0 = amg.levels[0].A
+    data, offs = A0.data, A0.offsets
+    n = data.shape[1]
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(n)).to(
+        data.device)
+    y = dia_spmv_cuda(data, offs, x)
+    y_ref = dia_spmv_reference(data, offs, x)
+    torch.cuda.synchronize()
+    err = float((y - y_ref).abs().max())
+    rel = err / float(y_ref.abs().max())
+    require(rel <= 1e-12, f"K1 on the systems level 0 disagrees with its "
+                          f"plain version: rel {rel:.3e}")
+    Ah = amg._host_A[0].tocsr()
+    nnz = Ah.nnz
+    with warnings.catch_warnings():  # torch's "sparse CSR is beta" notice
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(Ah.indptr.astype(np.int64)),
+            torch.from_numpy(Ah.indices.astype(np.int64)),
+            torch.from_numpy(Ah.data), size=Ah.shape).to(data.device)
+    ms = time_cuda_ms(lambda: dia_spmv_cuda(data, offs, x), flush)
+    plain_ms = time_cuda_ms(lambda: dia_spmv_reference(data, offs, x), flush)
+    lib_ms = time_cuda_ms(lambda: csr @ x, flush)
+    dia_bytes = (len(offs) + 2) * n * 8
+    nz_bytes = (nnz + 2 * n) * 8
+    bms, by = bound_ms(dia_bytes, 2 * len(offs) * n, torch.float64)
+    nz_ms, _ = bound_ms(nz_bytes, 2 * nnz, torch.float64)
+    fill = nnz / (len(offs) * n)
+    log(f"K1 [systems level 0: {len(offs)} offsets {offs}, {n} rows, {nnz} "
+        f"nonzeros, DIA slots {100 * fill:.0f}% filled; {card}], L2 flushed, "
+        f"median of {REPS}: K1 {ms * 1e3:.1f} us ({dia_bytes / ms / 1e6:.0f} "
+        f"GB/s on the DIA bytes), plain {plain_ms * 1e3:.1f} us, cuSPARSE "
+        f"CSR {lib_ms * 1e3:.1f} us; bound {bms * 1e3:.1f} us on {dia_bytes / 1e6:.1f} "
+        f"MB of DIA bytes, {nz_ms * 1e3:.1f} us on {nz_bytes / 1e6:.1f} MB of "
+        f"nonzero bytes; max abs err {err:.2e}")
+    return {"offsets": len(offs), "rows": n, "nnz": nnz, "fill": fill,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bms, "bound_by": by, "bound_nonzero_bytes_ms": nz_ms,
+            "max_abs_err": err}
+
+
+def cgnr_card_vs_cpu(dev, precond, want):
+    """CGNR (`ij -solver 5` with the AMG V-cycle, `-solver 6` with the
+    diagonal) on difconv_7pt(24^3) and its transpose (K1 both), max_iter
+    50, on the card and on the CPU: the JAX package's count on both, the
+    histories within 1e-10 relative entry by entry, the card's
+    applications (1 + its of A, A^T and M) and exactly their launches."""
+    from hypre_tpu_torch.ops.csr import CSRMatrix
+    from hypre_tpu_torch.ops.dia import freeze_auto
+    from hypre_tpu_torch.solvers.amg import BoomerAMG
+
+    A, _ = problem_matrix("difconv", 24)
+    AT = CSRMatrix.from_scipy(A.to_scipy().T.tocsr())
+
+    def run(where):
+        amg = BoomerAMG(A, slice_options("ext+i", dtype="float64"),
+                        device=where)
+        A0 = amg.levels[0].A
+        AT0 = freeze_auto(AT, torch.float64, where)
+        b = torch.ones_like(amg.levels[0].dinv)
+        solve, calls = krylov_solve(amg, "cgnr", {}, b, A0, AT0, precond)
+        zero_counts()
+        res = solve()
+        counts = read_counts()
+        return res, counts, dict(calls), amg, A0, AT0
+
+    (rg, cg, calls, amg, A0, AT0), (rc, *_) = run(dev), run(torch.device("cpu"))
+    its = rg.num_iterations
+    expected = krylov_launches(amg, calls, A0, AT0, precond)
+    hg, hc = rg.res_norms.cpu().numpy(), rc.res_norms.numpy()
+    ok = ~np.isnan(hc)
+    hist = float(np.max(np.abs(hg[ok] - hc[ok]) / hc[ok]))
+    log(f"cgnr {precond} 24^3 card vs CPU: iterations {its} vs "
+        f"{rc.num_iterations} (JAX package: {want}), converged "
+        f"{rg.converged}; ||r|| / ||r0|| {hg[its] / hg[0]:.6f}; histories "
+        f"within {hist:.2e} relative; applications {calls}; launches {cg}")
+    require(its == rc.num_iterations == want,
+            f"cgnr {precond}: {its} (card), {rc.num_iterations} (CPU), JAX "
+            f"{want}")
+    require(np.array_equal(np.isnan(hg), np.isnan(hc)) and hist <= 1e-10,
+            f"cgnr {precond}: the card's history differs from the CPU's")
+    require(calls == predicted_calls("cgnr", {}, its),
+            f"cgnr {precond}: applications {calls}")
+    require(cg == expected, f"cgnr {precond}: launches {cg} are not {expected}")
+    return {"iterations": its, "converged": rg.converged,
+            "history_rel": hist, "applications": calls, "launches": cg}
+
+
+def lobpcg_card_vs_cpu(dev):
+    """LOBPCG at 24^3 (m 4, the V-cycle as T) on the card and on the CPU:
+    the JAX package's count on both, the eigenvalues within 1e-10
+    relative of each other and the closed form's to 1e-6."""
+    from hypre_tpu_torch.models import laplacian_7pt
+    from hypre_tpu_torch.solvers.amg import BoomerAMG
+
+    X0 = np.random.default_rng(LOBPCG_SEED).standard_normal((24**3, LOBPCG_M))
+
+    def run(where):
+        amg = BoomerAMG(laplacian_7pt(24, 24, 24),
+                        slice_options(dtype="float64"), device=where)
+        return lobpcg_run(amg, torch.from_numpy(X0).to(where))[0]
+
+    rg, rc = run(dev), run(torch.device("cpu"))
+    lg, lc = rg.eigenvalues.cpu().numpy(), rc.eigenvalues.numpy()
+    rel = float(np.max(np.abs(lg - lc) / lc))
+    closed = float(np.max(np.abs(lg - lobpcg_closed_form(24, LOBPCG_M))
+                          / lobpcg_closed_form(24, LOBPCG_M)))
+    log(f"lobpcg 24^3 card vs CPU: iterations {rg.num_iterations} vs "
+        f"{rc.num_iterations} (JAX package: {LOBPCG24}); eigenvalues "
+        f"{lg.tolist()}, within {rel:.2e} of the CPU's, {closed:.2e} of the "
+        f"closed form")
+    require(rg.num_iterations == rc.num_iterations == LOBPCG24
+            and rg.converged, f"lobpcg 24^3: {rg.num_iterations} (card), "
+                              f"{rc.num_iterations} (CPU), JAX {LOBPCG24}")
+    require(rel <= 1e-10 and closed <= 1e-6,
+            "lobpcg 24^3: the eigenvalues differ")
+    return {"iterations": rg.num_iterations, "eigenvalues": lg.tolist(),
+            "rel_to_cpu": rel, "rel_to_closed_form": closed}
+
+
+def phase_systems(dev, card):
+    """14. Systems / nodal / GSMG BoomerAMG, the Krylov family and LOBPCG.
+    At 96^3 through `run_cycle` (the JAX package's counts, launches
+    exactly, statistics, setup by phase, median of 20, busy): (a) the
+    oracle's nodal protocol on sys_laplacian_7pt x 2 with K1 alone timed
+    at its 19-offset level 0 and every operator held against its plain
+    version, (b) the unknown approach with ext+i, (c) (a) in f32/bf16, (d)
+    GSMG; (e) the Krylov family on one convection-diffusion hierarchy
+    (`run_krylov`); (f) LOBPCG.  At 24^3 card against CPU: nodal 1, 2,
+    3, 4, 6 with nodal_diag 0 and 1, a user dof_func, GSMG with 3
+    samples, the offset budgets on the lattice defaults with the JAX
+    package's gates, CGNR with both preconditioners, LOBPCG.  Returns
+    ({label: numbers} at 96^3, {label: numbers} at 24^3, K1's
+    systems row)."""
+    from hypre_tpu_torch.solvers.amg import BoomerAMG
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    out, k1_sys = {}, None
+    for label, (kind, kw, want, slack) in SYS96.items():
+        A, _ = problem_matrix(kind, NX)
+        opts = slice_options(**{"dtype": "float64", **kw})
+        amg, out[label] = run_cycle(opts, dev, card, label, want, slack, A=A)
+        out[label]["levels"] = [a.shape[0] for a in amg._host_A]
+        if label.startswith("(c)"):
+            log(f"cycles [{label}]: the count above is held to the port's own "
+                f"on the CPU; the JAX package's is {SYS96_F32_JAX}")
+        if label.startswith("(a)"):
+            k1_sys = phase_k1_systems(amg, flush, card)
+            out[label]["held"] = phase_hold_operators(amg, 1e-12, label)
+        del amg, A
+        torch.cuda.empty_cache()
+    # (e) one hierarchy, six solves
+    A, _ = problem_matrix("difconv", NX)
+    GLOBAL_TIMER.clear()
+    t0 = time.perf_counter()
+    amg = BoomerAMG(A, slice_options("ext+i", dtype="float64"), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in CYCLE_PHASES
+              if GLOBAL_TIMER.seconds(k)}
+    stats = statistics(amg)
+    log(f"krylov [difconv 96^3 ext+i; {card}]: levels "
+        f"{[a.shape[0] for a in amg._host_A]}; statistics {stats}; setup "
+        f"{setup_s:.2f} s (phases {phases})")
+    for label, ((name, kw), want) in KRYLOV96.items():
+        out[f"(e) {label}"] = run_krylov(amg, label, name, kw, want, card,
+                                         amg.levels[0].A)
+        out[f"(e) {label}"].update(statistics=stats, setup_s=setup_s,
+                                   phases=phases)
+    del amg, A, flush
+    torch.cuda.empty_cache()
+    out["(f) lobpcg"] = phase_lobpcg(dev, card)
+    torch.cuda.empty_cache()
+    # 24^3, card against CPU
+    small = {}
+    for label, (kind, kw, want) in SYS24.items():
+        A, dof = problem_matrix(kind, 24)
+        if dof is not None:
+            kw = dict(kw, dof_func=dof)
+        small[label] = card_vs_cpu(24, slice_options(dtype="float64", **kw),
+                                   dev, label, want, A=A)
+    for label, (kw, want) in BUDGET24.items():
+        small[label] = card_vs_cpu(
+            24, lattice_options(24, dtype="float64", relocate_min_n2=0, **kw),
+            dev, label, want, BUDGET24_GATES)
+    for precond, want in CGNR24.items():
+        small[f"cgnr {precond}"] = cgnr_card_vs_cpu(dev, precond, want)
+    small["lobpcg"] = lobpcg_card_vs_cpu(dev)
+    return out, small, k1_sys
 
 
 def counted_wrappers():
@@ -2852,6 +3388,12 @@ def main() -> int:
     log(f"the aggressive coarsening / interpolation / AIR phase took "
         f"{time.perf_counter() - agg_t0:.1f} s")
 
+    # -- 14. systems / nodal / GSMG, the Krylov family, LOBPCG ------------
+    sys_t0 = time.perf_counter()
+    systems, systems24, k1_sys = phase_systems(dev, card)
+    log(f"the systems / Krylov / LOBPCG phase took "
+        f"{time.perf_counter() - sys_t0:.1f} s")
+
     # `launches` counts the two f64 96^3 runs, the plain path's and the
     # lattice path's, each driven with the counts at 0 just before and
     # read just after; "per" says what the times cover
@@ -2874,7 +3416,9 @@ def main() -> int:
                                   **{f"cycles {k}": v["launches"][name]
                                      for k, v in cycles.items()},
                                   **{f"agg {k}": v["launches"][name]
-                                     for k, v in agg.items()}},
+                                     for k, v in agg.items()},
+                                  **{f"systems {k}": v["launches"][name]
+                                     for k, v in systems.items()}},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -2910,7 +3454,10 @@ def main() -> int:
               # the lattice hierarchies' operators, each whole (its K1
               # launches, its tail, its gather), L2 flushed
               lattice_f64=lattice_rows(lat_rows64),
-              lattice_f32_bf16=lattice_rows(lat_rows32)),
+              lattice_f32_bf16=lattice_rows(lat_rows32),
+              # K1 alone at the systems level 0 (19 offsets), with its
+              # bound on the nonzero bytes beside the DIA-bytes bound
+              systems_level0=k1_sys),
         # one f64 V-cycle's ELL matvecs, each timed alone and summed
         entry("ell_spmv", "hypre_tpu_torch/csrc/ell_spmv.cu",
               "scripts/exp_mosaic_gather.py:52", ell_err, *ell64[:5],
@@ -2995,7 +3542,8 @@ def main() -> int:
                                                        "f32_bf16": rap32},
                     "ext_i": ext, "gs": gs_runs, "device_setup": ds,
                     "cycles": cycles, "cycles_24": cycles24, "agg": agg,
-                    "agg_24": agg24, "air_24": air24}))
+                    "agg_24": agg24, "air_24": air24, "systems": systems,
+                    "systems_24": systems24}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

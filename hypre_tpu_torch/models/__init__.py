@@ -1,3 +1,7 @@
-from .laplacian import difconv_7pt, laplacian_7pt, laplacian_27pt
+from .laplacian import (difconv_7pt, laplacian_5pt_2d, laplacian_7pt,
+                        laplacian_9pt, laplacian_27pt, rotate_7pt,
+                        sys_laplacian_7pt, vardifconv_7pt)
 
-__all__ = ["difconv_7pt", "laplacian_7pt", "laplacian_27pt"]
+__all__ = ["difconv_7pt", "laplacian_5pt_2d", "laplacian_7pt",
+           "laplacian_9pt", "laplacian_27pt", "rotate_7pt",
+           "sys_laplacian_7pt", "vardifconv_7pt"]

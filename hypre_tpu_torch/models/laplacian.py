@@ -1,13 +1,17 @@
-"""The 3D 7-point and 27-point Laplacians and the 7-point
-convection-diffusion operator (port of hypre_tpu/models/laplacian.py:
-laplacian_7pt, laplacian_27pt, difconv_7pt).
+"""The problem generators (port of hypre_tpu/models/laplacian.py): the
+7-point, 5-point, 9-point and 27-point Laplacians, the 7-point
+convection-diffusion operator, the systems Laplacian, the rotated
+anisotropic Laplacian and the variable-coefficient convection-diffusion
+operator.  The row-block generator of the distributed path is not
+ported.
 
-Reference analog: parcsr_ls/par_laplace.c (GenerateLaplacian),
-par_laplace_27pt.c and par_difconv.c with the stencil values of
-test/ij.c:7799-7814 (7-pt), :9011-9016 (27-pt) and :8205-8343
-(difconv).  Grid indexing is hypre's: ix fastest, global row = ix +
-nx*(iy + ny*iz).  Homogeneous Dirichlet: out-of-grid neighbors are
-dropped and the diagonal is not adjusted.
+Reference analog: parcsr_ls/par_laplace.c (GenerateLaplacian,
+GenerateSysLaplacian), par_laplace_9pt.c, par_laplace_27pt.c,
+par_difconv.c, par_rotate_7pt.c and par_vardifconv.c with the stencil
+values of test/ij.c:7799-7814 (7-pt), :8885-8898 (9-pt), :9011-9016
+(27-pt) and :8205-8343 (difconv).  Grid indexing is hypre's: ix
+fastest, global row = ix + nx*(iy + ny*iz).  Homogeneous Dirichlet:
+out-of-grid neighbors are dropped and the diagonal is not adjusted.
 """
 
 from __future__ import annotations
@@ -171,3 +175,150 @@ def difconv_7pt(
     ]
     values = [diag, w, e, s, n_, d, u]
     return _stencil_matrix(nx, ny, nz, offsets, values)
+
+
+def laplacian_5pt_2d(nx, ny, c=1.0) -> CSRMatrix:
+    """2D 5-point Laplacian (the ex5 problem, unscaled: diag 4, offd -1)."""
+    return laplacian_7pt(nx, ny, 1, cx=c, cy=c, cz=0.0)
+
+
+def laplacian_9pt(nx, ny) -> CSRMatrix:
+    """2D 9-point Laplacian (ij.c:8885-8898: diag 8, all 8 neighbors -1)."""
+    diag = 0.0
+    if nx > 1:
+        diag += 2.0
+    if ny > 1:
+        diag += 2.0
+    if nx > 1 and ny > 1:
+        diag += 4.0
+    offsets = [(0, 0, 0)] + [
+        (dx, dy, 0) for dx in (-1, 0, 1) for dy in (-1, 0, 1) if (dx, dy) != (0, 0)
+    ]
+    values = [diag] + [-1.0] * 8
+    return _stencil_matrix(nx, ny, 1, offsets, values)
+
+
+# test/ij.c BuildParSysLaplacian's default inter-function coupling
+# matrices (sys_opt 0)
+_SYS_MTRX = {
+    2: [[2.0, 1.0], [1.0, 2.0]],
+    3: [[2.0, 1.0, 0.0], [1.0, 2.0, 1.0], [0.0, 1.0, 2.0]],
+    4: [
+        [1.01, 1.0, 0.0, 0.0],
+        [1.0, 2.0, 1.0, 0.0],
+        [0.0, 1.0, 1.01, 0.0],
+        [2.0, 1.0, 0.0, 1.0],
+    ],
+}
+
+# test/ij.c's -sysL_opt coupling variants (ij.c:7826-7975)
+_SYS_OPT_MTRX = {
+    (2, 1): [[1.0, 0.0], [0.0, 1.0]],
+    (2, 2): [[1.0, 0.0], [0.0, 20.0]],
+    (2, 3): [[1.0, 2.0], [2.0, 1.0]],
+    (2, 4): [[1.0, 1.0], [1.0, 1.0]],
+    (2, 5): [[1.0, 1.1], [1.1, 1.0]],
+    (2, 6): [[1.1, 1.0], [1.0, 1.1]],
+    (3, 1): [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]],
+    (3, 2): [[1.0, 0.0, 0.0], [0.0, 20.0, 0.0], [0.0, 0.0, 0.01]],
+    (3, 3): [[1.01, 1.0, 0.0], [1.0, 2.0, 1.0], [0.0, 1.0, 1.01]],
+    (3, 4): [[3.0, 1.0, 0.0], [1.0, 4.0, 2.0], [0.0, 2.0, 0.25]],
+    (3, 5): [[2.0, 1.0, 0.0], [1.0, 2.0, 1.0], [0.0, 1.0, 2.0]],
+}
+
+
+def sys_laplacian_7pt(nx: int, ny: int, nz: int, num_fun: int, mtrx=None,
+                      cx: float = 1.0, cy: float = 1.0, cz: float = 1.0,
+                      sys_opt: int = 0) -> CSRMatrix:
+    """Systems 7-pt Laplacian: A = L (x) M with interleaved unknowns
+    (row = grid_index * num_fun + function), as
+    parcsr_ls/par_laplace.c GenerateSysLaplacian with the test/ij.c
+    -sysL / -sysL_opt coupling matrices."""
+    L = laplacian_7pt(nx, ny, nz, cx, cy, cz).to_scipy()
+    if mtrx is None and sys_opt:
+        mtrx = _SYS_OPT_MTRX.get((num_fun, sys_opt))
+    M = np.asarray(
+        mtrx if mtrx is not None else _SYS_MTRX.get(num_fun, np.eye(num_fun)),
+        dtype=np.float64,
+    )
+    A = sp.kron(L, M, format="csr")
+    A.sort_indices()
+    return CSRMatrix.from_scipy(A)
+
+
+def rotate_7pt(nx: int, ny: int, alpha_deg: float, eps: float) -> CSRMatrix:
+    """2D rotated anisotropic Laplacian (parcsr_ls/par_rotate_7pt.c):
+    -div(K grad u) with K from rotation angle alpha and anisotropy eps,
+    on a 7-point 2D stencil (the mixed derivative on the skew pair)."""
+    alpha = np.deg2rad(alpha_deg)
+    c, s = np.cos(alpha), np.sin(alpha)
+    cxx = c * c + eps * s * s
+    cyy = s * s + eps * c * c
+    cxy = 2.0 * (1.0 - eps) * c * s
+
+    n = nx * ny
+    idx = np.arange(n)
+    ix, iy = idx % nx, idx // nx
+    rows_l, cols_l, vals_l = [], [], []
+
+    def add(dx, dy, v):
+        ok = (ix + dx >= 0) & (ix + dx < nx) & (iy + dy >= 0) & (iy + dy < ny)
+        rows_l.append(idx[ok])
+        cols_l.append(idx[ok] + dx + nx * dy)
+        vals_l.append(np.full(int(ok.sum()), v))
+
+    add(0, 0, 2 * cxx + 2 * cyy - 1.0 * cxy)
+    add(1, 0, -cxx + 0.5 * cxy)
+    add(-1, 0, -cxx + 0.5 * cxy)
+    add(0, 1, -cyy + 0.5 * cxy)
+    add(0, -1, -cyy + 0.5 * cxy)
+    add(1, 1, -0.5 * cxy)
+    add(-1, -1, -0.5 * cxy)
+    M = sp.csr_matrix(
+        (np.concatenate(vals_l), (np.concatenate(rows_l), np.concatenate(cols_l))),
+        shape=(n, n),
+    )
+    M.sum_duplicates()
+    M.sort_indices()
+    return CSRMatrix.from_scipy(M)
+
+
+def vardifconv_7pt(nx: int, ny: int, nz: int, eps: float = 1.0) -> CSRMatrix:
+    """Variable-coefficient diffusion-convection
+    (parcsr_ls/par_vardifconv.c): -div(a(x) grad u) + b(x).grad u with
+    a(x) = eps (1 + sin-bump), first-order upwind convection."""
+    n = nx * ny * nz
+    idx = np.arange(n)
+    ix = idx % nx
+    iy = (idx // nx) % ny
+    iz = idx // (nx * ny)
+    hx, hy, hz = 1.0 / (nx + 1), 1.0 / (ny + 1), 1.0 / (nz + 1)
+    x, y = (ix + 1) * hx, (iy + 1) * hy
+    a = eps * (1.0 + 0.5 * np.sin(2 * np.pi * x) * np.sin(2 * np.pi * y))
+    bx, by = y - 0.5, 0.5 - x
+
+    rows_l, cols_l, vals_l = [], [], []
+
+    def add(dx, dy, dz, v):
+        ok = ((ix + dx >= 0) & (ix + dx < nx) & (iy + dy >= 0) & (iy + dy < ny)
+              & (iz + dz >= 0) & (iz + dz < nz))
+        rows_l.append(idx[ok])
+        cols_l.append(idx[ok] + dx + nx * (dy + ny * dz))
+        vals_l.append(np.asarray(v)[ok] if np.ndim(v) else np.full(int(ok.sum()), v))
+
+    dfx, dfy, dfz = a / hx**2, a / hy**2, a / hz**2
+    ux, uy = np.abs(bx) / hx, np.abs(by) / hy
+    add(0, 0, 0, 2 * dfx + 2 * dfy + 2 * dfz + ux + uy)
+    add(1, 0, 0, -dfx + np.where(bx < 0, bx / hx, 0.0))
+    add(-1, 0, 0, -dfx - np.where(bx > 0, bx / hx, 0.0))
+    add(0, 1, 0, -dfy + np.where(by < 0, by / hy, 0.0))
+    add(0, -1, 0, -dfy - np.where(by > 0, by / hy, 0.0))
+    add(0, 0, 1, -dfz)
+    add(0, 0, -1, -dfz)
+    M = sp.csr_matrix(
+        (np.concatenate(vals_l), (np.concatenate(rows_l), np.concatenate(cols_l))),
+        shape=(n, n),
+    )
+    M.sum_duplicates()
+    M.sort_indices()
+    return CSRMatrix.from_scipy(M)

@@ -646,6 +646,63 @@ def parity_offset_count_plan(
     return len(np.unique(key))
 
 
+def parity_offset_budget_filter(M, point_cell, fine_shape, factors,
+                                budget: int):
+    """A transfer operator truncated to its `budget` heaviest parity
+    diagonals (total over the parity classes); the relocated levels'
+    transfer_offset_budget (off by default).
+
+    M: scipy sparse in the build_parity_interp convention, rows the fine
+    lattice indices, columns the points (point_cell[j] the cell of point
+    j).  Keeps the entries on the budget (parity, offset) diagonals of
+    most |value| mass; a row that would lose every entry keeps its
+    largest one; kept rows are rescaled to their old row sums, hypre's
+    interpolation-truncation semantics (par_interp.c
+    hypre_BoomerAMGInterpTruncation).  R is built from the filtered M's
+    transpose, so R = P^T stays exact."""
+    import scipy.sparse as sp
+
+    Mc = M.tocoo()
+    if Mc.nnz == 0:
+        return M
+    nx, ny, nz = fine_shape
+    fx, fy, fz = factors
+    ncells = (nx // fx) * (ny // fy) * (nz // fz)
+    rcell, par = _cells_of_fine(Mc.row.astype(np.int64), fine_shape, factors)
+    c = np.asarray(point_cell, dtype=np.int64)[Mc.col]
+    key = par.astype(np.int64) * (2 * ncells + 1) + (c - rcell + ncells)
+    ukey, inv = np.unique(key, return_inverse=True)
+    if budget <= 0 or len(ukey) <= budget:
+        return M
+    absd = np.abs(Mc.data)
+    mass = np.bincount(inv, weights=absd)
+    order = np.argsort(-mass, kind="stable")[:budget]
+    kept_key = np.zeros(len(ukey), dtype=bool)
+    kept_key[order] = True
+    keep = kept_key[inv]
+    # rows that would empty keep their largest-|value| entry
+    n_rows = M.shape[0]
+    row_best = np.full(n_rows, -1, dtype=np.int64)
+    o = np.argsort(absd, kind="stable")  # ascending: the last write is the max
+    row_best[Mc.row[o]] = o
+    row_has_kept = np.zeros(n_rows, dtype=bool)
+    row_has_kept[Mc.row[keep]] = True
+    rescue_rows = np.flatnonzero(~row_has_kept & (row_best >= 0))
+    keep[row_best[rescue_rows]] = True
+    # row-sum-preserving rescale of the kept entries
+    s_old = np.bincount(Mc.row, weights=Mc.data, minlength=n_rows)
+    s_new = np.bincount(Mc.row[keep], weights=Mc.data[keep], minlength=n_rows)
+    safe = np.abs(s_new) > 1e-12 * np.maximum(np.abs(s_old), 1e-300)
+    scale = np.where(safe & (s_new != 0),
+                     s_old / np.where(s_new == 0, 1, s_new), 1.0)
+    out = sp.csr_matrix(
+        (Mc.data[keep] * scale[Mc.row[keep]], (Mc.row[keep], Mc.col[keep])),
+        shape=M.shape,
+    )
+    out.sort_indices()
+    return out
+
+
 def relocate_to_cells(pos, fine_shape, factors, max_load=0.9):
     """Assign each point (fine flat lattice index) a DISTINCT cell of the
     factor-coarsened lattice near its own position (host, deterministic;

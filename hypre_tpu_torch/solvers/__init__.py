@@ -1,0 +1,3 @@
+from .krylov import bicgstab, gmres, pcg
+
+__all__ = ["bicgstab", "gmres", "pcg"]

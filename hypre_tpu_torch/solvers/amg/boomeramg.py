@@ -5,16 +5,21 @@ Reference: parcsr_ls/par_amg_setup.c (hypre_BoomerAMGSetup), par_cycle.c
 (hypre_BoomerAMGCycle).
 
 Setup is host-side numpy/scipy plus the native C kernels, as in the JAX
-package: classical or absolute strength, PMIS / HMIS / RS / CLJP /
-Falgout / CGC / CR coarsening, the aggressive second round on the first
-agg_num_levels levels (multipass or the two-stage product), the nine
-interpolations of interp_type, truncation, Jacobi post-interpolation,
-Galerkin RAP (R A P with an AIR restriction R != P^T) and the optional
-non-Galerkin filter; the smoothed solve-phase P of mult_additive /
-simple, and the nested coarse BoomerAMG of seq_threshold.  Each level
-is then frozen into torch tensors on an explicit device, and the cycle
-runs eagerly on that device: hypre's nonrecursive state machine (V, W
-and F cycles, par_cycle.c) or the additive cycle (par_add_cycle.c).
+package: classical, absolute or GSMG strength, PMIS / HMIS / RS / CLJP /
+Falgout / CGC / CR coarsening (of the nodal norm matrix with nodal >
+0), the aggressive second round on the first agg_num_levels levels
+(multipass or the two-stage product), the nine interpolations of
+interp_type, truncation, Jacobi post-interpolation, Galerkin RAP (R A P
+with an AIR restriction R != P^T) and the optional non-Galerkin filter;
+the smoothed solve-phase P of mult_additive / simple, and the nested
+coarse BoomerAMG of seq_threshold.  Systems (num_functions > 1) take
+the "unknown approach": strength and interpolation see only the
+couplings within one function (`_mask_cross_dof`), RAP and the
+smoothers the whole matrix, and dof_func follows the C points down the
+hierarchy.  Each level is then frozen into torch tensors on an
+explicit device, and the cycle runs eagerly on that device: hypre's
+nonrecursive state machine (V, W and F cycles, par_cycle.c) or the
+additive cycle (par_add_cycle.c).
 The fine operator is DIA (its matvec is the hand-written kernel K1 on
 CUDA).
 
@@ -55,9 +60,11 @@ down and up sweeps (relax 0/5/7/18 Jacobi, 1-4/6/8/13/14
 level-scheduled Gauss-Seidel with omega and the CF-ordered sweeps of
 relax_order 1, 15 CG, 16 Chebyshev, 17 FCF-Jacobi), the stationary
 solve (`solve`, hypre's solver 0) and its transpose (`solveT`), the
-statistics of par_stats.c and the lattice path with the device setup
-chain; every other option must keep its default (systems, nodal / GSMG,
-smooth_type, the offset budgets): `check_options` raises
+statistics of par_stats.c, systems AMG (num_functions, dof_func,
+nodal coarsening with nodal_diag, GSMG strength) and the lattice path
+with the device setup chain and the relocated forms' offset budgets;
+every other option must keep its default (smooth_type,
+smooth_num_levels, the euclid_* fields): `check_options` raises
 NotImplementedError otherwise.
 """
 
@@ -79,7 +86,7 @@ from ...ops.dia import (DENSE_MAX_ROWS, DIA_MAX_OFFSETS, DenseMatrix,
                         build_parity_interp, build_parity_restrict,
                         csr_to_dia, device_lattice_dia,
                         embedded_offset_count, embedded_offsets,
-                        freeze_auto, on_cells,
+                        freeze_auto, on_cells, parity_offset_budget_filter,
                         parity_offset_count_plan, relocate_to_cells, spmv,
                         spmv_axpy, spmv_resid, tail_min_count)
 from ...utils.timing import timed
@@ -91,10 +98,11 @@ from .interp import (air_restriction, classical_interp, direct_interp,
                      extended_i_interp, extended_interp, ff_interp,
                      jacobi_interp, multipass_interp, standard_interp,
                      truncate_interp)
-from .rap import galerkin_rap, nongalerkin_filter
+from .rap import galerkin_rap, nongalerkin_filter, offset_budget_filter
 from .relax import (ChebyData, GSMatrix, build_gs_schedule,
                     cheby_setup, chebyshev, gauss_seidel, jacobi, jacobi_cf)
-from .strength import second_strength, strength_matrix, strength_matrix_abs
+from .strength import (create_nodal_A, gsmg_strength, second_strength,
+                       strength_matrix, strength_matrix_abs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +225,9 @@ _IMPLEMENTED = frozenset({
     "add_rlx_wt", "agg_num_levels", "agg_P_max_elmts", "agg_trunc_factor",
     "agg_interp_type", "num_paths", "post_interp_type",
     "jacobi_trunc_threshold", "restrict_type", "filter_threshold_r",
-    "air_neumann_degree",
+    "air_neumann_degree", "num_functions", "dof_func", "nodal", "nodal_diag",
+    "gsmg", "num_samples", "relocate_offset_budget",
+    "transfer_offset_budget", "relocate_lump",
 })
 _JACOBI = (0, 5, 7, 18)
 # level-scheduled Gauss-Seidel: 1/2/3/13 forward, 4/14 backward, 6/8 both
@@ -318,6 +328,16 @@ def check_options(o: BoomerAMGOptions) -> None:
         ("restrict_type", o.restrict_type in (0, 1, 2)),
         ("air_neumann_degree", o.air_neumann_degree >= -1),
         ("nongalerkin_lump", o.nongalerkin_lump in ("diag", "strong")),
+        ("num_functions", o.num_functions >= 1),
+        # create_nodal_A's norms: Frobenius, |.| sum, signed largest,
+        # inf norm, signed sum
+        ("nodal", o.nodal in (0, 1, 2, 3, 4, 6)),
+        ("nodal_diag", o.nodal_diag in (0, 1, 2)),
+        ("gsmg", o.gsmg >= 0),
+        ("num_samples", o.num_samples >= 1),
+        ("relocate_offset_budget", o.relocate_offset_budget >= 0),
+        ("transfer_offset_budget", o.transfer_offset_budget >= 0),
+        ("relocate_lump", o.relocate_lump in ("diag", "strong")),
         ("mat_dtype", (o.dtype, o.mat_dtype or o.dtype) in _DTYPES),
     )
     for name, ok in checks:
@@ -403,6 +423,14 @@ class BoomerAMG:
                 shape=A.shape,
             )
             A.has_sorted_indices = True
+        nf = o.num_functions
+        if o.dof_func is not None:
+            dof = np.asarray(o.dof_func, dtype=np.int64)
+            if dof.shape != (A.shape[0],):
+                raise ValueError(f"dof_func has shape {dof.shape}, the "
+                                 f"matrix {A.shape[0]} rows")
+        else:
+            dof = np.arange(A.shape[0], dtype=np.int64) % nf
         with timed("SETUP"):
             fast = (self._device_setup_level0(A) if self._fast_eligible(A)
                     else None)
@@ -416,23 +444,31 @@ class BoomerAMG:
                 A = fast["A1_host"]
             while True:
                 n = A.shape[0]
+                # what strength and interpolation see of a system
+                A_si = A if nf <= 1 else self._mask_cross_dof(A, dof)
                 last = (len(self._host_A) >= o.max_levels - 1
                         or n <= o.max_coarse_size
                         or (o.seq_threshold > 0 and n <= o.seq_threshold
                             and len(self._host_A) > 0))
                 if not last:
                     with timed("STRENGTH"):
-                        if o.strength_abs:
+                        if o.gsmg > 0:
+                            S = gsmg_strength(
+                                A_si, o.num_samples, seed=o.seed,
+                                dof_func=dof if nf > 1 else None)
+                        elif o.strength_abs:
                             # the reference's useSabs call hardwires
                             # max_row_sum 1.0 (par_amg_setup.c:1040-1045):
                             # the user's max_row_sum is ignored here
                             S = strength_matrix_abs(A, o.strong_threshold, 1.0)
                         else:
-                            S = strength_matrix(A, o.strong_threshold,
+                            S = strength_matrix(A_si, o.strong_threshold,
                                                 o.max_row_sum)
                     with timed("COARSEN"):
                         cf = self._device_cf0(A)
-                        if cf is None:
+                        if cf is None and nf > 1 and o.nodal > 0:
+                            cf = self._nodal_cf(A)
+                        elif cf is None:
                             cf = _COARSEN[o.coarsen_type](S, A, o.seed)
                     nc = int((cf > 0).sum())
                     if nc == 0 or nc == n or nc < o.min_coarse_size:
@@ -442,12 +478,12 @@ class BoomerAMG:
                     self._cf.append(np.zeros(n, dtype=np.int64))
                     break
                 with timed("INTERP"):
-                    P, cf = self._interp_level(A, S, cf)
+                    P, cf = self._interp_level(A, A_si, S, cf)
                 with timed("RAP"):
                     R = None  # R = P^T, made at freeze
                     if o.restrict_type > 0:
                         R = air_restriction(
-                            A, S, cf, o.filter_threshold_r,
+                            A_si, S, cf, o.filter_threshold_r,
                             distance=o.restrict_type,
                             neumann_degree=o.air_neumann_degree)
                         Ac = (R @ (A @ P)).tocsr()
@@ -466,14 +502,48 @@ class BoomerAMG:
                 self._host_R.append(R)
                 self._cf.append(cf)
                 A = Ac
+                if nf > 1:
+                    dof = dof[cf > 0]
             self._apply_mult_additive_P()
         # outside SETUP's scope: the nested instance times its own
         self._build_seq_coarse()
 
-    def _interp_level(self, A, S, cf):
+    @staticmethod
+    def _mask_cross_dof(A, dof):
+        """A with the couplings between different functions removed (the
+        "unknown approach": par_strength.c:254 and the dof_func guards
+        of every interpolation routine skip them; they are not lumped)."""
+        Ac = A.tocoo(copy=True)
+        keep = (dof[Ac.row] == dof[Ac.col]) | (Ac.row == Ac.col)
+        Ac.data = np.where(keep, Ac.data, 0.0)
+        M = Ac.tocsr()
+        M.eliminate_zeros()
+        M.sort_indices()
+        return M
+
+    def _nodal_cf(self, A) -> np.ndarray:
+        """Nodal coarsening (par_nodal_systems.c): coarsen the nodal norm
+        matrix (create_nodal_A with nodal / nodal_diag) and give every
+        function of a node its node's CF decision.  The signed norms
+        (3, 6) and any nodal_diag take the classical strength test, the
+        others the absolute one (hypre_BoomerAMGCreateSabs)."""
+        o = self.opts
+        nf = o.num_functions
+        AN = create_nodal_A(A, nf, o.nodal, o.nodal_diag)
+        if o.nodal in (3, 6) or o.nodal_diag > 0:
+            SN = strength_matrix(AN, o.strong_threshold, o.max_row_sum)
+        else:
+            SN = strength_matrix_abs(AN, o.strong_threshold, o.max_row_sum)
+        # CR relaxes on AN (the JAX package hands it the unknown-wise A,
+        # whose CF marker the repeat would then stretch nf-fold)
+        return np.repeat(_COARSEN[o.coarsen_type](SN, AN, o.seed), nf)
+
+    def _interp_level(self, A, A_si, S, cf):
         """(P, CF marker) of one level (the JAX package's boomeramg.py
-        :503-572).  On the first agg_num_levels levels the aggressive
-        round: with agg_interp_type 4 a second coarsening of the C
+        :503-572); A_si is A as strength and interpolation see it (of a
+        system, without the cross-function couplings).  On the first
+        agg_num_levels levels the aggressive round: with agg_interp_type
+        4 a second coarsening of the C
         points on the S S + 2 S graph (`second_strength`; PMIS with
         hypre's CF_init 3, HMIS with S2-isolated points kept C), the
         combined CF marker, multipass interpolation on A; with 1 the
@@ -483,6 +553,7 @@ class BoomerAMG:
         P_max_elmts.  Then post_interp_type Jacobi steps."""
         o = self.opts
         agg = len(self._host_A) < o.agg_num_levels
+        interp = _INTERP[o.interp_type]
         if agg and o.agg_interp_type == 4:
             S2 = second_strength(S, cf, o.num_paths)
             if o.coarsen_type == "pmis":
@@ -495,10 +566,10 @@ class BoomerAMG:
                     cf2 = np.where(np.diff(S2.indptr) == 0, 1, cf2)
             if 0 < (cf2 > 0).sum() < (cf > 0).sum():
                 cf = _combine_cf(cf, cf2)
-            P = truncate_interp(multipass_interp(A, S, cf),
+            P = truncate_interp(multipass_interp(A_si, S, cf),
                                 o.agg_trunc_factor, o.agg_P_max_elmts)
         elif agg:
-            P = P1 = truncate_interp(_INTERP[o.interp_type](A, S, cf),
+            P = P1 = truncate_interp(interp(A_si, S, cf),
                                      o.trunc_factor, o.P_max_elmts)
             A_mid = galerkin_rap(A, P1)
             S2 = strength_matrix(A_mid, o.strong_threshold, o.max_row_sum)
@@ -506,16 +577,16 @@ class BoomerAMG:
             # _coarsen does here
             cf2 = _COARSEN[o.coarsen_type](S2, A, o.seed)
             if 0 < (cf2 > 0).sum() < A_mid.shape[0]:
-                P2 = truncate_interp(_INTERP[o.interp_type](A_mid, S2, cf2),
+                P2 = truncate_interp(interp(A_mid, S2, cf2),
                                      o.trunc_factor, o.P_max_elmts)
                 P = truncate_interp((P1 @ P2).tocsr(), o.agg_trunc_factor,
                                     o.agg_P_max_elmts)
                 cf = _combine_cf(cf, cf2)
         else:
-            P = truncate_interp(_INTERP[o.interp_type](A, S, cf),
+            P = truncate_interp(interp(A_si, S, cf),
                                 o.trunc_factor, o.P_max_elmts)
         if o.post_interp_type > 0:
-            P = jacobi_interp(A, P, cf, o.post_interp_type,
+            P = jacobi_interp(A_si, P, cf, o.post_interp_type,
                               o.jacobi_trunc_threshold)
         return P, cf
 
@@ -570,11 +641,12 @@ class BoomerAMG:
 
     def _device_cf0(self, A) -> Optional[np.ndarray]:
         """With device_coarsen, at level 0 of a lattice operator of few
-        diagonals (the JAX package's gate), the CF marker by device_pmis
-        on A's f64 DIA table, bitwise pmis_coarsen's; else None."""
+        diagonals, one function and no GSMG (the JAX package's gate),
+        the CF marker by device_pmis on A's f64 DIA table, bitwise
+        pmis_coarsen's; else None."""
         o = self.opts
         if (not o.device_coarsen or self._host_A or o.lattice_shape is None
-                or o.coarsen_type != "pmis"
+                or o.coarsen_type != "pmis" or o.num_functions > 1 or o.gsmg
                 or len(native.dia_offsets_only(A)) > DIA_MAX_OFFSETS):
             return None
         D0 = csr_to_dia(CSRMatrix.from_scipy(A), "float64", self.device)
@@ -586,13 +658,11 @@ class BoomerAMG:
     # the device-resident level-0 setup (ops/device_setup.py)
     # ------------------------------------------------------------------
     def _fast_eligible(self, A) -> bool:
-        """The JAX package's gate of the device chain.  Its other
-        conditions (one function, no GSMG or nodal coarsening) hold in
-        the port whenever check_options passes."""
+        """The JAX package's gate of the device chain."""
         o = self.opts
         if not o.device_setup or o.lattice_shape is None:
             return False
-        if o.agg_num_levels:
+        if o.num_functions > 1 or o.gsmg or o.nodal or o.agg_num_levels:
             return False
         if o.coarsen_type != "pmis" or o.interp_type != "classical":
             return False
@@ -1105,6 +1175,8 @@ class BoomerAMG:
             tmin = tail_min_count(ncells, itemsize) if o.relocate_tail else 0
             if n_k > DENSE_MAX_ROWS:
                 cnt = embedded_offset_count(A_k, rcell, rcell, tail_min=tmin)
+                if o.relocate_offset_budget > 0:
+                    cnt = min(cnt, o.relocate_offset_budget)
                 if cnt > o.max_relocated_offsets or (
                     cnt * ncells * itemsize > o.relocate_max_bytes
                 ):
@@ -1125,6 +1197,10 @@ class BoomerAMG:
                     tail_min=tmin,
                 ),
             )
+            if o.transfer_offset_budget > 0:
+                # the budget plus the rows' rescue entries (each row
+                # that would empty keeps its largest entry)
+                pr_offs = min(pr_offs, 2 * o.transfer_offset_budget)
             if pr_offs > o.max_relocated_offsets or (
                 pr_offs * ncells * itemsize > o.relocate_max_bytes
             ):
@@ -1162,6 +1238,10 @@ class BoomerAMG:
             A_k = self._host_A[k]
             n_k = A_k.shape[0]
             if n_k > DENSE_MAX_ROWS:
+                if o.relocate_offset_budget > 0:
+                    A_k = offset_budget_filter(A_k, rcell,
+                                               o.relocate_offset_budget,
+                                               lump=o.relocate_lump)
                 A_new = build_embedded_dia(A_k, rcell, rcell, ncells, mdt, dev,
                                            tail_min=tmin)
             else:
@@ -1170,6 +1250,9 @@ class BoomerAMG:
                                     num_rows=n_k, num_cols=n_k)
                 A_new = self._on_cells(dense, rcell, ncells)
             # parity transfer operators between lattice k-1 and k
+            if o.transfer_offset_budget > 0:
+                Pf = parity_offset_budget_filter(Pf, rcell, lat_shape, factors,
+                                                 o.transfer_offset_budget)
             self.levels[k - 1] = dataclasses.replace(
                 self.levels[k - 1],
                 P=build_parity_interp(Pf, rcell, lat_shape, factors, mdt, dev,

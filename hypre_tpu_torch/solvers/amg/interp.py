@@ -1,14 +1,15 @@
 """Interpolation P, AIR restriction R and their truncation (port of
 hypre_tpu/solvers/amg/interp.py: classical_interp, direct_interp,
 extended_i_interp, multipass_interp, standard_interp, ff_interp,
-extended_interp, jacobi_interp, air_restriction, truncate_interp and
-the helpers _split, _coo, _csr_lookup, _pattern_mask, _rescale_rows).
+extended_interp, jacobi_interp, air_restriction, truncate_interp,
+interp_vec_modify and the helpers _split, _coo, _csr_lookup, _pattern_mask, _rescale_rows).
 
 Reference: parcsr_ls/par_interp.c (modified classical, interp_type 0,
 and direct, 3), par_lr_interp.c (extended+i 6, standard 8 / 9, FF 12,
 FF1 13, extended 14), par_multi_interp.c (multipass, the aggressive
 default), par_jacobi_interp.c (post_interp_type), par_restr.c /
 par_lr_restr.c (AIR, restrict_type 1 / 2), and
+par_sv_interp.c's role (interp_vec_modify, the GM / LN variants), and
 hypre_ParCSRMatrixTruncate (par_csr_matrix.c:2671: drop below
 tol*max|row|, cap at max_elmts largest-|.| in qsort2_abs tie order,
 rescale to preserve row sums).  Classical and extended+i are filled by
@@ -631,3 +632,46 @@ def air_restriction(
         R = _coo(Rc.data[keep], Rc.row[keep], Rc.col[keep], (nc, n))
     R.sort_indices()
     return R
+
+
+def interp_vec_modify(P: sp.csr_matrix, cf: np.ndarray, vecs: np.ndarray,
+                      variant: int = 2) -> sp.csr_matrix:
+    """Interpolation-vector modification (par_sv_interp.c /
+    interp_vec_variant, the GM / LN family): adjust P's F rows so the
+    given smooth vectors are interpolated exactly, (P V_C)[i] == V[i]
+    for every F row i.
+
+    Variant 2: each F row takes the minimum-norm weight correction that
+    meets its k constraints (the least-squares best one through a pinv
+    where the row has fewer coarse neighbours than constraints; hypre's
+    GM grows the coarse space instead).  Variant 1: the correction goes
+    to the row's largest-|w| entry alone.  Rows already exact to 1e-14,
+    and rows with a degenerate local Gram, stay as they are."""
+    V = np.atleast_2d(np.asarray(vecs, dtype=np.float64))
+    if V.shape[0] != P.shape[0]:
+        V = V.T
+    is_c = cf > 0
+    Vc = V[is_c]  # coarse-point values, rows aligned with P's columns
+    P = P.tocsr().copy()
+    P.sort_indices()
+    indptr, indices, data = P.indptr, P.indices, P.data
+    for i in np.flatnonzero(~is_c):
+        s, e = indptr[i], indptr[i + 1]
+        if e == s:
+            continue
+        w = data[s:e]
+        B = Vc[indices[s:e]]  # [m, k]
+        r = V[i] - w @ B
+        if not np.any(np.abs(r) > 1e-14):
+            continue
+        if variant == 1 and len(w) > 1:
+            j = int(np.argmax(np.abs(w)))
+            bj = B[j]
+            den = bj @ bj
+            if den > 1e-28:
+                data[s + j] += (r @ bj) / den
+            continue
+        lam = np.linalg.pinv(B.T @ B, rcond=1e-12) @ r
+        data[s:e] = w + B @ lam
+    P.eliminate_zeros()
+    return P

@@ -25,12 +25,24 @@ def taxpy(alpha, x: Vec, y: Vec) -> Vec:
     return y + alpha * x
 
 
+def tscale(alpha, x: Vec) -> Vec:
+    return alpha * x
+
+
 def tsub(x: Vec, y: Vec) -> Vec:
     return x - y
 
 
+def tadd(x: Vec, y: Vec) -> Vec:
+    return x + y
+
+
 def tzeros_like(x: Vec) -> Vec:
     return torch.zeros_like(x)
+
+
+def tnorm2(x: Vec) -> torch.Tensor:
+    return torch.sqrt(tdot(x, x))
 
 
 def identity_precond(r: Vec) -> Vec:

@@ -17,6 +17,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.profile_slice",
     "hypre_tpu_torch.lane_sweep",
     "hypre_tpu_torch.models.laplacian",
+    "hypre_tpu_torch.ops.blas1",
     "hypre_tpu_torch.ops.cell_dense_kernel",
     "hypre_tpu_torch.ops.csr",
     "hypre_tpu_torch.ops.device_rap",
@@ -37,7 +38,14 @@ SLICE_MODULES = [
     "hypre_tpu_torch.solvers.amg.rap",
     "hypre_tpu_torch.solvers.amg.relax",
     "hypre_tpu_torch.solvers.amg.strength",
+    "hypre_tpu_torch.solvers.eigen.lobpcg",
+    "hypre_tpu_torch.solvers.krylov.bicgstab",
+    "hypre_tpu_torch.solvers.krylov.cgnr",
+    "hypre_tpu_torch.solvers.krylov.cogmres",
     "hypre_tpu_torch.solvers.krylov.common",
+    "hypre_tpu_torch.solvers.krylov.flexgmres",
+    "hypre_tpu_torch.solvers.krylov.gmres",
+    "hypre_tpu_torch.solvers.krylov.lgmres",
     "hypre_tpu_torch.solvers.krylov.pcg",
     "hypre_tpu_torch.utils.errors",
     "hypre_tpu_torch.utils.lcg",

@@ -386,11 +386,11 @@ def test_entry_options_hierarchy_equals_jax():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(smooth_type=9), "smooth_type"),
-    (dict(relocate_offset_budget=64), "relocate_offset_budget"),
-    (dict(transfer_offset_budget=64), "transfer_offset_budget"),
-    (dict(num_functions=2), "num_functions"),
-    (dict(gsmg=1), "gsmg"),
-    (dict(nodal=1), "nodal"),
+    (dict(relocate_lump="bogus"), "relocate_lump"),
+    (dict(relocate_offset_budget=-1), "relocate_offset_budget"),
+    (dict(smooth_num_levels=2), "smooth_num_levels"),
+    (dict(euclid_fill=2), "euclid_fill"),
+    (dict(euclid_colored=False), "euclid_colored"),
 ])
 def test_unported_lattice_options_raise(kw, match):
     opts = BoomerAMGOptions(**{**LATTICE, "dtype": "float64", **kw})
