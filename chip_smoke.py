@@ -144,10 +144,29 @@ Phases (any failure raises and the script exits non-zero):
      budgets on the lattice defaults with the JAX package's gates
      (BUDGET24), CGNR with the V-cycle and with the diagonal (CGNR24,
      the histories), LOBPCG (LOBPCG24).
+ 15. the ij driver (hypre_tpu_torch/drivers/ij.py) and what it reaches,
+     each run through the driver's `run(argv, device=...)` with the
+     counts at 0 before and read after: (a) the oracle line at 96^3
+     (IJ96_ORACLE: exactly 25 iterations, the true residual, the
+     complexity lines the JAX driver prints, launches exactly as the
+     hierarchy says, the lattice forms engaged; median of 20, busy);
+     (f) that hierarchy saved (utils/io.py), loaded on the card, solved
+     again: the same count and x bitwise; (b) AMG hybrid (-solver 20
+     -rlx 18: the JAX package's DS-PCG and AMG-PCG counts, launches
+     exactly); (c) ILU(1)-GMRES (-solver 81: the JAX package's count,
+     two gs_sweep launches an application, the factor and schedule
+     times; gs_sweep on both factors' schedules and one whole
+     application held against the plain version); (d) IJ assembly of
+     the 96^3 Laplacian on the host and the card from one seeded
+     interleaved Set/AddTo stream, both bitwise the operator, and from
+     a second stream of inexact AddTo sums, each of two card runs
+     within 1e-12 of the host accumulator, whether they repeat bitwise
+     reported; (e) -smtype 6 / 8 / 9 -smlv 2 at 48^3 and (g) every
+     other solver id at 24^3, card against CPU.
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
 the GS family, the device setup chain, the cycle options, aggressive
-coarsening and AIR, the systems phase), the kernel report and {"ok":
-true, ...}.
+coarsening and AIR, the systems phase, the ij phase), the kernel report
+and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -278,19 +297,8 @@ def check_solution(amg, res, n):
     meets the solve's tolerance up to what x's own precision allows:
     tol + 4 eps ||A||_inf ||x|| / ||b||, eps of the solve's dtype (in
     float32 that term is ~1e-4 at 96^3, in float64 negligible)."""
-    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_reference
-
-    x = res.x
-    require(x.shape == (n,), f"solution shape {tuple(x.shape)}")
-    require(bool(torch.isfinite(x).all()), "non-finite solution")
-    A0 = amg.levels[0].A
-    d64, x64 = A0.data.double(), x.double()
-    b = torch.ones_like(x64)
-    r = b - dia_spmv_reference(d64, A0.offsets, x64)
-    nb = float(torch.linalg.vector_norm(b))
-    rel = float(torch.linalg.vector_norm(r)) / nb
-    bound = 1e-6 + 4 * torch.finfo(x.dtype).eps * float(
-        d64.abs().sum(0).max()) * float(torch.linalg.vector_norm(x64)) / nb
+    require(res.x.shape == (n,), f"solution shape {tuple(res.x.shape)}")
+    rel, bound = true_residual(amg.levels[0].A, res.x, 1e-6)
     require(rel < bound, f"true relative residual {rel:.3e} above {bound:.3e}")
     return rel, bound
 
@@ -3102,6 +3110,481 @@ def phase_systems(dev, card):
     return out, small, k1_sys
 
 
+# -- 15. the ij driver, IJ assembly, checkpoints, AMG hybrid, ILU and the
+# -- complex smoothers ----------------------------------------------------
+
+# The oracle line (BASELINE.md): hypre's 25 iterations, and the JAX
+# package's on the CPU; its complexity lines as the JAX driver prints
+# them at 96^3; AMG hybrid's DS-PCG and AMG-PCG phases and ILU(1)-GMRES,
+# the JAX package's CPU counts.  `python -m pytest -m slow
+# tests/test_torch_ij_pins.py` recomputes them (the JAX package on the
+# CPU with its lattice forms off: they change the hierarchy's operators
+# only by rounding, and its 96^3 lattice build needs ~50 GB of host
+# memory; ~1 min).
+IJ96_ORACLE = "-n 96 96 96 -solver 1 -pmis -interptype 0 -Pmx 4 -rlx 18 -tol 1e-6"
+IJ96_ITERS = 25
+IJ96_COMPLEXITY = ("1.388158", "2.246793")  # grid, operator
+IJ96_HYBRID = "-n 96 96 96 -solver 20 -rlx 18"
+IJ96_HYBRID_ITERS = (2, 17)  # DS-PCG, then AMG-PCG
+IJ96_ILU = "-n 96 96 96 -solver 81 -ilu_lfil 1 -k 20 -max_iter 500 -tol 1e-6"
+IJ96_ILU_ITERS = 79
+# the complex smoothers on 2 levels under AMG-GMRES (PCG stalls with
+# the restricted additive Schwarz smoother, which is not symmetric, in
+# both packages), card against CPU
+IJ48_SMOOTHERS = {st: f"-n 48 48 48 -solver 3 -smtype {st} -smlv 2"
+                  for st in (6, 8, 9)}
+# every other solver id at 24^3, card against CPU (CGNR stops at 20
+# iterations unconverged, as in tests/test_torch_ij_driver.py)
+IJ24 = {s: f"-n 24 24 24 -solver {s}" for s in (0, 2, 3, 4, 9, 10, 16, 50,
+                                                 51, 60, 61, 80)}
+IJ24.update({5: "-n 24 24 24 -solver 5 -max_iter 20",
+             6: "-n 24 24 24 -solver 6 -max_iter 20"})
+# DS-BiCGSTAB's residual is not monotone near the tolerance: the card's
+# and the CPU's dot products sum in another order, and its count moved
+# by 2 (40 on the card, 42 on the CPU; measured on one H100).  Such a
+# line is held to converging on both within the slack, x within 1e-8
+# (1.01e-9 measured), and its printout with only the count's and the
+# residual's numbers masked.
+IJ24_SLACK = {10: 2}
+IJ_ADDS = 3  # the inexact AddTo calls an entry in (d)'s second stream
+IJ_PHASES = ("SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP", "FREEZE",
+             "DEVICE_RAP", "COLLAPSE", "ILU_FACTOR", "ILU_SCHEDULE",
+             "SMOOTHER_SETUP")
+_NUM = re.compile(r"[-+]?\d+\.\d+(?:e[-+]\d+)?")
+
+
+def drive(line: str, device):
+    """The port's ij driver on one command line, its printout captured
+    and logged.  Returns (result, printout, wall seconds)."""
+    import contextlib
+    import io
+
+    from hypre_tpu_torch.drivers import ij
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = ij.run(line.split(), device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for ln in buf.getvalue().splitlines():
+        log(f"  ij [{torch.device(device).type}] {ln}")
+    return res, buf.getvalue(), wall
+
+
+def true_residual(A0, x, tol: float):
+    """(||b - A x|| / ||b|| in float64 with b = ones and K1's plain
+    version, the bound it must meet: tol + 4 eps ||A||_inf ||x|| /
+    ||b||), finite x required."""
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_reference
+
+    require(bool(torch.isfinite(x).all()), "non-finite solution")
+    d64, x64 = A0.data.double(), x.double()
+    b = torch.ones_like(x64)
+    r = b - dia_spmv_reference(d64, A0.offsets, x64)
+    nb = float(torch.linalg.vector_norm(b))
+    rel = float(torch.linalg.vector_norm(r)) / nb
+    bound = tol + 4 * torch.finfo(x.dtype).eps * float(
+        d64.abs().sum(0).max()) * float(torch.linalg.vector_norm(x64)) / nb
+    return rel, bound
+
+
+def ij_timing(solve, its: int) -> dict:
+    """The solve's median of 20 and one profiled run: busy, idle share,
+    device events an iteration."""
+    from hypre_tpu_torch.profile_slice import profile_solve
+
+    med, lo, hi = solve_median_ms(solve)
+    _, wall, busy_us, events, _ = profile_solve(solve)
+    return {"solve_median_ms": med, "solve_min_max_ms": [lo, hi],
+            "wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / 1e6 / wall,
+            "kernels_per_iteration": len(events) / max(its, 1)}
+
+
+def ij_phases() -> dict:
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    return {k: round(GLOBAL_TIMER.seconds(k), 4) for k in IJ_PHASES
+            if GLOBAL_TIMER.seconds(k)}
+
+
+def ij_pcg(amg, op, tol=1e-6, max_iter=100):
+    """solve() -> the driver's AMG-PCG over `amg` and the operator `op`
+    (b = ones, two-norm)."""
+    from hypre_tpu_torch.ops import spmv
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+
+    b = torch.ones(op.num_rows, dtype=torch.float64, device=op.data.device)
+    return lambda: pcg(lambda x: spmv(op, x), b, M=amg.precond,
+                       opts=PCGOptions(tol=tol, max_iter=max_iter,
+                                       two_norm=True))
+
+
+def ij_oracle(dev, card):
+    """(a) the oracle line through the driver at 96^3 and (f) its
+    hierarchy saved, loaded on the card and solved again."""
+    import os
+    import tempfile
+
+    from hypre_tpu_torch.utils.io import load_amg_hierarchy, save_amg_hierarchy
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    GLOBAL_TIMER.clear()
+    zero_counts()
+    res, out, wall = drive(IJ96_ORACLE, dev)
+    counts = read_counts()
+    amg, its = res.amg, res.num_iterations
+    phases = ij_phases()
+    expected = expected_launches(amg, its)
+    rel, bound = true_residual(res.op, res.x, 1e-6)
+    cplx = tuple(ln.split("=")[1].strip() for ln in out.splitlines()
+                 if "grid =" in ln or "operator =" in ln)
+    timing = ij_timing(ij_pcg(amg, res.op), its)
+    log(f"ij oracle line 96^3 ({card}): {its} iterations (hypre and the JAX "
+        f"package: {IJ96_ITERS}), true rel residual {rel:.3e} (bound "
+        f"{bound:.1e}), complexities {cplx} (JAX driver: {IJ96_COMPLEXITY}); "
+        f"driver wall {wall:.2f} s, setup phases {phases}; {timing}; "
+        f"launches {counts}, expected {expected}")
+    require(res.converged and its == IJ96_ITERS,
+            f"ij oracle line: {its} iterations, pinned {IJ96_ITERS}")
+    require(rel < bound, f"ij oracle line: true residual {rel:.3e}")
+    require(cplx == IJ96_COMPLEXITY, f"ij oracle line: complexities {cplx}, "
+                                     f"the JAX driver's {IJ96_COMPLEXITY}")
+    require(counts == expected, f"ij oracle line: launches {counts} are not "
+                                f"the hierarchy's {expected}")
+    require(counts["dia_spmv_tail"] > 0 and counts["cell_dense"] > 0,
+            "ij oracle line: the lattice forms did not engage")
+    oracle = {"iterations": its, "true_rel_residual": rel,
+              "complexity": list(cplx), "driver_wall_s": wall,
+              "setup_phases": phases, **timing, "launches": counts}
+
+    # (f) the checkpoint: save, load on the card, the same solve
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ij96.npz")
+        t0 = time.perf_counter()
+        save_amg_hierarchy(amg, path)
+        save_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 2**20
+        t0 = time.perf_counter()
+        amg2 = load_amg_hierarchy(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    zero_counts()
+    res2 = ij_pcg(amg2, res.op)()
+    torch.cuda.synchronize()
+    counts2 = read_counts()
+    same = bool(torch.equal(res2.x, res.x))
+    log(f"ij checkpoint 96^3 ({card}): save {save_s:.2f} s ({mb:.1f} MB), "
+        f"load and freeze on the card {load_s:.2f} s; {res2.num_iterations} "
+        f"iterations, x bitwise the driver's run: {same}; launches {counts2}")
+    require(res2.num_iterations == its and same,
+            f"ij checkpoint: {res2.num_iterations} iterations, x bitwise "
+            f"{same}")
+    require(counts2 == expected_launches(amg2, its),
+            f"ij checkpoint: launches {counts2}")
+    ckpt = {"save_s": save_s, "load_s": load_s, "file_mb": mb,
+            "iterations": res2.num_iterations, "x_bitwise": same,
+            "launches": counts2}
+    return oracle, ckpt
+
+
+def ij_hybrid(dev, card):
+    """(b) AMG hybrid at 96^3: DS-PCG until cf_tol, then AMG-PCG."""
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    GLOBAL_TIMER.clear()
+    zero_counts()
+    res, _, wall = drive(IJ96_HYBRID, dev)
+    counts = read_counts()
+    h = res.hybrid
+    ds, amg_its = h.phase_iterations
+    expected = expected_launches(h._amg, amg_its)
+    expected["dia_spmv"] += ds + 1  # DS-PCG's matvecs
+    rel, bound = true_residual(res.op, res.x, 1e-8)
+    phases = ij_phases()
+    log(f"ij hybrid 96^3 ({card}): DS-PCG {ds} then AMG-PCG {amg_its} "
+        f"iterations (JAX package: {IJ96_HYBRID_ITERS}), true rel residual "
+        f"{rel:.3e} (bound {bound:.1e}); driver wall {wall:.2f} s, setup "
+        f"phases {phases}; launches {counts}")
+    require(res.converged and (ds, amg_its) == IJ96_HYBRID_ITERS,
+            f"ij hybrid: phases {(ds, amg_its)}, pinned {IJ96_HYBRID_ITERS}")
+    require(rel < bound, f"ij hybrid: true residual {rel:.3e}")
+    require(counts == expected, f"ij hybrid: launches {counts} are not "
+                                f"{expected}")
+    return {"iterations": [ds, amg_its], "true_rel_residual": rel,
+            "driver_wall_s": wall, "setup_phases": phases,
+            "launches": counts}
+
+
+def ij_ilu(dev, card):
+    """(c) ILU(1)-GMRES at 96^3: every preconditioner application two
+    gs_sweep launches (L forward, U backward)."""
+    from hypre_tpu_torch.ops import spmv
+    from hypre_tpu_torch.ops.dia import kernel_launches
+    from hypre_tpu_torch.solvers.krylov import GMRESOptions, gmres
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    GLOBAL_TIMER.clear()
+    zero_counts()
+    res, _, wall = drive(IJ96_ILU, dev)
+    require_no_gs_fault(dev, "ij ILU(1)-GMRES")
+    counts = read_counts()
+    its, ilu = res.num_iterations, res.ilu
+    calls = predicted_calls("gmres", {"k_dim": 20}, its)
+    expected = {name: 0 for name in counts}
+    for name, c in kernel_launches(res.op).items():
+        expected[name] += calls["A"] * c
+    expected["gs_sweep"] = 2 * calls["M"]
+    rel, bound = true_residual(res.op, res.x, 1e-6)
+    phases = ij_phases()
+    b = torch.ones(res.op.num_rows, dtype=torch.float64, device=dev)
+    timing = ij_timing(lambda: gmres(
+        lambda x: spmv(res.op, x), b, M=ilu.precond,
+        opts=GMRESOptions(tol=1e-6, max_iter=500, k_dim=20)), its)
+    Ls, Us = ilu._Lsched, ilu._Usched
+    shape = {"L_nnz": int(ilu.L.nnz), "U_nnz": int(ilu.U.nnz),
+             "wavefronts": [Ls.num_wavefronts, Us.num_wavefronts],
+             "max_row": [Ls.max_row, Us.max_row]}
+    held = hold_ilu(ilu, card)
+    log(f"ij ILU(1)-GMRES 96^3 ({card}): {its} iterations (JAX package: "
+        f"{IJ96_ILU_ITERS}), true rel residual {rel:.3e} (bound "
+        f"{bound:.1e}); factors {shape}; factor {phases.get('ILU_FACTOR')} s, "
+        f"schedules {phases.get('ILU_SCHEDULE')} s; driver wall {wall:.2f} s; "
+        f"{timing}; applications {calls}, launches {counts}")
+    require(res.converged and its == IJ96_ILU_ITERS,
+            f"ij ILU: {its} iterations, the JAX package's {IJ96_ILU_ITERS}")
+    require(rel < bound, f"ij ILU: true residual {rel:.3e}")
+    require(counts == expected and counts["gs_sweep"] == 2 * calls["M"] > 0,
+            f"ij ILU: launches {counts} are not {expected}")
+    return {"iterations": its, "true_rel_residual": rel, "factors": shape,
+            "setup_phases": phases, "driver_wall_s": wall, **timing,
+            "applications": calls, "launches": counts, "held": held}
+
+
+def hold_ilu(ilu, card) -> dict:
+    """gs_sweep on the ILU factors' schedules against its plain version:
+    each sweep as hold_gs holds it (f64, 1e-12), and one whole
+    application, L forward and U backward from zero through the wrapper
+    (ILU.solve), against gs_sweep_reference over the same slabs."""
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_reference
+
+    rng = np.random.default_rng(15)
+    Ls, Us = ilu._Lsched, ilu._Usched
+    errs = {}
+    for name, S in (("L", Ls), ("U", Us)):
+        errs[name], _ = hold_gs(S, f"ILU(1) {name} 96^3", torch.float64,
+                                1e-12, rng)
+    dev, n = Ls.order.device, Ls.n
+    r = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    got = ilu.solve(r)
+    y = gs_sweep_reference(Ls.slabs(dev), n, torch.zeros_like(r), r)
+    want = gs_sweep_reference(Us.slabs(dev), n, torch.zeros_like(y), y)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    require_no_gs_fault(dev, "ILU(1) application")
+    log(f"gs_sweep on the ILU(1) factors 96^3 ({card}): L / U sweeps vs "
+        f"plain max abs err {errs['L']:.3e} / {errs['U']:.3e}; one "
+        f"application (ILU.solve) vs the plain pair: max abs err {err:.3e}, "
+        f"rel {rel:.3e}")
+    require(rel <= 1e-12, f"ILU(1) application disagrees with the plain "
+                          f"triangular pair: rel {rel:.3e}")
+    return {"L_sweep_err": errs["L"], "U_sweep_err": errs["U"],
+            "application_err": err, "application_rel": rel}
+
+
+def ij_assembly(dev, card):
+    """(d) IJ assembly of laplacian_7pt(96, 96, 96) on the host and on the
+    card from one seeded interleaved Set/AddTo stream: per entry a noise
+    AddTo, a Set of value - d and an AddTo of d (d a power of two, so the
+    sum is exact), the entries' three calls merged at random across 16
+    chunks.  Both must equal the operator bitwise."""
+    from hypre_tpu_torch.models import (IJMatrix, IJMatrixDevice,
+                                        ij_assemble_device, laplacian_7pt)
+
+    A = laplacian_7pt(NX, NX, NX)
+    C = A.to_scipy().tocoo()
+    n, nnz = A.shape[0], C.nnz
+    rng = np.random.default_rng(14)
+    d = rng.choice([0.25, 0.5, 1.0, 2.0], nnz)
+    noise = rng.standard_normal(nnz)
+    chunks = np.array_split(rng.permutation(nnz), 16)
+    tokens = np.repeat(np.arange(16), 3)
+    rng.shuffle(tokens)
+    host, card_ij = IJMatrix(n, n), IJMatrixDevice(n, n, device=dev)
+    step = [0] * 16
+    for c in tokens:
+        e = chunks[c]
+        r, k = C.row[e], C.col[e]
+        for M in (host, card_ij):
+            if step[c] == 0:
+                M.add_to_values(r, k, noise[e])
+            elif step[c] == 1:
+                M.set_values(r, k, C.data[e] - d[e])
+            else:
+                M.add_to_values(r, k, d[e])
+        step[c] += 1
+    t0 = time.perf_counter()
+    Ah = host.assemble()
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Ad = card_ij.assemble()
+    card_s = time.perf_counter() - t0
+    streams = card_ij._streams()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ij_assemble_device(*streams, A.shape, device=dev)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, out))
+    card_ms = [r[0] for r in runs[1:]]
+    same = [all(np.array_equal(getattr(X, f), getattr(A, f))
+                for f in ("indptr", "indices", "data")) for X in (Ah, Ad)]
+    log(f"ij assembly 96^3 ({card}): {len(streams[0])} stream entries "
+        f"({nnz} nonzeros); host assemble {host_s:.2f} s, card assemble "
+        f"{card_s:.2f} s (with the host CSR build), card sort + reductions "
+        f"{runs[1][0] * 1e3:.1f} / {runs[2][0] * 1e3:.1f} ms; equal to "
+        f"laplacian_7pt bitwise: host {same[0]}, card {same[1]}")
+    require(all(same), f"ij assembly: host / card equal the operator {same}")
+    del host, card_ij, streams, runs
+    inexact = ij_assembly_inexact(C, dev, card)
+    return {"entries": 3 * nnz, "host_s": host_s, "card_s": card_s,
+            "card_device_ms": [t * 1e3 for t in card_ms],
+            "bitwise": same, "inexact": inexact}
+
+
+def ij_assembly_inexact(C, dev, card) -> dict:
+    """A second stream over the 96^3 operator's nonzeros whose sums are
+    inexact: per entry a Set of its value, then IJ_ADDS AddTo calls of
+    seeded normal values, the entries' calls merged at random across 16
+    chunks.  Each of two card runs of ij_assemble_device (index_add_'s
+    atomics add in no fixed order) is held to the host accumulator
+    within 1e-12 absolute; whether the two repeat bitwise is reported."""
+    from hypre_tpu_torch.models import IJMatrix, ij_assemble_device
+
+    nnz = C.nnz
+    rng = np.random.default_rng(141)
+    adds = rng.standard_normal((IJ_ADDS, nnz))
+    chunks = np.array_split(rng.permutation(nnz), 16)
+    tokens = np.repeat(np.arange(16), 1 + IJ_ADDS)
+    rng.shuffle(tokens)
+    host, step = IJMatrix(*C.shape), [0] * 16
+    for c in tokens:
+        e = chunks[c]
+        if step[c] == 0:
+            host.set_values(C.row[e], C.col[e], C.data[e])
+        else:
+            host.add_to_values(C.row[e], C.col[e], adds[step[c] - 1, e])
+        step[c] += 1
+    streams = host._streams()
+    t0 = time.perf_counter()
+    Ah = host.assemble()
+    host_s = time.perf_counter() - t0
+    hr = np.repeat(np.arange(C.shape[0]), np.diff(Ah.indptr))
+    runs, errs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ur, uc, uv = ij_assemble_device(*streams, C.shape, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        require(np.array_equal(ur.cpu().numpy(), hr)
+                and np.array_equal(uc.cpu().numpy(), Ah.indices),
+                "ij inexact assembly: the card's pattern is not the host's")
+        errs.append(float(np.abs(uv.cpu().numpy() - Ah.data).max()))
+        runs.append((ms, uv))
+    repeat = bool(torch.equal(runs[0][1], runs[1][1]))
+    ndiff = int((runs[0][1] != runs[1][1]).sum())
+    log(f"ij inexact assembly 96^3 ({card}): {len(streams[0])} stream "
+        f"entries (a Set and {IJ_ADDS} inexact AddTo an entry); host "
+        f"assemble {host_s:.2f} s, card sort + reductions "
+        f"{runs[0][0]:.1f} / {runs[1][0]:.1f} ms; card vs host max abs "
+        f"diff {errs[0]:.3e} / {errs[1]:.3e}; two card runs bitwise: "
+        f"{repeat} ({ndiff} entries differ)")
+    require(max(errs) <= 1e-12, f"ij inexact assembly: card vs host {errs}")
+    return {"entries": len(streams[0]), "host_s": host_s,
+            "card_device_ms": [r[0] for r in runs], "max_abs_vs_host": errs,
+            "card_repeats_bitwise": repeat, "entries_differing": ndiff}
+
+
+def ij_card_vs_cpu(line: str, label: str, card, slack: int = 0) -> dict:
+    """One driver line on the card (counts at 0 before, read after) and on
+    the CPU: the same printout with the numbers masked, the same count,
+    x within 1e-9, the final relative residuals within 1e-10 or the
+    rounding floor of b - A x (64 eps ||A||_inf ||x|| / ||b||).  With a
+    count slack: both converge, the counts within it, x within 1e-8."""
+    zero_counts()
+    rg, og, wall_g = drive(line, torch.device("cuda", 0))
+    counts = read_counts()
+    require_no_gs_fault(torch.device("cuda", 0), label)
+    rc, oc, wall_c = drive(line, "cpu")
+    a, b = float(rg.rel_residual_norm), float(rc.rel_residual_norm)
+    xg = rg.x.cpu()
+    dx = float((xg - rc.x).abs().max() / rc.x.abs().max())
+    from hypre_tpu_torch.ops.dia import DenseMatrix
+
+    absA = rc.op.data.double().abs()  # DIA / ELL [k, n], dense [n, n]
+    norm_a = float((absA.sum(1) if isinstance(rc.op, DenseMatrix)
+                    else absA.sum(0)).max())
+    floor = (64 * torch.finfo(torch.float64).eps * norm_a
+             * float(torch.linalg.vector_norm(rc.x))
+             / float(torch.linalg.vector_norm(torch.ones_like(rc.x))))
+    its = rg.num_iterations
+    log(f"ij {label} ({card}): card {its} / CPU {rc.num_iterations} "
+        f"iterations, rel residual {a:.10e} vs {b:.10e} (floor {floor:.1e}), "
+        f"max rel diff of x {dx:.2e}; card {wall_g:.2f} s, CPU {wall_c:.2f} "
+        f"s; launches {counts}")
+    def masked(out):  # with a slack, the count's line masked as well
+        out = _NUM.sub("#", out)
+        return re.sub(r"Iterations = \d+", "Iterations = #", out) if slack else out
+
+    require(masked(og) == masked(oc),
+            f"ij {label}: the card's printout differs from the CPU's")
+    if its != rc.num_iterations and slack:
+        require(rg.converged and rc.converged
+                and abs(its - rc.num_iterations) <= slack and dx <= 1e-8,
+                f"ij {label}: the card's solve differs from the CPU's "
+                f"beyond the slack {slack}")
+    else:
+        require(its == rc.num_iterations and dx <= 1e-9
+                and abs(a - b) <= max(1e-10 * b, floor),
+                f"ij {label}: the card's solve differs from the CPU's")
+    require(sum(counts.values()) > 0, f"ij {label}: no kernel launched")
+    return {"iterations": its, "cpu_iterations": rc.num_iterations,
+            "rel_residual_norm": a,
+            "cpu_rel_residual_norm": b, "card_wall_s": wall_g,
+            "cpu_wall_s": wall_c, "launches": counts}
+
+
+def phase_ij(dev, card):
+    """Phase 15: the ij driver and what it reaches (module docstring)."""
+    t0 = time.perf_counter()
+    runs = {}
+    runs["oracle 96"], runs["checkpoint 96"] = ij_oracle(dev, card)
+    torch.cuda.empty_cache()
+    runs["hybrid 96"] = ij_hybrid(dev, card)
+    torch.cuda.empty_cache()
+    runs["ilu 96"] = ij_ilu(dev, card)
+    torch.cuda.empty_cache()
+    assembly = ij_assembly(dev, card)
+    torch.cuda.empty_cache()
+    for st, line in IJ48_SMOOTHERS.items():
+        runs[f"smtype {st} 48"] = ij_card_vs_cpu(line, f"smtype {st} 48^3",
+                                                 card)
+    small = {}
+    for s, line in IJ24.items():
+        small[s] = ij_card_vs_cpu(line, f"solver {s} 24^3", card,
+                                  IJ24_SLACK.get(s, 0))
+    runs["solver ids 24"] = {"launches": {
+        name: sum(v["launches"][name] for v in small.values())
+        for name in read_counts()}}
+    log(f"the ij phase took {time.perf_counter() - t0:.1f} s")
+    return runs, assembly, small
+
+
 def counted_wrappers():
     """{kernel name: its wrapper}; each wrapper's `launches` counts its
     kernel's launches."""
@@ -3394,6 +3877,9 @@ def main() -> int:
     log(f"the systems / Krylov / LOBPCG phase took "
         f"{time.perf_counter() - sys_t0:.1f} s")
 
+    # -- 15. the ij driver, IJ assembly, checkpoints, hybrid, ILU ----------
+    ij_runs, ij_asm, ij_small = phase_ij(dev, card)
+
     # `launches` counts the two f64 96^3 runs, the plain path's and the
     # lattice path's, each driven with the counts at 0 just before and
     # read just after; "per" says what the times cover
@@ -3418,7 +3904,9 @@ def main() -> int:
                                   **{f"agg {k}": v["launches"][name]
                                      for k, v in agg.items()},
                                   **{f"systems {k}": v["launches"][name]
-                                     for k, v in systems.items()}},
+                                     for k, v in systems.items()},
+                                  **{f"ij {k}": v["launches"][name]
+                                     for k, v in ij_runs.items()}},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -3518,7 +4006,9 @@ def main() -> int:
                           **{f"agg {k}": v["launches"]["gs_sweep"]
                              for k, v in agg.items()},
                           **{f"device setup {k}": v["launches"]["gs_sweep"]
-                             for k, v in ds.items()}},
+                             for k, v in ds.items()},
+                          **{f"ij {k}": v["launches"]["gs_sweep"]
+                             for k, v in ij_runs.items()}},
         "syncfree_launches": {k: v["syncfree_launches"]
                               for k, v in gs_runs.items() if k.startswith("gs")},
         "max_abs_err": gs_err, "ms": gs_tot[0], "earlier_ms": gs_tot[1],
@@ -3543,7 +4033,8 @@ def main() -> int:
                     "ext_i": ext, "gs": gs_runs, "device_setup": ds,
                     "cycles": cycles, "cycles_24": cycles24, "agg": agg,
                     "agg_24": agg24, "air_24": air24, "systems": systems,
-                    "systems_24": systems24}))
+                    "systems_24": systems24, "ij": ij_runs,
+                    "ij_assembly": ij_asm, "ij_24": ij_small}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -28,6 +28,10 @@ Layout changes:
     and the kernel's layout (CSR, wavefront order and pointers, hazard
     flags) is derived from them (relax.py::GSSchedule.from_slabs).
     Chebyshev data keeps its float64 coefficients and D^{-1/2}.
+  * The complex smoothers (smooth_type 9 / 6 / 8): Euclid's triangular
+    pair as two GS schedules (from their slabs, as above) with its row
+    colors; Schwarz's block pinvs as they are, its row map int64 (the
+    pads keep the sink n); ParaSails' G / G^T or M as frozen operators.
 """
 
 from __future__ import annotations
@@ -40,7 +44,10 @@ from .ops.dia import (DenseMatrix, DIAMatrix, DIAWithTail, GatherOp,
                       ParityInterpOp, ParityRestrictOp, ScatterOp, on_cells,
                       split_interp_tail, tail_on_rows)
 from .solvers.amg.boomeramg import AMGLevel
+from .solvers.amg.euclid import EuclidData
+from .solvers.amg.parasails import ParaSailsData
 from .solvers.amg.relax import ChebyData, GSSchedule
+from .solvers.amg.schwarz import SchwarzData
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -134,10 +141,35 @@ def _cheby(C, device):
         order=int(C.order))
 
 
+def _euclid(E, device):
+    if E is None:
+        return None
+    return EuclidData(
+        Lsched=_gs(E.Lsched, device), Usched=_gs(E.Usched, device),
+        color_of_row=_tensor(np.asarray(E.color_of_row, np.int32), device),
+        ncolors=int(E.ncolors), colored=bool(E.colored))
+
+
+def _schwarz(S, device):
+    if S is None:
+        return None
+    return SchwarzData(inv=_tensor(np.asarray(S.inv, np.float64), device),
+                       idx=_tensor(np.asarray(S.idx, np.int64), device),
+                       own=_tensor(np.asarray(S.own, bool), device),
+                       n=int(S.n))
+
+
+def _parasails(P, device):
+    if P is None:
+        return None
+    return ParaSailsData(G=_matrix(P.G, device), GT=_matrix(P.GT, device),
+                         M=_matrix(P.M, device))
+
+
 def levels_from_numpy(levels, device) -> list[AMGLevel]:
     """The port's AMGLevels on `device` from hypre_tpu's numpy-leaf
-    AMGLevels (DIA, ELL, dense and the lattice forms, the GS schedules
-    and the Chebyshev data)."""
+    AMGLevels (DIA, ELL, dense and the lattice forms, the GS schedules,
+    the Chebyshev data and the complex smoothers)."""
     out = []
     for lvl in levels:
         out.append(AMGLevel(
@@ -152,5 +184,8 @@ def levels_from_numpy(levels, device) -> list[AMGLevel]:
             gs_fwd=_gs(getattr(lvl, "gs_fwd", None), device),
             gs_bwd=_gs(getattr(lvl, "gs_bwd", None), device),
             cheby=_cheby(getattr(lvl, "cheby", None), device),
+            euclid=_euclid(getattr(lvl, "euclid", None), device),
+            schwarz=_schwarz(getattr(lvl, "schwarz", None), device),
+            parasails=_parasails(getattr(lvl, "parasails", None), device),
         ))
     return out

@@ -827,3 +827,254 @@ void gs_levels(const int64_t *indptr, const int64_t *indices, int64_t n,
         }
     }
 }
+
+/* ---------------------------------------------------------------------
+ * ILU(k) and ILUT row-merge factorizations.
+ *
+ * Role of the reference's Euclid ILU(k) (distributed_ls/Euclid/
+ * ilu_mpi_pilu.c level-of-fill pipeline) and par_ilu ILUT
+ * (parcsr_ls/par_ilu_setup.c hypre_ILUSetupILUT, Saad's dual-threshold
+ * scheme) — rebuilt natively so no external factorization library
+ * (SuperLU) does the work.  Dense accumulator + occupied list per row;
+ * outputs are malloc'd CSR triples released via ilu_free_ptr.
+ * ------------------------------------------------------------------- */
+
+typedef struct { int64_t *p, *i; double *x; int64_t nnz, cap; } csr_buf;
+
+static void buf_init(csr_buf *b, int64_t n, int64_t cap0)
+{
+    b->p = (int64_t *)malloc((n + 1) * sizeof(int64_t));
+    b->i = (int64_t *)malloc(cap0 * sizeof(int64_t));
+    b->x = (double *)malloc(cap0 * sizeof(double));
+    b->nnz = 0; b->cap = cap0; b->p[0] = 0;
+}
+
+static void buf_push(csr_buf *b, int64_t col, double val)
+{
+    if (b->nnz == b->cap) {
+        b->cap *= 2;
+        b->i = (int64_t *)realloc(b->i, b->cap * sizeof(int64_t));
+        b->x = (double *)realloc(b->x, b->cap * sizeof(double));
+    }
+    b->i[b->nnz] = col; b->x[b->nnz] = val; b->nnz++;
+}
+
+void ilu_free_ptr(void *p) { free(p); }
+
+/* occupied-list helpers: w dense values, mark[j] = 1 + slot in occ */
+static int64_t occ_min_unprocessed(const int64_t *occ, const uint8_t *done,
+                                   int64_t cnt, int64_t below)
+{
+    int64_t best = -1, bj = 0;
+    for (int64_t t = 0; t < cnt; ++t) {
+        if (done[t] || occ[t] >= below) continue;
+        if (best < 0 || occ[t] < (int64_t)bj) { best = t; bj = occ[t]; }
+    }
+    return best;
+}
+
+int iluk_factor(const int64_t *indptr, const int64_t *indices,
+                const double *data, int64_t n, int maxfill,
+                int64_t **Lp_o, int64_t **Li_o, double **Lx_o,
+                int64_t **Up_o, int64_t **Ui_o, double **Ux_o)
+{
+    csr_buf L, U;
+    int64_t nnz0 = indptr[n];
+    buf_init(&L, n, nnz0 + 16);
+    buf_init(&U, n, nnz0 + 16);
+    /* levels of U entries, parallel to U.i */
+    int64_t ulev_cap = U.cap;
+    int32_t *ulev = (int32_t *)malloc(ulev_cap * sizeof(int32_t));
+
+    double *w = (double *)calloc(n, sizeof(double));
+    int32_t *lev = (int32_t *)malloc(n * sizeof(int32_t));
+    int64_t *pos = (int64_t *)malloc(n * sizeof(int64_t)); /* col -> occ slot+1 */
+    int64_t *occ = (int64_t *)malloc(n * sizeof(int64_t));
+    uint8_t *done = (uint8_t *)malloc(n);
+    for (int64_t j = 0; j < n; ++j) pos[j] = 0;
+
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t cnt = 0;
+        for (int64_t q = indptr[i]; q < indptr[i + 1]; ++q) {
+            int64_t j = indices[q];
+            w[j] = data[q]; lev[j] = 0;
+            occ[cnt] = j; done[cnt] = 0; pos[j] = cnt + 1; cnt++;
+        }
+        for (;;) {
+            int64_t t = occ_min_unprocessed(occ, done, cnt, i);
+            if (t < 0) break;
+            done[t] = 1;
+            int64_t k = occ[t];
+            /* U diag of row k is U.x at U.p[k] (stored first, sorted) */
+            double dk = 0.0;
+            int64_t us = U.p[k], ue = U.p[k + 1];
+            if (ue > us && U.i[us] == k) dk = U.x[us];
+            if (dk == 0.0) { continue; }
+            double f = w[k] / dk;
+            w[k] = f;
+            for (int64_t q = us + 1; q < ue; ++q) {
+                int64_t j = U.i[q];
+                int32_t nl = lev[k] + ulev[q] + 1;
+                if (pos[j]) {
+                    w[j] -= f * U.x[q];
+                    if (nl < lev[j]) lev[j] = nl;
+                } else if (nl <= maxfill) {
+                    w[j] = -f * U.x[q]; lev[j] = nl;
+                    occ[cnt] = j; done[cnt] = 0; pos[j] = cnt + 1; cnt++;
+                }
+            }
+        }
+        /* emit row i: sort occupied ascending (insertion into small buf) */
+        for (int64_t a = 1; a < cnt; ++a) {  /* insertion sort on occ */
+            int64_t v = occ[a]; int64_t b = a - 1;
+            while (b >= 0 && occ[b] > v) { occ[b + 1] = occ[b]; b--; }
+            occ[b + 1] = v;
+        }
+        /* the elimination relies on U.i[U.p[k]] == k (diag stored
+         * first); a structurally-missing diagonal must therefore be
+         * inserted BEFORE the row's j > i entries, not appended
+         * (ADVICE r2: appending made later rows skip elimination
+         * against this row as a silent zero pivot) */
+        int has_diag = 0;
+        for (int64_t t = 0; t < cnt; ++t)
+            if (occ[t] == i) { has_diag = 1; break; }
+        if (!has_diag) {
+            buf_push(&U, i, 1e-30);
+            if (U.cap > ulev_cap) {
+                ulev = (int32_t *)realloc(ulev, U.cap * sizeof(int32_t));
+                ulev_cap = U.cap;
+            }
+            ulev[U.nnz - 1] = 0;
+        }
+        for (int64_t t = 0; t < cnt; ++t) {
+            int64_t j = occ[t];
+            if (j < i) buf_push(&L, j, w[j]);
+            else {
+                buf_push(&U, j, (j == i && w[j] == 0.0) ? 1e-30 : w[j]);
+                if (U.cap > ulev_cap) {
+                    ulev = (int32_t *)realloc(ulev, U.cap * sizeof(int32_t));
+                    ulev_cap = U.cap;
+                }
+                ulev[U.nnz - 1] = lev[j];
+            }
+            w[j] = 0.0; pos[j] = 0;
+        }
+        L.p[i + 1] = L.nnz;
+        U.p[i + 1] = U.nnz;
+    }
+    free(w); free(lev); free(pos); free(occ); free(done); free(ulev);
+    *Lp_o = L.p; *Li_o = L.i; *Lx_o = L.x;
+    *Up_o = U.p; *Ui_o = U.i; *Ux_o = U.x;
+    return 0;
+}
+
+static int cmp_absdesc(const void *a, const void *b)
+{
+    double x = ((const double *)a)[1], y = ((const double *)b)[1];
+    double ax = x < 0 ? -x : x, ay = y < 0 ? -y : y;
+    if (ax < ay) return 1;
+    if (ax > ay) return -1;
+    return 0;
+}
+
+int ilut_factor(const int64_t *indptr, const int64_t *indices,
+                const double *data, int64_t n, double droptol,
+                int64_t maxrow,
+                int64_t **Lp_o, int64_t **Li_o, double **Lx_o,
+                int64_t **Up_o, int64_t **Ui_o, double **Ux_o)
+{
+    csr_buf L, U;
+    int64_t nnz0 = indptr[n];
+    buf_init(&L, n, nnz0 + 16);
+    buf_init(&U, n, nnz0 + 16);
+    double *w = (double *)calloc(n, sizeof(double));
+    int64_t *pos = (int64_t *)malloc(n * sizeof(int64_t));
+    int64_t *occ = (int64_t *)malloc(n * sizeof(int64_t));
+    uint8_t *done = (uint8_t *)malloc(n);
+    double *sel = (double *)malloc(2 * n * sizeof(double));
+    for (int64_t j = 0; j < n; ++j) pos[j] = 0;
+
+    for (int64_t i = 0; i < n; ++i) {
+        double nrm = 0.0;
+        int64_t rl = indptr[i + 1] - indptr[i];
+        int64_t cnt = 0;
+        for (int64_t q = indptr[i]; q < indptr[i + 1]; ++q) {
+            int64_t j = indices[q];
+            w[j] = data[q]; nrm += data[q] * data[q];
+            occ[cnt] = j; done[cnt] = 0; pos[j] = cnt + 1; cnt++;
+        }
+        double tau = droptol * sqrt(nrm);  /* Saad: relative to row 2-norm */
+        for (;;) {
+            int64_t t = occ_min_unprocessed(occ, done, cnt, i);
+            if (t < 0) break;
+            done[t] = 1;
+            int64_t k = occ[t];
+            double ak = w[k] < 0 ? -w[k] : w[k];
+            if (ak < tau) { w[k] = 0.0; continue; }  /* drop small pivot */
+            double dk = 0.0;
+            int64_t us = U.p[k], ue = U.p[k + 1];
+            if (ue > us && U.i[us] == k) dk = U.x[us];
+            if (dk == 0.0) continue;
+            double f = w[k] / dk;
+            w[k] = f;
+            for (int64_t q = us + 1; q < ue; ++q) {
+                int64_t j = U.i[q];
+                double upd = -f * U.x[q];
+                if (pos[j]) w[j] += upd;
+                else if ((upd < 0 ? -upd : upd) >= tau) {
+                    w[j] = upd;
+                    occ[cnt] = j; done[cnt] = 0; pos[j] = cnt + 1; cnt++;
+                }
+            }
+        }
+        /* dual-threshold selection: keep maxrow largest |.| per part */
+        int64_t nl = 0, nu = 0;
+        double diag = 0.0;
+        for (int64_t t = 0; t < cnt; ++t) {
+            int64_t j = occ[t];
+            double v = w[j];
+            double av = v < 0 ? -v : v;
+            if (j == i) diag = v;
+            else if (j < i) { sel[2 * nl] = (double)j; sel[2 * nl + 1] = v; nl++; }
+            else { sel[2 * (n - 1 - nu)] = (double)j; sel[2 * (n - 1 - nu) + 1] = v; nu++; }
+            w[j] = 0.0; pos[j] = 0;
+        }
+        qsort(sel, nl, 2 * sizeof(double), cmp_absdesc);
+        int64_t keepl = nl < maxrow ? nl : maxrow;
+        /* re-sort kept L entries by column */
+        for (int64_t a = 1; a < keepl; ++a) {
+            double c0 = sel[2 * a], v0 = sel[2 * a + 1];
+            int64_t b = a - 1;
+            while (b >= 0 && sel[2 * b] > c0) {
+                sel[2 * (b + 1)] = sel[2 * b]; sel[2 * (b + 1) + 1] = sel[2 * b + 1]; b--;
+            }
+            sel[2 * (b + 1)] = c0; sel[2 * (b + 1) + 1] = v0;
+        }
+        for (int64_t a = 0; a < keepl; ++a) {
+            double av = sel[2 * a + 1] < 0 ? -sel[2 * a + 1] : sel[2 * a + 1];
+            if (av >= tau) buf_push(&L, (int64_t)sel[2 * a], sel[2 * a + 1]);
+        }
+        buf_push(&U, i, diag == 0.0 ? 1e-30 : diag);
+        double *su = sel + 2 * (n - nu);
+        qsort(su, nu, 2 * sizeof(double), cmp_absdesc);
+        int64_t keepu = nu < maxrow ? nu : maxrow;
+        for (int64_t a = 1; a < keepu; ++a) {
+            double c0 = su[2 * a], v0 = su[2 * a + 1];
+            int64_t b = a - 1;
+            while (b >= 0 && su[2 * b] > c0) {
+                su[2 * (b + 1)] = su[2 * b]; su[2 * (b + 1) + 1] = su[2 * b + 1]; b--;
+            }
+            su[2 * (b + 1)] = c0; su[2 * (b + 1) + 1] = v0;
+        }
+        for (int64_t a = 0; a < keepu; ++a) {
+            double av = su[2 * a + 1] < 0 ? -su[2 * a + 1] : su[2 * a + 1];
+            if (av >= tau) buf_push(&U, (int64_t)su[2 * a], su[2 * a + 1]);
+        }
+        L.p[i + 1] = L.nnz;
+        U.p[i + 1] = U.nnz;
+    }
+    free(w); free(pos); free(occ); free(done); free(sel);
+    *Lp_o = L.p; *Li_o = L.i; *Lx_o = L.x;
+    *Up_o = U.p; *Ui_o = U.i; *Ux_o = U.x;
+    return 0;
+}

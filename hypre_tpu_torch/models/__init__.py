@@ -1,7 +1,9 @@
+from .ij import IJMatrix, IJMatrixDevice, IJVector, ij_assemble_device
 from .laplacian import (difconv_7pt, laplacian_5pt_2d, laplacian_7pt,
                         laplacian_9pt, laplacian_27pt, rotate_7pt,
                         sys_laplacian_7pt, vardifconv_7pt)
 
-__all__ = ["difconv_7pt", "laplacian_5pt_2d", "laplacian_7pt",
+__all__ = ["IJMatrix", "IJMatrixDevice", "IJVector", "difconv_7pt",
+           "ij_assemble_device", "laplacian_5pt_2d", "laplacian_7pt",
            "laplacian_9pt", "laplacian_27pt", "rotate_7pt",
            "sys_laplacian_7pt", "vardifconv_7pt"]

@@ -1,5 +1,5 @@
 """Native host-setup kernels (ctypes-bound C), the subset the port's
-BoomerAMG setup uses.
+BoomerAMG setup and its ILU factorizations use.
 
 The source is the port's own, `hypre_tpu_torch/csrc/host_kernels.c`: a
 copy of the functions of the JAX package's `native/kernels.c` that are
@@ -144,6 +144,16 @@ def _bind(lib) -> None:
             ctypes.c_int64,
             [I64, I64, ctypes.c_int64, I64, I64, ctypes.c_int64, U8, I64, I64]),
     }
+    # the ILU factorizations return malloc'd CSR triples (L without its
+    # unit diagonal, U with its diagonal first in each row) through six
+    # out-pointers; ilu_free_ptr releases each
+    outs = [ctypes.POINTER(I64), ctypes.POINTER(I64), ctypes.POINTER(F64)] * 2
+    sig["iluk_factor"] = (ctypes.c_int, [I64, I64, F64, ctypes.c_int64,
+                                         ctypes.c_int, *outs])
+    sig["ilut_factor"] = (ctypes.c_int, [I64, I64, F64, ctypes.c_int64,
+                                         ctypes.c_double, ctypes.c_int64,
+                                         *outs])
+    sig["ilu_free_ptr"] = (None, [ctypes.c_void_p])
     for name, P in (("dia_fill_i32_f64", F64), ("dia_fill_i32_f32", F32),
                     ("dia_fill_i32_bf16", U16)):
         sig[name] = (None, [I32, I32, F64, ctypes.c_int64, ctypes.c_int64,
@@ -190,6 +200,60 @@ def gs_levels(indptr, indices, n: int, forward: bool) -> np.ndarray:
     lib.gs_levels(_p(indptr, I64), _p(indices, I64), n, int(forward),
                   _p(level, I64))
     return level
+
+
+def _ilu_csr_inputs(indptr, indices, data):
+    return (np.ascontiguousarray(indptr, dtype=np.int64),
+            np.ascontiguousarray(indices, dtype=np.int64),
+            np.ascontiguousarray(data, dtype=np.float64))
+
+
+def _ilu_collect(lib, n: int, outs):
+    """Copy the kernel's six malloc'd arrays into numpy and free them:
+    ((Lp, Li, Lx), (Up, Ui, Ux))."""
+
+    def take(ptr, count, np_dt):
+        arr = (np.ctypeslib.as_array(ptr, shape=(count,)).astype(np_dt)
+               if count else np.zeros(0, np_dt))
+        lib.ilu_free_ptr(ptr)
+        return arr
+
+    lp_, li_, lx_, up_, ui_, ux_ = outs
+    lp = take(lp_, n + 1, np.int64)
+    li = take(li_, int(lp[-1]), np.int64)
+    lx = take(lx_, int(lp[-1]), np.float64)
+    up = take(up_, n + 1, np.int64)
+    ui = take(ui_, int(up[-1]), np.int64)
+    ux = take(ux_, int(up[-1]), np.float64)
+    return (lp, li, lx), (up, ui, ux)
+
+
+def _ilu_outs():
+    """Six fresh out-pointers: (Lp, Li, Lx, Up, Ui, Ux)."""
+    return [t() for t in (I64, I64, F64) * 2]
+
+
+def iluk_factor(indptr, indices, data, n: int, fill: int):
+    """ILU(k) level-of-fill factorization of a CSR with sorted indices
+    (the Euclid ilu_mpi_pilu.c role): ((Lp, Li, Lx), (Up, Ui, Ux)), L
+    strictly lower (its unit diagonal implicit), U with the diagonal."""
+    lib = load()
+    ip, ix, dx = _ilu_csr_inputs(indptr, indices, data)
+    outs = _ilu_outs()
+    lib.iluk_factor(_p(ip, I64), _p(ix, I64), _p(dx, F64), n, int(fill),
+                    *[ctypes.byref(o) for o in outs])
+    return _ilu_collect(lib, n, outs)
+
+
+def ilut_factor(indptr, indices, data, n: int, droptol: float, maxrow: int):
+    """Dual-threshold ILUT (Saad; the par_ilu_setup.c ILUT role) of a
+    CSR with sorted indices; returns what iluk_factor does."""
+    lib = load()
+    ip, ix, dx = _ilu_csr_inputs(indptr, indices, data)
+    outs = _ilu_outs()
+    lib.ilut_factor(_p(ip, I64), _p(ix, I64), _p(dx, F64), n, float(droptol),
+                    int(maxrow), *[ctypes.byref(o) for o in outs])
+    return _ilu_collect(lib, n, outs)
 
 
 def strength_classical(M: sp.csr_matrix, theta: float, max_row_sum: float,

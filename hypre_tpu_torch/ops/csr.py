@@ -67,6 +67,13 @@ class CSRMatrix:
         m = m.tocsr()
         return cls(m.indptr, m.indices, m.data, m.shape)
 
+    @classmethod
+    def from_coo(cls, rows, cols, vals, shape) -> "CSRMatrix":
+        """From COO triplets; duplicate entries are summed."""
+        m = sp.coo_matrix((vals, (rows, cols)), shape=shape).tocsr()
+        m.sum_duplicates()
+        return cls.from_scipy(m)
+
     def to_scipy(self) -> sp.csr_matrix:
         return sp.csr_matrix(
             (self.data, self.indices, self.indptr), shape=self.shape
@@ -76,8 +83,19 @@ class CSRMatrix:
     def nnz(self) -> int:
         return int(self.indptr[-1])
 
+    @property
+    def num_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def num_cols(self) -> int:
+        return self.shape[1]
+
     def row_nnz(self) -> np.ndarray:
         return np.diff(self.indptr)
+
+    def diagonal(self) -> np.ndarray:
+        return self.to_scipy().diagonal()
 
     def to_ell(self, dtype, device) -> "ELLMatrix":
         """Freeze into slot-major ELL on `device`; row i's entries keep

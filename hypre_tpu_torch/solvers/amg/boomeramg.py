@@ -61,11 +61,14 @@ level-scheduled Gauss-Seidel with omega and the CF-ordered sweeps of
 relax_order 1, 15 CG, 16 Chebyshev, 17 FCF-Jacobi), the stationary
 solve (`solve`, hypre's solver 0) and its transpose (`solveT`), the
 statistics of par_stats.c, systems AMG (num_functions, dof_func,
-nodal coarsening with nodal_diag, GSMG strength) and the lattice path
-with the device setup chain and the relocated forms' offset budgets;
-every other option must keep its default (smooth_type,
-smooth_num_levels, the euclid_* fields): `check_options` raises
-NotImplementedError otherwise.
+nodal coarsening with nodal_diag, GSMG strength), the complex smoothers
+of smooth_type on the first smooth_num_levels levels (6 Schwarz, 8
+ParaSails, 9 Euclid with the euclid_* fields; they replace relaxation
+there, and the lattice forms and the device chain decline such a
+hierarchy, as in the JAX package) and the lattice path with the device
+setup chain and the relocated forms' offset budgets: every option of
+BoomerAMGOptions.  `check_options` raises NotImplementedError for a
+value outside what the JAX package handles.
 """
 
 from __future__ import annotations
@@ -99,8 +102,13 @@ from .interp import (air_restriction, classical_interp, direct_interp,
                      jacobi_interp, multipass_interp, standard_interp,
                      truncate_interp)
 from .rap import galerkin_rap, nongalerkin_filter, offset_budget_filter
+from .euclid import EuclidData, build_euclid, euclid_smooth
+from .parasails import (ParaSailsData, ParaSailsOptions, build_parasails_data,
+                        parasails_smooth)
 from .relax import (ChebyData, GSMatrix, build_gs_schedule,
                     cheby_setup, chebyshev, gauss_seidel, jacobi, jacobi_cf)
+from .schwarz import (SchwarzData, SchwarzOptions, build_schwarz_data,
+                      schwarz_smooth)
 from .strength import (create_nodal_A, gsmg_strength, second_strength,
                        strength_matrix, strength_matrix_abs)
 
@@ -227,7 +235,8 @@ _IMPLEMENTED = frozenset({
     "jacobi_trunc_threshold", "restrict_type", "filter_threshold_r",
     "air_neumann_degree", "num_functions", "dof_func", "nodal", "nodal_diag",
     "gsmg", "num_samples", "relocate_offset_budget",
-    "transfer_offset_budget", "relocate_lump",
+    "transfer_offset_budget", "relocate_lump", "smooth_type",
+    "smooth_num_levels", "euclid_domains", "euclid_fill", "euclid_colored",
 })
 _JACOBI = (0, 5, 7, 18)
 # level-scheduled Gauss-Seidel: 1/2/3/13 forward, 4/14 backward, 6/8 both
@@ -339,6 +348,13 @@ def check_options(o: BoomerAMGOptions) -> None:
         ("transfer_offset_budget", o.transfer_offset_budget >= 0),
         ("relocate_lump", o.relocate_lump in ("diag", "strong")),
         ("mat_dtype", (o.dtype, o.mat_dtype or o.dtype) in _DTYPES),
+        # 6 Schwarz, 8 ParaSails, 9 Euclid; 0 (and any of them with
+        # smooth_num_levels 0) relaxes
+        ("smooth_type", o.smooth_type in (0, 6, 8, 9)),
+        ("smooth_num_levels", o.smooth_num_levels >= 0),
+        ("euclid_domains", o.euclid_domains >= 1),
+        ("euclid_fill", o.euclid_fill >= 0),
+        ("euclid_colored", o.euclid_colored in (True, False)),
     )
     for name, ok in checks:
         if not ok:
@@ -362,6 +378,11 @@ class AMGLevel:
     gs_fwd: Optional[object] = None
     gs_bwd: Optional[object] = None
     cheby: Optional[ChebyData] = None  # relax 16
+    # the complex smoother replacing relaxation on the first
+    # smooth_num_levels levels (smooth_type 9 / 6 / 8)
+    euclid: Optional[EuclidData] = None
+    schwarz: Optional[SchwarzData] = None
+    parasails: Optional[ParaSailsData] = None
 
 
 class BoomerAMG:
@@ -405,6 +426,36 @@ class BoomerAMG:
         self._reloc_cells = {}
         self._host_A1_unf = self._fast = self._seq_coarse = None
         self._levels_T = None
+        return self
+
+    @classmethod
+    def from_host_levels(cls, host_A, host_P, cf, opts: BoomerAMGOptions, *,
+                         device) -> "BoomerAMG":
+        """An instance over a host hierarchy set up earlier (a checkpoint:
+        utils/io.py::load_amg_hierarchy): the operators, the cycle's P
+        and the CF markers of every level, R = P^T.  Everything the
+        setup leaves beside them is made as the setup makes it (the
+        level-1 Galerkin product before the non-Galerkin filter, which
+        the device RAP's plan reads, and seq_threshold's nested
+        BoomerAMG), then the hierarchy is frozen on `device` as
+        __init__ freezes it."""
+        check_options(opts)
+        self = cls.__new__(cls)
+        self.opts = opts
+        self.device = torch.device(device)
+        self.levels = []
+        self._host_A, self._host_P = list(host_A), list(host_P)
+        self._host_R = [None] * len(self._host_P)
+        self._cf = list(cf)
+        self._reloc_cells = {}
+        self._fast = self._seq_coarse = self._levels_T = None
+        self._host_A1_unf = None
+        if len(self._host_A) > 1:
+            self._host_A1_unf = (
+                galerkin_rap(self._host_A[0], self._host_P[0])
+                if self._level_ngt(0) > 0 else self._host_A[1])
+        self._build_seq_coarse()
+        self._freeze_hierarchy()
         return self
 
     # ------------------------------------------------------------------
@@ -669,7 +720,7 @@ class BoomerAMG:
         if (o.post_interp_type or o.restrict_type or o.seq_threshold > 0
                 or max(o.additive, o.mult_additive, o.simple) >= 0):
             return False
-        if not self._jacobi_updown():
+        if not self._jacobi_updown() or o.smooth_num_levels:
             return False
         n, m = A.shape
         if n != m or int(np.prod(o.lattice_shape)) != n or A.nnz == 0:
@@ -908,6 +959,13 @@ class BoomerAMG:
         if not coarsest and 16 in relax_types:
             cheby = cheby_setup(CSRMatrix.from_scipy(A), o.cheby_order,
                                 o.cheby_ratio, device=dev)
+        euclid = schwarz = parasails = None
+        # the levels being frozen in order: len(self.levels) is this
+        # level's (the transposed hierarchy, frozen later, takes none,
+        # as in the JAX package)
+        if not coarsest and len(self.levels) < o.smooth_num_levels:
+            with timed("SMOOTHER_SETUP", device=dev):
+                euclid, schwarz, parasails = self._complex_smoother(A)
         return AMGLevel(
             A=A_frozen,
             dinv=to_device(dinv, dt, dev),
@@ -921,7 +979,30 @@ class BoomerAMG:
             gs_fwd=gs_fwd,
             gs_bwd=gs_bwd,
             cheby=cheby,
+            euclid=euclid, schwarz=schwarz, parasails=parasails,
         )
+
+    def _complex_smoother(self, A):
+        """(euclid, schwarz, parasails) of a level: the one smooth_type
+        names, built from its host A with the JAX package's options
+        (par_cycle.c's smooth_type 9 Euclid, 6 Schwarz (RAS over row
+        blocks), 8 ParaSails (FSAI)); ParaSails' factors frozen in
+        mat_dtype."""
+        o = self.opts
+        if o.smooth_type == 9:
+            return build_euclid(A, num_domains=o.euclid_domains,
+                                fill_level=o.euclid_fill,
+                                colored=o.euclid_colored,
+                                device=self.device), None, None
+        Ah = CSRMatrix.from_scipy(A)
+        if o.smooth_type == 6:
+            return None, build_schwarz_data(Ah, SchwarzOptions(),
+                                            device=self.device), None
+        if o.smooth_type == 8:
+            return None, None, build_parasails_data(
+                Ah, ParaSailsOptions(), device=self.device,
+                dtype=o.mat_dtype or o.dtype)
+        return None, None, None
 
     def _gs_schedules(self, A, cf):
         """(forward, backward) GS schedules of a host level, sharing one
@@ -999,6 +1080,8 @@ class BoomerAMG:
             return None
         if not self._jacobi_updown():
             return None  # embedded smoothing is for the Jacobi family only
+        if o.smooth_num_levels > 0:
+            return None  # the complex smoothers work on the compact layout
         # the fine operator must itself freeze to DIA (freeze_auto's
         # criteria: square, above the dense threshold, few diagonals)
         A0 = self._host_A[0]
@@ -1463,6 +1546,16 @@ class BoomerAMG:
                 return self._seq_coarse.cycle(f)
             # the dense pinv, or the collapsed sub-cycle as an operator
             return ci @ f if isinstance(ci, torch.Tensor) else spmv(ci, f)
+        # the complex smoother replaces relaxation on its levels
+        # (par_cycle.c's smooth_num_levels branch), in the JAX package's
+        # order
+        matvec = lambda v: spmv(lvl.A, v)  # noqa: E731
+        if lvl.euclid is not None:
+            return euclid_smooth(lvl.euclid, matvec, u, f, w)
+        if lvl.schwarz is not None:
+            return schwarz_smooth(lvl.schwarz, matvec, u, f, w)
+        if lvl.parasails is not None:
+            return parasails_smooth(lvl.parasails, matvec, u, f, w)
         if relax_type not in _JACOBI:
             return self._smooth_other(lvl, relax_type, u, f, up, level, w,
                                       points)
@@ -1710,6 +1803,20 @@ class BoomerAMG:
             if ci is None:
                 return self._seq_coarse.cycle_launches()
             return {} if isinstance(ci, torch.Tensor) else kernel_launches(ci)
+        A = kernel_launches(lvl.A)
+        if lvl.euclid is not None:
+            # a residual and the triangular pair, once a color (or once)
+            k = lvl.euclid.ncolors if lvl.euclid.colored else 1
+            return {**{n: k * c for n, c in A.items()}, "gs_sweep": 2 * k}
+        if lvl.schwarz is not None:
+            return A  # the residual (the block product is torch's)
+        if lvl.parasails is not None:
+            ps = lvl.parasails
+            out = dict(A)
+            for M in ((ps.G, ps.GT) if ps.G is not None else (ps.M,)):
+                for n, c in kernel_launches(M).items():
+                    out[n] = out.get(n, 0) + c
+            return out
         if relax_type in _GS_TYPES:
             calls = 2 if relax_type in (6, 8) else 1
             halves = 2 if isinstance(lvl.gs_fwd, tuple) and not point else 1
@@ -1721,7 +1828,7 @@ class BoomerAMG:
             n = lvl.cheby.order
         else:
             n = {15: 4, 17: 3}[relax_type]
-        return {k: n * c for k, c in kernel_launches(lvl.A).items()}
+        return {k: n * c for k, c in A.items()}
 
     def cycle_launches(self, levels=None, from_zero: bool = True) -> dict:
         """{kernel name: launches} of one `cycle` over `levels` (this

@@ -289,7 +289,7 @@ def test_new_options_accepted(kw):
 @pytest.mark.parametrize("field,value", [
     ("agg_interp_type", 2), ("agg_interp_type", 5), ("restrict_type", 3),
     ("num_paths", 0), ("interp_type", "bogus"), ("nodal", 5),
-    ("smooth_type", 8), ("smooth_type", 6), ("num_functions", 0),
+    ("smooth_type", 7), ("smooth_type", 5), ("num_functions", 0),
     ("relocate_lump", "neighbours"), ("transfer_offset_budget", -8),
 ])
 def test_other_options_still_raise(field, value):

@@ -129,10 +129,10 @@ def test_levels_from_numpy_layouts(jax_amg):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("interp_type", "bogus"), ("smooth_num_levels", 1),
+    ("interp_type", "bogus"), ("smooth_num_levels", -1),
     ("post_interp_type", -1), ("agg_interp_type", 2),
-    ("smooth_type", 6),
-    ("restrict_type", 3), ("euclid_domains", 2), ("mat_dtype", "float32"),
+    ("smooth_type", 7),
+    ("restrict_type", 3), ("euclid_domains", 0), ("mat_dtype", "float32"),
 ])
 def test_unimplemented_options_raise(field, value):
     kw = dict(SLICE, dtype="float64")

@@ -12,10 +12,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_MODULES = [
     "hypre_tpu_torch",
     "hypre_tpu_torch.convert",
+    "hypre_tpu_torch.drivers",
+    "hypre_tpu_torch.drivers.ij",
     "hypre_tpu_torch.entry",
     "hypre_tpu_torch.native",
     "hypre_tpu_torch.profile_slice",
     "hypre_tpu_torch.lane_sweep",
+    "hypre_tpu_torch.models.ij",
     "hypre_tpu_torch.models.laplacian",
     "hypre_tpu_torch.ops.blas1",
     "hypre_tpu_torch.ops.cell_dense_kernel",
@@ -34,9 +37,14 @@ SLICE_MODULES = [
     "hypre_tpu_torch.solvers.amg.boomeramg",
     "hypre_tpu_torch.solvers.amg.coarsen",
     "hypre_tpu_torch.solvers.amg.device_coarsen",
+    "hypre_tpu_torch.solvers.amg.euclid",
+    "hypre_tpu_torch.solvers.amg.hybrid",
+    "hypre_tpu_torch.solvers.amg.ilu",
     "hypre_tpu_torch.solvers.amg.interp",
+    "hypre_tpu_torch.solvers.amg.parasails",
     "hypre_tpu_torch.solvers.amg.rap",
     "hypre_tpu_torch.solvers.amg.relax",
+    "hypre_tpu_torch.solvers.amg.schwarz",
     "hypre_tpu_torch.solvers.amg.strength",
     "hypre_tpu_torch.solvers.eigen.lobpcg",
     "hypre_tpu_torch.solvers.krylov.bicgstab",
@@ -48,6 +56,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.solvers.krylov.lgmres",
     "hypre_tpu_torch.solvers.krylov.pcg",
     "hypre_tpu_torch.utils.errors",
+    "hypre_tpu_torch.utils.io",
     "hypre_tpu_torch.utils.lcg",
     "hypre_tpu_torch.utils.timing",
 ]

@@ -385,12 +385,12 @@ def test_entry_options_hierarchy_equals_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(smooth_type=9), "smooth_type"),
+    (dict(smooth_type=7), "smooth_type"),
     (dict(relocate_lump="bogus"), "relocate_lump"),
     (dict(relocate_offset_budget=-1), "relocate_offset_budget"),
-    (dict(smooth_num_levels=2), "smooth_num_levels"),
-    (dict(euclid_fill=2), "euclid_fill"),
-    (dict(euclid_colored=False), "euclid_colored"),
+    (dict(smooth_num_levels=-1), "smooth_num_levels"),
+    (dict(euclid_fill=-1), "euclid_fill"),
+    (dict(euclid_colored=2), "euclid_colored"),
 ])
 def test_unported_lattice_options_raise(kw, match):
     opts = BoomerAMGOptions(**{**LATTICE, "dtype": "float64", **kw})

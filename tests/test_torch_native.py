@@ -45,7 +45,8 @@ PORT_FUNCTIONS = sorted(c_functions(PORT_C))
 
 def test_port_c_defines_the_setup_kernels():
     assert {"rs_coarsen", "cljp_coarsen", "pmis_loop",
-            "strength_classical_i32"} <= set(PORT_FUNCTIONS)
+            "strength_classical_i32", "iluk_factor",
+            "ilut_factor"} <= set(PORT_FUNCTIONS)
 
 
 @pytest.mark.parametrize("name", PORT_FUNCTIONS)
