@@ -163,10 +163,29 @@ Phases (any failure raises and the script exits non-zero):
      within 1e-12 of the host accumulator, whether they repeat bitwise
      reported; (e) -smtype 6 / 8 / 9 -smlv 2 at 48^3 and (g) every
      other solver id at 24^3, card against CPU.
+ 16. the AMG family, each line through the solver's own entry points
+     with the counts at 0 before and read after, f64, b = ones: (a)
+     SA-AMG-PCG at 96^3; (b) PILUT-GMRES(30) at 48^3, gs_sweep on every
+     stage's and the tail's schedules and one whole application held
+     against the plain versions; (c) MGR-FlexGMRES on the 48^3 two-
+     function systems Laplacian, function 1 C, with MGROptions() and
+     with block-Jacobi interpolation / restriction, AMG F-relaxation and
+     the Galerkin coarse grid; (d) AMS-PCG on the 64^3 curl-curl edge
+     problem; (e) ADS-PCG on the 13^3 div-div face problem; (f) AME on
+     the 16^3 curl-curl problem; (g) AMG-DD at 24^3 (8 domains, padding
+     2): the host solve, the device cycle in f64 (flat_take) and f32
+     (take_along_axis) against the host cycle, every gather bitwise its
+     plain version, the level-0 gather timed; (h) BlockAMG-PCG at 24^3 x
+     2, direct and classical block interpolation.  Each line: the JAX
+     package's count (AUX_*), the true residual, setup seconds, solve
+     ms, launches exactly as the solver's own counts predict (busy and
+     idle for (a), (d), (g)); the frozen operators and auxiliary
+     hierarchies held against their plain versions.  Then every solver
+     at 4^3-16^3 card against CPU.
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
 the GS family, the device setup chain, the cycle options, aggressive
-coarsening and AIR, the systems phase, the ij phase), the kernel report
-and {"ok": true, ...}.
+coarsening and AIR, the systems phase, the ij phase, the AMG family),
+the kernel report and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -1254,38 +1273,32 @@ def phase_path_gathers(amg, flush, card, label):
     return (*tot[:4], "bytes", tot[4]), shapes
 
 
-def phase_hold_operators(amg, tol, label):
-    """Every operator of a frozen hierarchy (plain or lattice forms) in
-    each form the V-cycle runs it (CYCLE_FORMS; the coarse solve plain)
-    through its wrappers, against the plain version on the same inputs
-    (`plain_spmv`, then the torch epilogue): relative error within tol
-    (1e-4 for a dense product in float32, whose dot products run to
+def hold_ops(ops, tol, label, rng, vdt, dev) -> dict:
+    """Each operator [(name, A, rows in, rows out, forms)] in each of its
+    forms through its wrappers, against the plain version on the same
+    inputs (`plain_spmv`, then the torch epilogue): relative error within
+    tol (1e-4 for a dense product in float32, whose dot products run to
     thousands of terms), the same bits on a second run, and the launches
-    of each application exactly what `kernel_launches` says of it.  So
-    K1 (with and without a tail), the ELL kernel, `flat_take` and
-    `cell_dense` are held at the shapes this hierarchy gives them.
+    of each application exactly what `kernel_launches` says of it.
     Untimed.  Returns {"applications", "max_rel", "launches"}: the
     launches of these comparisons, not of a solve."""
     from hypre_tpu_torch.ops import dia as D
     from hypre_tpu_torch.ops.forms import epilogue
 
-    rng = np.random.default_rng(41)
-    vdt = amg.levels[0].dinv.dtype
-    dev = amg.levels[0].dinv.device
     n_apps, worst = 0, 0.0
     total = {name: 0 for name in read_counts()}
-    for name, A, n_in, n_out, _ in cycle_operators(amg):
+    for name, A, n_in, n_out, forms in ops:
         fmt = describe(A)[0]
         x = torch.from_numpy(rng.standard_normal(n_in)).to(dev, vdt)
         want = {k: v for k, v in D.kernel_launches(A).items() if v}
         op_tol = (max(tol, 1e-4) if "dense" in fmt and vdt == torch.float32
                   else tol)
-        for form in CYCLE_FORMS.get(name.split()[-1], ("plain",)):
-            ops = form_operands(form, n_out, vdt, dev, rng)
+        for form in forms:
+            vecs = form_operands(form, n_out, vdt, dev, rng)
             zero_counts()
-            y = D._spmv_form(A, x, form, **ops)
+            y = D._spmv_form(A, x, form, **vecs)
             counts = read_counts()
-            y_ref = epilogue(form, plain_spmv(A, x), x, **ops)
+            y_ref = epilogue(form, plain_spmv(A, x), x, **vecs)
             torch.cuda.synchronize()
             require(y.shape == (n_out,) and bool(torch.isfinite(y).all()),
                     f"{label} {name} {form}: shape {tuple(y.shape)} or a "
@@ -1298,18 +1311,30 @@ def phase_hold_operators(amg, tol, label):
             got = {k: v for k, v in counts.items() if v}
             require(got == want, f"{label} {name} {form}: launches {got}, the "
                                  f"operator says {want}")
-            require(torch.equal(D._spmv_form(A, x, form, **ops), y),
+            require(torch.equal(D._spmv_form(A, x, form, **vecs), y),
                     f"{label} {name} {form}: other bits on a second run")
             for k, v in counts.items():
                 total[k] += v
             n_apps += 1
             worst = max(worst, rel)
-    log(f"operators [{label}]: {n_apps} applications (every operator in the "
-        f"cycle's forms) agree with their plain versions, max rel "
-        f"{worst:.2e} (tol {tol:g}), launches as `kernel_launches` says: "
-        f"{ {k: v for k, v in total.items() if v} }")
+    log(f"operators [{label}]: {n_apps} applications of "
+        f"{[(o[0], describe(o[1])[0]) for o in ops]} agree with their plain "
+        f"versions, max rel {worst:.2e} (tol {tol:g}), launches as "
+        f"`kernel_launches` says: { {k: v for k, v in total.items() if v} }")
     return {"applications": n_apps, "max_rel": worst,
             "launches": {k: v for k, v in total.items() if v}}
+
+
+def phase_hold_operators(amg, tol, label):
+    """`hold_ops` on every operator of a frozen hierarchy (plain or
+    lattice forms) in each form the V-cycle runs it (CYCLE_FORMS; the
+    coarse solve plain).  So K1 (with and without a tail), the ELL
+    kernel, `flat_take` and `cell_dense` are held at the shapes this
+    hierarchy gives them."""
+    ops = [(name, A, n_in, n_out, CYCLE_FORMS.get(name.split()[-1], ("plain",)))
+           for name, A, n_in, n_out, _ in cycle_operators(amg)]
+    return hold_ops(ops, tol, label, np.random.default_rng(41),
+                    amg.levels[0].dinv.dtype, amg.levels[0].dinv.device)
 
 
 def run_lattice(nx, opts, dev, card, label, iters_ok, plain_k1: int):
@@ -2363,6 +2388,17 @@ def solve_median_ms(solve, reps: int = 20):
     return float(np.median(times)), min(times), max(times)
 
 
+def busy(solve, its: int = 1) -> dict:
+    """One solve() under torch.profiler: its wall time, device busy,
+    idle share and device events an iteration."""
+    from hypre_tpu_torch.profile_slice import profile_solve
+
+    _, wall, busy_us, events, _ = profile_solve(solve)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / 1e6 / wall,
+            "kernels_per_iteration": len(events) / max(its, 1)}
+
+
 def run_cycle(opts, dev, card, label, want, slack, A=None):
     """One 96^3 run of a cycle option through run_slice (on the Poisson
     problem, or on the matrix A), the counts set to 0 just before and
@@ -2698,7 +2734,11 @@ def predicted_calls(name: str, kw: dict, its: int) -> dict:
     full cycles of k_dim steps but the last; LGMRES's cycle c takes
     k_dim - min(c, aug_dim) Krylov steps (the others apply no operator)
     and stores an augmentation pair (A M z) after every cycle but the
-    last; BiCGSTAB checks the true residual once, at convergence."""
+    last; BiCGSTAB checks the true residual once, at convergence; PCG
+    (no two-norm test) applies M to b for the norm, to the first r and
+    once an iteration."""
+    if name == "pcg":
+        return {"A": 1 + its, "M": 2 + its, "AT": 0}
     if name in ("gmres", "flexgmres", "cogmres", "lgmres"):
         kd = kw["k_dim"]
         cycles = -(-its // kd)
@@ -3191,16 +3231,10 @@ def true_residual(A0, x, tol: float):
 
 
 def ij_timing(solve, its: int) -> dict:
-    """The solve's median of 20 and one profiled run: busy, idle share,
-    device events an iteration."""
-    from hypre_tpu_torch.profile_slice import profile_solve
-
+    """The solve's median of 20 and one profiled run (`busy`)."""
     med, lo, hi = solve_median_ms(solve)
-    _, wall, busy_us, events, _ = profile_solve(solve)
     return {"solve_median_ms": med, "solve_min_max_ms": [lo, hi],
-            "wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
-            "idle_share": 1 - busy_us / 1e6 / wall,
-            "kernels_per_iteration": len(events) / max(its, 1)}
+            **busy(solve, its)}
 
 
 def ij_phases() -> dict:
@@ -3585,6 +3619,767 @@ def phase_ij(dev, card):
     return runs, assembly, small
 
 
+# -- 16. the AMG family -------------------------------------------------------
+
+# The JAX package's counts at the card sizes, computed on a CPU with the
+# JAX package and recomputed by `python -m pytest -m slow
+# tests/test_torch_{sa,pilut,mgr,ams,amgdd,block_amg}.py -k chip_pin`.
+# Sizes cut from the ones first planned, each for a fault both packages
+# share (ROADMAP Queue 3): ADS at 13^3 (its RT nodal AMG keeps one level,
+# a dense pinv of 3 (n+1)^3 rows; 13^3 is the least size whose face and
+# curl-space operators leave the dense path), AMG-DD at 24^3 (at 48^3 the solve
+# does not reach 1e-8 in 100 iterations), block AMG at 24^3 (at 48^3 its
+# V-cycle is no SPD preconditioner: PCG stops on a NaN residual).
+AUX_SA96 = 21  # SA-PCG, laplacian_7pt(96^3), tol 1e-6
+AUX_PILUT48 = (33, 2)  # PILUT-GMRES(30) at 48^3, tol 1e-8: (iterations, stages)
+MGR_BLK = dict(interp_type="blk_jacobi", restrict_type="blk_jacobi",
+               frelax="amg", blk_size=2, coarse_grid_method="galerkin")
+# MGR-FlexGMRES(10) on sys_laplacian_7pt(48^3, 2), function 1 C, tol 1e-8:
+# {label: (options, iterations)}; the default line stops unconverged at
+# max_iter 100 (AUX_MGR48_DEFAULT_REL: its final relative residual)
+AUX_MGR48 = {"default": ({}, 100), "blk_jacobi": (MGR_BLK, 19)}
+AUX_MGR48_DEFAULT_REL = 0.11860760775943988
+AUX_AMS64 = (9, True)  # AMS-PCG, curlcurl_matrix(64^3), tol 1e-6: (its, G-space)
+AUX_ADS13 = 1  # ADS-PCG, divdiv_matrix(13^3), tol 1e-6
+# AME, curlcurl_matrix(16^3), M = I, AMEOptions(): (iterations, eigenvalues)
+AUX_AME16 = (56, (1.068107601264485, 1.0681076012646722, 1.068107601264822,
+                  1.1021614018971027))
+AUX_DD24 = 64  # AMGDD.solve, laplacian_7pt(24^3), 8 domains, tol 1e-8
+AUX_BLOCK24 = {"direct": 26, "classical": 25}  # BlockAMG-PCG, 24^3 x 2, 1e-8
+DD_AMG = dict(coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
+              relax_down=18, relax_up=18, embed_level1=False)
+
+
+def expect(parts) -> dict:
+    """{kernel: launches} of [(an application's launches, applications)],
+    every counted kernel present."""
+    from hypre_tpu_torch.ops.dia import sum_launches
+
+    return {name: 0 for name in read_counts()} | sum_launches(parts)
+
+
+def host_rel(As, b, x) -> float:
+    """||b - A x|| / ||b|| in float64 on the host; finite x required."""
+    xh = x.double().cpu().numpy()
+    require(bool(np.isfinite(xh).all()), "non-finite solution")
+    bh = b.double().cpu().numpy()
+    return float(np.linalg.norm(bh - As @ xh) / np.linalg.norm(bh))
+
+
+def hold_family_ops(ops, label) -> int:
+    """`hold_ops` on a solver's frozen operators [(name, A)] in the forms
+    the solvers run (plain, resid, axpy; jacobi where square), 1e-12.
+    Returns the number of applications held."""
+    return hold_ops(
+        [(n, A, A.num_cols, A.num_rows, ("plain", "resid", "axpy") + (
+            ("jacobi",) if A.num_rows == A.num_cols else ())) for n, A in ops],
+        1e-12, label, np.random.default_rng(43), torch.float64,
+        ops[0][1].data.device)["applications"]
+
+
+def hold_amgs(amgs, label) -> int:
+    """phase_hold_operators on each BoomerAMG of more than one level."""
+    n = 0
+    for name, amg in amgs:
+        if amg is not None and len(amg.levels) > 1:
+            n += phase_hold_operators(amg, 1e-12, f"{label} {name}")["applications"]
+    return n
+
+
+def family_line(label, card, its, want, rel, setup_s, solve_ms, counts,
+                expected, **extra) -> dict:
+    """Log one line of phase 16 and hold it: the JAX package's count,
+    launches exactly as predicted."""
+    log(f"family [{label}; {card}]: {its} iterations (JAX package: {want}), "
+        f"true rel residual {rel:.3e}; setup {setup_s:.2f} s, solve "
+        f"{solve_ms:.2f} ms; {extra}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(its == want, f"family {label}: {its} iterations, the JAX "
+                         f"package's {want}")
+    require(counts == expected, f"family {label}: launches {counts} are not "
+                                f"the predicted {expected}")
+    return {"iterations": its, "true_rel_residual": rel, "setup_s": setup_s,
+            "solve_ms": solve_ms, "launches": counts, **extra}
+
+
+def family_sa(dev, card):
+    """(a) SA-AMG-PCG at 96^3."""
+    from hypre_tpu_torch.models import laplacian_7pt
+    from hypre_tpu_torch.ops.dia import freeze_auto, kernel_launches, spmv
+    from hypre_tpu_torch.solvers.amg.smoothed_aggregation import (
+        SAOptions, SmoothedAggregationAMG)
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+
+    A = laplacian_7pt(96, 96, 96)
+    zero_counts()
+    t0 = time.perf_counter()
+    sa = SmoothedAggregationAMG(A, SAOptions(), device=dev)
+    E = freeze_auto(A, torch.float64, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+    solve = lambda: pcg(lambda x: spmv(E, x), b, M=sa.precond,  # noqa: E731
+                        opts=PCGOptions(tol=1e-6, max_iter=200))
+    res = solve()
+    counts = read_counts()
+    its = res.num_iterations
+    calls = predicted_calls("pcg", {}, its)
+    expected = expect([(kernel_launches(E), calls["A"]),
+                       (sa.cycle_launches(), calls["M"])])
+    ms = solve_median_ms(solve, reps=1)[0]
+    out = family_line("(a) SA-PCG 96^3", card, its, AUX_SA96,
+                      host_rel(A.to_scipy(), b, res.x), setup_s, ms, counts,
+                      expected, levels=[describe(l["A"])[0] for l in sa.levels],
+                      **busy(solve, its))
+    out["held"] = hold_family_ops(
+        [(f"L{k} {n}", lv[n]) for k, lv in enumerate(sa.levels)
+         for n in ("A", "R", "P") if lv[n] is not None], "(a) SA")
+    return out
+
+
+def pilut_plain(p, k, r):
+    """PILUT's application from stage k through the plain versions alone
+    (gs_sweep_reference, plain_spmv), on r's device."""
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_reference
+
+    dev = r.device
+
+    def sweep(S, f):
+        return gs_sweep_reference(S.slabs(dev), S.n, torch.zeros_like(f), f)
+
+    if k == len(p.stages):
+        return sweep(p._tail._Usched, sweep(p._tail._Lsched, r))
+    st = p.stages[k]
+    rp = r[st["perm"]]
+    rB, rS = rp[: st["ni"]], rp[st["ni"]:]
+    yB = sweep(st["Ls"], rB)
+    xS = pilut_plain(p, k + 1, rS - plain_spmv(st["L_EB"], yB))
+    xB = sweep(st["Us"], yB - plain_spmv(st["U_BF"], xS))
+    return torch.cat([xB, xS])[st["iperm"]]
+
+
+def family_pilut(dev, card):
+    """(b) PILUT-GMRES(30) at 48^3, every schedule and one whole
+    application held against the plain versions."""
+    from hypre_tpu_torch.models import laplacian_7pt
+    from hypre_tpu_torch.ops.dia import freeze_auto, kernel_launches, spmv
+    from hypre_tpu_torch.solvers.amg.pilut import PILUT, PILUTOptions
+    from hypre_tpu_torch.solvers.krylov import GMRESOptions, gmres
+
+    A = laplacian_7pt(48, 48, 48)
+    zero_counts()
+    t0 = time.perf_counter()
+    p = PILUT(A, PILUTOptions(), device=dev)
+    E = freeze_auto(A, torch.float64, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+    solve = lambda: gmres(lambda x: spmv(E, x), b, M=p.precond,  # noqa: E731
+                          opts=GMRESOptions(tol=1e-8, max_iter=200, k_dim=30))
+    res = solve()
+    require_no_gs_fault(dev, "(b) PILUT-GMRES")
+    counts = read_counts()
+    its = res.num_iterations
+    calls = predicted_calls("gmres", {"k_dim": 30}, its)
+    expected = expect([(kernel_launches(E), calls["A"]),
+                       (p.apply_launches(), calls["M"])])
+    ms = solve_median_ms(solve, reps=1)[0]
+    want_its, want_stages = AUX_PILUT48
+    require(len(p.stages) == want_stages,
+            f"(b) PILUT: {len(p.stages)} stages, the JAX package's "
+            f"{want_stages}")
+    shapes = [{"ni": st["ni"], "n": st["n"],
+               "wavefronts": [st["Ls"].num_wavefronts, st["Us"].num_wavefronts]}
+              for st in p.stages]
+    out = family_line("(b) PILUT-GMRES 48^3", card, its, want_its,
+                      host_rel(A.to_scipy(), b, res.x), setup_s, ms, counts,
+                      expected, stages=shapes, applications=calls["M"])
+    require(counts["gs_sweep"] == (2 * len(p.stages) + 2) * calls["M"],
+            "(b) PILUT: gs_sweep launches are not 2 a stage and 2 for the "
+            "tail an application")
+    rng = np.random.default_rng(47)
+    errs = []
+    scheds = [(f"stage {k} {n}", st[n]) for k, st in enumerate(p.stages)
+              for n in ("Ls", "Us")]
+    scheds += [("tail L", p._tail._Lsched), ("tail U", p._tail._Usched)]
+    for name, S in scheds:
+        errs.append(hold_gs(S, f"PILUT 48^3 {name}", torch.float64, 1e-12,
+                            rng)[0])
+    r = torch.from_numpy(rng.standard_normal(A.num_rows)).to(dev)
+    got, want = p.solve(r), pilut_plain(p, 0, r)
+    require_no_gs_fault(dev, "(b) PILUT application")
+    app_rel = float((got - want).abs().max() / want.abs().max())
+    log(f"gs_sweep on PILUT's {len(scheds)} schedules 48^3 ({card}): max abs "
+        f"err {max(errs):.3e}; one PILUT.solve against the plain chain: rel "
+        f"{app_rel:.3e}")
+    require(app_rel <= 1e-12, f"(b) PILUT application differs from the plain "
+                              f"chain: rel {app_rel:.3e}")
+    out["held"] = {"schedules": len(scheds), "sweep_err": max(errs),
+                   "application_rel": app_rel,
+                   "operators": hold_family_ops(
+                       [("A", E)] + [(f"stage {k} {n}", st[n]) for k, st in
+                                     enumerate(p.stages)
+                                     for n in ("L_EB", "U_BF")],
+                       "(b) PILUT")}
+    return out
+
+
+def family_mgr(dev, card, label):
+    """(c) MGR-FlexGMRES on sys_laplacian_7pt(48^3, 2), function 1 C."""
+    from hypre_tpu_torch.models import sys_laplacian_7pt
+    from hypre_tpu_torch.ops.dia import freeze_auto, kernel_launches
+    from hypre_tpu_torch.solvers.amg.mgr import MGR, MGROptions
+
+    opts, want = AUX_MGR48[label]
+    A = sys_laplacian_7pt(48, 48, 48, 2)
+    cm = np.arange(A.num_rows) % 2 == 1
+    zero_counts()
+    t0 = time.perf_counter()
+    m = MGR(A, cm, MGROptions(**opts), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+    res = m.solve(A, b, tol=1e-8)
+    counts = read_counts()
+    its = res.num_iterations
+    calls = predicted_calls("flexgmres", {"k_dim": 10}, its)
+    E = freeze_auto(A, torch.float64, dev)
+    expected = expect([(kernel_launches(E), calls["A"]),
+                       (m.apply_launches(), calls["M"])])
+    ms = solve_median_ms(lambda: m.solve(A, b, tol=1e-8), reps=1)[0]
+    rel = host_rel(A.to_scipy(), b, res.x)
+    out = family_line(f"(c) MGR {label} 48^3", card, its, want, rel, setup_s,
+                      ms, counts, expected, converged=res.converged,
+                      final_rel=float(res.rel_residual_norm))
+    if label == "default":
+        got = float(res.rel_residual_norm)
+        require(abs(got - AUX_MGR48_DEFAULT_REL) <= 1e-8 * AUX_MGR48_DEFAULT_REL,
+                f"(c) MGR default: final rel residual {got!r}, the JAX "
+                f"package's {AUX_MGR48_DEFAULT_REL!r}")
+    lv = m.levels[0]
+    ops = [("A", E)] + [(n, lv[n]) for n in ("Aff", "Acf", "Wp", "Wr", "Bffi")
+                        if lv[n] is not None]
+    out["held"] = hold_family_ops(ops, f"(c) MGR {label}") + hold_amgs(
+        [("coarse AMG", m.amg), ("F-relax AMG", lv["famg"])], f"(c) MGR {label}")
+    return out
+
+
+def family_ams(dev, card):
+    """(d) AMS-PCG on curlcurl_matrix(64^3)."""
+    from hypre_tpu_torch.models import curlcurl_matrix
+    from hypre_tpu_torch.ops.dia import kernel_launches
+    from hypre_tpu_torch.solvers.amg.ams import AMS
+
+    A, G, coords = curlcurl_matrix(64, 64, 64)
+    zero_counts()
+    t0 = time.perf_counter()
+    a = AMS(A, G, coords, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+    solve = lambda: a.solve(b, tol=1e-6, max_iter=200)  # noqa: E731
+    res = solve()
+    counts = read_counts()
+    its = res.num_iterations
+    calls = predicted_calls("pcg", {}, its)
+    expected = expect([(kernel_launches(a._E), calls["A"]),
+                       (a.apply_launches(), calls["M"])])
+    ms = solve_median_ms(solve, reps=1)[0]
+    want_its, want_g = AUX_AMS64
+    g_space = a._amg_G is not None
+    require(g_space == want_g, f"(d) AMS: G-space AMG built {g_space}, the "
+                               f"JAX package's {want_g}")
+    out = family_line("(d) AMS-PCG 64^3", card, its, want_its,
+                      host_rel(A.to_scipy(), b, res.x), setup_s, ms, counts,
+                      expected, edges=A.num_rows, g_space_built=g_space,
+                      **busy(solve, its))
+    out["held"] = hold_family_ops(
+        [("A", a._E), ("G", a._G), ("G^T", a._GT), ("Pi", a._Pi),
+         ("Pi^T", a._PiT)], "(d) AMS") + hold_amgs(
+        [("G-space", a._amg_G), ("Pi-space", a._amg_Pi)], "(d) AMS")
+    return out
+
+
+def family_ads(dev, card):
+    """(e) ADS-PCG on divdiv_matrix(13^3): 7,098 faces, 7,644 edges, so A,
+    C, C^T, Pi and Pi^T and the curl-space AMS's operators run the
+    ELL kernel (DENSE_MAX_ROWS 6,144)."""
+    from hypre_tpu_torch.models import divdiv_matrix
+    from hypre_tpu_torch.ops.dia import kernel_launches
+    from hypre_tpu_torch.solvers.amg.ads import ADS
+
+    A, C, Pi, G, coords = divdiv_matrix(13, 13, 13)
+    zero_counts()
+    t0 = time.perf_counter()
+    d = ADS(A, C, Pi, G, coords, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+    solve = lambda: d.solve(b, tol=1e-6, max_iter=200)  # noqa: E731
+    res = solve()
+    counts = read_counts()
+    its = res.num_iterations
+    calls = predicted_calls("pcg", {}, its)
+    expected = expect([(kernel_launches(d._E), calls["A"]),
+                       (d.apply_launches(), calls["M"])])
+    ms = solve_median_ms(solve, reps=1)[0]
+    out = family_line("(e) ADS-PCG 13^3", card, its, AUX_ADS13,
+                      host_rel(A.to_scipy(), b, res.x), setup_s, ms, counts,
+                      expected, faces=A.num_rows,
+                      rt_space_levels=len(d._amg_Pi.levels))
+    a = d._ams
+    out["held"] = hold_family_ops(
+        [("A", d._E), ("C", d._C), ("C^T", d._CT), ("Pi", d._Pi),
+         ("Pi^T", d._PiT), ("curl-space A", a._E), ("curl-space G", a._G),
+         ("curl-space G^T", a._GT), ("curl-space Pi", a._Pi),
+         ("curl-space Pi^T", a._PiT)], "(e) ADS") + hold_amgs(
+        [("curl-space G-space", a._amg_G), ("curl-space Pi-space", a._amg_Pi),
+         ("RT nodal", d._amg_Pi)], "(e) ADS")
+    return out
+
+
+def ame_launches(e) -> dict:
+    """AME.solve's launches from its own counts: the columns of A, M and
+    AMS applied, and each projected column's matvecs and inner AMG-PCG
+    (`inner_iterations`)."""
+    from hypre_tpu_torch.ops.dia import kernel_launches as kl
+
+    K0 = e._amg_K.levels[0].A
+    parts = [(kl(e._E), e.applications["A"]), (kl(e._Em), e.applications["B"]),
+             (e.ams.apply_launches(), e.applications["T"])]
+    cols = len(e.inner_iterations)
+    for op in (e._Em, e._GT, e._G):
+        parts.append((kl(op), cols))
+    for k in e.inner_iterations:
+        calls = predicted_calls("pcg", {}, k)
+        parts += [(kl(K0), calls["A"]), (e._amg_K.cycle_launches(), calls["M"])]
+    return expect(parts)
+
+
+def family_ame(dev, card):
+    """(f) AME on curlcurl_matrix(16^3), M = I."""
+    from hypre_tpu_torch.models import curlcurl_matrix
+    from hypre_tpu_torch.ops.csr import CSRMatrix
+    from hypre_tpu_torch.solvers.amg.ame import AME, AMEOptions
+
+    A, G, coords = curlcurl_matrix(16, 16, 16)
+    M = CSRMatrix.from_scipy(sp.eye(A.num_rows, format="csr"))
+    zero_counts()
+    t0 = time.perf_counter()
+    e = AME(A, M, G, coords, AMEOptions(), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    res = []
+    ms = solve_median_ms(lambda: res.append(e.solve()), reps=1)[0]
+    res = res[0]
+    counts = read_counts()
+    evs = res.eigenvalues.cpu().numpy()
+    want_its, want_evs = AUX_AME16
+    ev_rel = float(np.abs(evs - np.asarray(want_evs)).max() / max(want_evs))
+    out = family_line("(f) AME 16^3", card, res.num_iterations, want_its,
+                      float(res.residual_norms.max()), setup_s, ms, counts,
+                      ame_launches(e), eigenvalues=evs.tolist(),
+                      eigenvalue_rel_to_jax=ev_rel, converged=res.converged,
+                      columns=dict(e.applications),
+                      projected_columns=len(e.inner_iterations))
+    require(res.converged and ev_rel <= 1e-8,
+            f"(f) AME: eigenvalues {evs} vs the JAX package's {want_evs}: "
+            f"rel {ev_rel:.3e}")
+    a = e.ams
+    out["held"] = hold_family_ops(
+        [("A", e._E), ("M", e._Em), ("G", e._G), ("G^T", e._GT),
+         ("AMS Pi", a._Pi), ("AMS Pi^T", a._PiT)], "(f) AME") + hold_amgs(
+        [("K", e._amg_K), ("AMS G-space", a._amg_G),
+         ("AMS Pi-space", a._amg_Pi)], "(f) AME")
+    return out
+
+
+def hold_gathers(dd_dev, label, rng) -> int:
+    """Every batched gather of the device cycle through its kernel
+    (take_along_axis for float32, flat_take for float64) against the
+    plain version on the same inputs, bitwise.  Returns the gathers held."""
+    from hypre_tpu_torch.ops.gather_kernel import (
+        flat_take_cuda, flat_take_reference, take_along_axis_cuda,
+        take_along_axis_reference)
+
+    n = 0
+    for l, lv in enumerate(dd_dev.levels):
+        for name in ("A", "R", "P"):
+            B = lv.get(name)
+            if B is None:
+                continue
+            D = B.cols.shape[0]
+            u = torch.from_numpy(rng.standard_normal((D, B.ncols))).to(
+                B.cols.device, dd_dev.dtype)
+            if dd_dev.dtype == torch.float32:
+                got = take_along_axis_cuda(u, B.cols, axis=1)
+                want = take_along_axis_reference(u, B.cols, axis=1)
+            else:
+                got = flat_take_cuda(u.reshape(-1), B.flat)
+                want = flat_take_reference(u.reshape(-1), B.flat)
+            require(torch.equal(got, want),
+                    f"{label} L{l} {name}: the gather differs from its plain "
+                    f"version")
+            n += 1
+    return n
+
+
+def time_dd_gathers(dd_dev, flush, card) -> dict:
+    """The level-0 composite operator's gather (the cycle's largest),
+    timed: the kernel in turns with its earlier launch (take_along_axis:
+    one segment a whole idx row, the plan before `_long_row_span`;
+    flat_take: the elementwise form), its plain version, the torch call,
+    the bytes bound (x and the indices read once, the result written
+    once)."""
+    from hypre_tpu_torch.ops.gather_kernel import (
+        flat_take_cuda, flat_take_reference, take_along_axis_cuda,
+        take_along_axis_reference, take_plan)
+
+    B = dd_dev.levels[0]["A"]
+    D = B.cols.shape[0]
+    u = torch.from_numpy(np.random.default_rng(53).standard_normal(
+        (D, B.ncols))).to(B.cols.device, dd_dev.dtype)
+    es = u.element_size()
+    nbytes = u.numel() * es + B.cols.numel() * (4 + es)
+    if dd_dev.dtype == torch.float32:
+        name = "take_along_axis"
+        fn = lambda: take_along_axis_cuda(u, B.cols, axis=1)  # noqa: E731
+        whole = take_plan(u.shape, B.cols.shape, 1, span=B.cols.shape[1])
+        old = lambda: take_along_axis_cuda(u, B.cols, axis=1,  # noqa: E731
+                                           plan=whole)
+        plain = lambda: take_along_axis_reference(u, B.cols, axis=1)  # noqa: E731
+        cols64 = B.cols.long()
+        lib = lambda: torch.take_along_dim(u, cols64, dim=1)  # noqa: E731
+    else:
+        name = "flat_take"
+        uf = u.reshape(-1)
+        fn = lambda: flat_take_cuda(uf, B.flat)  # noqa: E731
+        old = lambda: flat_take_cuda(uf, B.flat,  # noqa: E731
+                                     form="elementwise")
+        plain = lambda: flat_take_reference(uf, B.flat)  # noqa: E731
+        flat = B.flat.reshape(-1)
+        lib = lambda: torch.index_select(uf, 0, flat)  # noqa: E731
+    require(torch.equal(fn(), plain()) and torch.equal(old(), plain()),
+            f"{name} at AMG-DD's level-0 shape differs from its plain version")
+    ms, earlier_ms, _ = time_in_turns(fn, old, flush)
+    plain_ms = time_cuda_ms(plain, flush)
+    lib_ms = time_cuda_ms(lib, flush)
+    bms, by = bound_ms(nbytes, 0, dd_dev.dtype)
+    shape = {"x": [D, B.ncols], "idx": list(B.cols.shape)}
+    log(f"{name} [AMG-DD level-0 gather {shape}, {dd_dev.dtype}; {card}]: "
+        f"{ms * 1e3:.2f} us, in turns with the earlier launch "
+        f"{earlier_ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us, torch "
+        f"{lib_ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us")
+    return {"kernel": name, "shape": shape, "ms": ms, "earlier_ms": earlier_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def family_amgdd(dev, card, flush, gathers):
+    """(g) AMG-DD at 24^3: the host solve, then the device cycle in f64
+    and f32 against the host cycle, its gathers held and timed (into
+    `gathers`, by dtype)."""
+    from hypre_tpu_torch.models import laplacian_7pt
+    from hypre_tpu_torch.solvers.amg import (AMGDD, AMGDDDevice, AMGDDOptions,
+                                             BoomerAMG, BoomerAMGOptions)
+
+    A = laplacian_7pt(24, 24, 24)
+    t0 = time.perf_counter()
+    amg = BoomerAMG(A, BoomerAMGOptions(**DD_AMG), device=dev)
+    dd = AMGDD(amg, AMGDDOptions(num_domains=8, padding=2))
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = dd.solve(np.ones(A.num_rows), tol=1e-8, max_iter=100)
+    host_s = time.perf_counter() - t0
+    log(f"family [(g) AMGDD.solve 24^3 (host numpy)]: {res.num_iterations} "
+        f"iterations (JAX package: {AUX_DD24}), rel residual "
+        f"{res.rel_residual_norm:.3e}; setup {setup_s:.2f} s (the composite "
+        f"grids), solve {host_s:.2f} s; levels {len(dd.domains[0])}")
+    require(res.converged and res.num_iterations == AUX_DD24,
+            f"(g) AMGDD.solve: {res.num_iterations} iterations, the JAX "
+            f"package's {AUX_DD24}")
+    rng = np.random.default_rng(59)
+    r = rng.standard_normal(A.num_rows)
+    z_host = dd.cycle(r)
+    out = {"solve": {"iterations": res.num_iterations,
+                     "rel_residual": float(res.rel_residual_norm),
+                     "setup_s": setup_s, "host_solve_s": host_s}}
+    for dtype, tol in ((np.float64, 1e-10), (np.float32, 1e-5)):
+        t0 = time.perf_counter()
+        dv = AMGDDDevice(dd, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rt = torch.from_numpy(r).to(dev)
+        zero_counts()
+        z = dv.cycle(rt)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect([(dv.cycle_launches(), 1)])
+        rel = float(np.abs(z.double().cpu().numpy() - z_host).max()
+                    / np.abs(z_host).max())
+        label = f"(g) AMGDDDevice {np.dtype(dtype).name} 24^3"
+        med, lo, hi = solve_median_ms(lambda: dv.cycle(rt))
+        prof = busy(lambda: dv.cycle(rt))
+        held = hold_gathers(dv, label, rng)
+        log(f"family [{label}; {card}]: cycle vs the host cycle rel {rel:.3e} "
+            f"(tol {tol:g}); build {build_s:.2f} s; cycle median of 20 "
+            f"{med:.3f} ms ({lo:.3f}-{hi:.3f}); under the profiler {prof}; "
+            f"{held} gathers bitwise their plain versions; launches "
+            f"{counts}, predicted {expected} ({dv.num_levels} levels, "
+            f"num_relax {dd.opts.num_relax}, fac_cycles {dd.opts.fac_cycles})")
+        require(rel <= tol, f"{label}: the cycle differs from the host cycle: "
+                            f"rel {rel:.3e}")
+        require(counts == expected, f"{label}: launches {counts} are not the "
+                                    f"predicted {expected}")
+        key = np.dtype(dtype).name
+        out[key] = {"cycle_rel_to_host": rel, "build_s": build_s,
+                    "cycle_median_ms": med, "cycle_min_max_ms": [lo, hi],
+                    "gathers_held": held, "launches": counts, **prof}
+        gathers[key] = time_dd_gathers(dv, flush, card)
+    return out
+
+
+def family_block(dev, card, interp):
+    """(h) BlockAMG-PCG on sys_laplacian_7pt(24^3, 2)."""
+    from hypre_tpu_torch.models import sys_laplacian_7pt
+    from hypre_tpu_torch.ops.dia import freeze_auto, kernel_launches, spmv
+    from hypre_tpu_torch.solvers.amg.block_amg import BlockAMG, BlockAMGOptions
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+
+    A = sys_laplacian_7pt(24, 24, 24, 2)
+    zero_counts()
+    t0 = time.perf_counter()
+    amg = BlockAMG(A, BlockAMGOptions(interp_type=interp), device=dev)
+    E = freeze_auto(A, torch.float64, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+    solve = lambda: pcg(lambda x: spmv(E, x), b, M=amg.precond,  # noqa: E731
+                        opts=PCGOptions(tol=1e-8, max_iter=100))
+    res = solve()
+    counts = read_counts()
+    its = res.num_iterations
+    # the block operators are plain torch (index_select + einsum): only
+    # PCG's matvecs launch a kernel
+    expected = expect([(kernel_launches(E), predicted_calls("pcg", {}, its)["A"])])
+    ms = solve_median_ms(solve, reps=1)[0]
+    out = family_line(f"(h) BlockAMG {interp} PCG 24^3", card, its,
+                      AUX_BLOCK24[interp], host_rel(A.to_scipy(), b, res.x),
+                      setup_s, ms, counts, expected, levels=len(amg.levels))
+    require(res.converged, f"(h) BlockAMG {interp}: not converged")
+    out["held"] = hold_family_ops([("A", E)], f"(h) BlockAMG {interp}")
+    return out
+
+
+def small_cases():
+    """{label: build(device) -> (run() -> result, the quantity compared)}
+    at 4^3-16^3, one for each solver of phase 16."""
+    import hypre_tpu_torch.models as pm
+    from hypre_tpu_torch.ops.csr import CSRMatrix
+    from hypre_tpu_torch.ops.dia import freeze_auto, spmv
+    from hypre_tpu_torch.solvers import krylov
+    from hypre_tpu_torch.solvers.amg import (AMGDD, AMGDDDevice, AMGDDOptions,
+                                             BoomerAMG, BoomerAMGOptions)
+    from hypre_tpu_torch.solvers.amg import ads, ame, ams, block_amg, mgr, pilut
+    from hypre_tpu_torch.solvers.amg import smoothed_aggregation as sa
+
+    def krylov_on(A, dev, M, name="pcg", **kw):
+        E = freeze_auto(A, torch.float64, dev)
+        b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+        opts = getattr(krylov, {"pcg": "PCGOptions", "gmres": "GMRESOptions"}[
+            name])(**kw)
+        return lambda: getattr(krylov, name)(lambda x: spmv(E, x), b, M=M,
+                                             opts=opts)
+
+    def sa_case(dev):
+        A = pm.laplacian_7pt(16, 16, 16)
+        return krylov_on(A, dev, sa.SmoothedAggregationAMG(A, device=dev).precond,
+                         tol=1e-6, max_iter=200)
+
+    def pilut_case(dev):
+        A = pm.laplacian_7pt(12, 12, 12)
+        return krylov_on(A, dev, pilut.PILUT(A, device=dev).precond, "gmres",
+                         tol=1e-8, max_iter=200, k_dim=30)
+
+    def mgr_case(opts):
+        def build(dev):
+            A = pm.sys_laplacian_7pt(12, 12, 12, 2)
+            m = mgr.MGR(A, np.arange(A.num_rows) % 2 == 1,
+                        mgr.MGROptions(**opts), device=dev)
+            b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+            return lambda: m.solve(A, b, tol=1e-8)
+        return build
+
+    def ams_case(dev):
+        A, G, co = pm.curlcurl_matrix(12, 12, 12)
+        a = ams.AMS(A, G, co, device=dev)
+        b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+        return lambda: a.solve(b, tol=1e-6)
+
+    def ads_case(dev):
+        A, C, Pi, G, co = pm.divdiv_matrix(6, 6, 6)
+        d = ads.ADS(A, C, Pi, G, co, device=dev)
+        b = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
+        return lambda: d.solve(b, tol=1e-6)
+
+    def ame_case(dev):
+        A, G, co = pm.curlcurl_matrix(4, 4, 4)
+        M = CSRMatrix.from_scipy(sp.eye(A.num_rows, format="csr"))
+        return ame.AME(A, M, G, co, ame.AMEOptions(), device=dev).solve
+
+    def dd_case(dev):
+        A = pm.laplacian_7pt(12, 12, 12)
+        amg = BoomerAMG(A, BoomerAMGOptions(**DD_AMG), device=dev)
+        dv = AMGDDDevice(AMGDD(amg, AMGDDOptions(num_domains=8, padding=2)),
+                         dtype=np.float64, device=dev)
+        r = torch.from_numpy(np.random.default_rng(61).standard_normal(
+            A.num_rows)).to(dev)
+        return lambda: dv.cycle(r)
+
+    def block_case(interp):
+        def build(dev):
+            A = pm.sys_laplacian_7pt(12, 12, 12, 2)
+            amg = block_amg.BlockAMG(
+                A, block_amg.BlockAMGOptions(interp_type=interp), device=dev)
+            return krylov_on(A, dev, amg.precond, tol=1e-8, max_iter=100)
+        return build
+
+    return {"SA-PCG 16^3": sa_case, "PILUT-GMRES 12^3": pilut_case,
+            "MGR default 12^3": mgr_case({}),
+            "MGR blk_jacobi 12^3": mgr_case(MGR_BLK),
+            "MGR injection 12^3": mgr_case({"interp_type": "injection"}),
+            "AMS-PCG 12^3": ams_case,
+            "ADS-PCG 6^3": ads_case, "AME 4^3": ame_case,
+            "AMGDDDevice f64 cycle 12^3": dd_case,
+            "BlockAMG direct 12^3": block_case("direct"),
+            "BlockAMG classical 12^3": block_case("classical")}
+
+
+# {label: (count slack, x tolerance)} where the card's count differs from
+# the CPU's: block direct interpolation's level-1 P holds entries ~2e16
+# at 12^3 x 2 (a near-singular block row sum, in both packages; ROADMAP
+# Queue 3), so the cycle magnifies rounding ~3e9 and cuBLAS's and the
+# CPU's orders of summation in the block products part: 13 iterations on
+# the card, 14 on the CPU, x within 2.43e-8 (NVIDIA H100 80GB HBM3, 700 W)
+FAMILY_SMALL_SLACK = {"BlockAMG direct 12^3": (1, 1e-6)}
+
+
+def mgr_injection_card_vs_cpu(dev, card) -> dict:
+    """MGR's injection W_p at 20^3 x 2: the all-zero 8,000 x 8,000 block
+    (8,000 F rows, above DENSE_MAX_ROWS) frozen as a width-1 ELL.  The
+    ELL kernel gives zeros, the level's operators hold against their
+    plain versions, one application agrees with the CPU's within 1e-12."""
+    from hypre_tpu_torch.models import sys_laplacian_7pt
+    from hypre_tpu_torch.ops.csr import ELLMatrix
+    from hypre_tpu_torch.ops.dia import spmv
+    from hypre_tpu_torch.solvers.amg.mgr import MGR, MGROptions
+
+    A = sys_laplacian_7pt(20, 20, 20, 2)
+    cm = np.arange(A.num_rows) % 2 == 1
+    m, mc = (MGR(A, cm, MGROptions(interp_type="injection"), device=d)
+             for d in (dev, "cpu"))
+    lv = m.levels[0]
+    Wp = lv["Wp"]
+    require(isinstance(Wp, ELLMatrix) and Wp.cols.shape[0] == 1,
+            f"MGR injection 20^3: W_p is {describe(Wp)[0]} "
+            f"{tuple(Wp.data.shape)}, not a width-1 ELL")
+    rng = np.random.default_rng(67)
+    x = torch.from_numpy(rng.standard_normal(Wp.num_cols)).to(dev)
+    zero_counts()
+    y = spmv(Wp, x)
+    require(read_counts()["ell_spmv"] == 1 and not bool(y.any()),
+            "MGR injection 20^3: W_p through the ELL kernel is not zero")
+    held = hold_family_ops([(n, lv[n]) for n in ("Aff", "Acf", "Wp")],
+                           "MGR injection 20^3")
+    r = torch.from_numpy(rng.standard_normal(A.num_rows))
+    want = mc.precond(r)
+    rel = float((m.precond(r.to(dev)).cpu() - want).abs().max()
+                / want.abs().max())
+    log(f"MGR injection 20^3 [{card}]: W_p a width-1 ELL of {Wp.num_rows} "
+        f"rows gives zeros through the ELL kernel; one application card vs "
+        f"CPU rel {rel:.2e}")
+    require(rel <= 1e-12, f"MGR injection 20^3: the card's application "
+                          f"differs from the CPU's, rel {rel:.3e}")
+    return {"application_rel": rel, "held": held}
+
+
+def family_card_vs_cpu(dev, card) -> dict:
+    """Every phase-16 solver at 4^3-16^3 on the card and on the CPU: the
+    same count, x (AME: the eigenvalues; AMG-DD: the device cycle) within
+    1e-10, but FAMILY_SMALL_SLACK's line."""
+    out = {}
+    for label, build in small_cases().items():
+        got, secs = [], []
+        for device in (dev, "cpu"):
+            t0 = time.perf_counter()
+            res = build(device)()
+            secs.append(time.perf_counter() - t0)
+            if torch.is_tensor(res):
+                got.append((None, res.cpu()))
+            elif hasattr(res, "eigenvalues"):
+                got.append((res.num_iterations, res.eigenvalues.cpu()))
+            else:
+                got.append((res.num_iterations, res.x.cpu()))
+        require_no_gs_fault(dev, f"family card vs CPU {label}")
+        (its_g, v_g), (its_c, v_c) = got
+        rel = float((v_g - v_c).abs().max() / v_c.abs().max())
+        slack, tol = FAMILY_SMALL_SLACK.get(label, (0, 1e-10))
+        log(f"family card vs CPU [{label}; {card}]: iterations {its_g} vs "
+            f"{its_c}, max rel diff {rel:.2e} (slack {slack}, tol {tol:g}); "
+            f"build and run: card {secs[0]:.2f} s, CPU {secs[1]:.2f} s")
+        require((its_g == its_c if its_g is None else
+                 abs(its_g - its_c) <= slack) and rel <= tol,
+                f"family {label}: the card ({its_g}) and the CPU ({its_c}) "
+                f"differ, rel {rel:.3e}")
+        out[label] = {"iterations": its_g, "max_rel_diff": rel,
+                      "card_s": secs[0], "cpu_s": secs[1]}
+    return out
+
+
+def phase_family(dev, card):
+    """Phase 16: the AMG family (module docstring)."""
+    t0 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    runs = {}
+
+    def line(key, fn, *args):
+        """runs[key] = fn(dev, card, *args) with its wall seconds."""
+        t = time.perf_counter()
+        runs[key] = fn(dev, card, *args)
+        runs[key]["wall_s"] = time.perf_counter() - t
+        log(f"family {key}: {runs[key]['wall_s']:.1f} s")
+        torch.cuda.empty_cache()
+
+    line("(a) SA 96", family_sa)
+    line("(b) PILUT 48", family_pilut)
+    for label in AUX_MGR48:
+        line(f"(c) MGR {label} 48", family_mgr, label)
+    line("(d) AMS 64", family_ams)
+    line("(e) ADS 13", family_ads)
+    line("(f) AME 16", family_ame)
+    dd_gathers = {}
+    line("(g) AMG-DD 24", lambda d, c: family_amgdd(d, c, flush, dd_gathers))
+    for interp in AUX_BLOCK24:
+        line(f"(h) BlockAMG {interp} 24", family_block, interp)
+    del flush
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    small = family_card_vs_cpu(dev, card)
+    small["MGR injection W_p 20^3"] = mgr_injection_card_vs_cpu(dev, card)
+    log(f"family card vs CPU: {time.perf_counter() - t:.1f} s")
+    require_no_gs_fault(dev, "phase 16")
+    total = {name: 0 for name in read_counts()}
+    for k, v in runs.items():
+        launches = (v["launches"] if "launches" in v else
+                    {n: v["float64"]["launches"][n] + v["float32"]["launches"][n]
+                     for n in total})
+        for name in total:
+            total[name] += launches[name]
+    log(f"family launches, lines (a)-(h): {total}")
+    log(f"the AMG family phase took {time.perf_counter() - t0:.1f} s")
+    return runs, small, total, dd_gathers
+
+
 def counted_wrappers():
     """{kernel name: its wrapper}; each wrapper's `launches` counts its
     kernel's launches."""
@@ -3880,14 +4675,18 @@ def main() -> int:
     # -- 15. the ij driver, IJ assembly, checkpoints, hybrid, ILU ----------
     ij_runs, ij_asm, ij_small = phase_ij(dev, card)
 
+    # -- 16. the AMG family ------------------------------------------------
+    family, family_small, family_total, dd_gathers = phase_family(dev, card)
+
     # `launches` counts the two f64 96^3 runs, the plain path's and the
-    # lattice path's, each driven with the counts at 0 just before and
-    # read just after; "per" says what the times cover
+    # lattice path's, and phase 16's lines (a)-(h), each driven with the
+    # counts at 0 just before and read just after; "per" says what the
+    # times cover
     def entry(name, source, replaces, err, ms, plain_ms, lib_ms, bms, by,
               **per):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": path64[name] + lat64[name],
+                "launches": path64[name] + lat64[name] + family_total[name],
                 "path_launches": {"plain f64": path64[name],
                                   "lattice f64": lat64[name],
                                   "plain f32/bf16": path32[name],
@@ -3906,7 +4705,8 @@ def main() -> int:
                                   **{f"systems {k}": v["launches"][name]
                                      for k, v in systems.items()},
                                   **{f"ij {k}": v["launches"][name]
-                                     for k, v in ij_runs.items()}},
+                                     for k, v in ij_runs.items()},
+                                  "family": family_total[name]},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -3958,15 +4758,18 @@ def main() -> int:
         t = gather_times[probe]
         extra = {}
         if name == "take_along_axis":
-            # the probes' shapes: K2 (a), (b) and K3
+            # the probes' shapes: K2 (a), (b) and K3; on the path: AMG-DD's
+            # float32 device cycle, its level-0 gather
             extra = {"probes": {p: gather_times[p] for p in (
-                "K2 (a) lanes", "K2 (b) sublanes", "K3 grid")}}
+                "K2 (a) lanes", "K2 (b) sublanes", "K3 grid")},
+                "amgdd": dd_gathers["float32"]}
         if name == "flat_take":
             # on the path: one f64 lattice V-cycle's gathers (bitwise
             # equal to the plain version), beside the probe's shape
             keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "earlier_ms")
-            extra = {"v_cycle": dict(zip(keys, take64)), "shapes": take_shapes}
+            extra = {"v_cycle": dict(zip(keys, take64)), "shapes": take_shapes,
+                     "amgdd": dd_gathers["float64"]}
         # ms: the tiled form; earlier_ms: the elementwise form, in turns
         # with it; floor_ms: an empty kernel, in the same turns
         kernels.append(entry(name, "hypre_tpu_torch/csrc/gather.cu", replaces,
@@ -3998,7 +4801,7 @@ def main() -> int:
         "source": "hypre_tpu_torch/csrc/gs_sweep.cu",
         "replaces": "hypre_tpu/solvers/amg/relax.py:174",
         "tpu_form": "lax.scan over the wavefronts, no Pallas kernel",
-        "launches": gs64["launches"]["gs_sweep"],
+        "launches": gs64["launches"]["gs_sweep"] + family_total["gs_sweep"],
         "path_launches": {**{k: v["launches"]["gs_sweep"]
                              for k, v in gs_runs.items()},
                           **{f"cycles {k}": v["launches"]["gs_sweep"]
@@ -4008,7 +4811,8 @@ def main() -> int:
                           **{f"device setup {k}": v["launches"]["gs_sweep"]
                              for k, v in ds.items()},
                           **{f"ij {k}": v["launches"]["gs_sweep"]
-                             for k, v in ij_runs.items()}},
+                             for k, v in ij_runs.items()},
+                          "family": family_total["gs_sweep"]},
         "syncfree_launches": {k: v["syncfree_launches"]
                               for k, v in gs_runs.items() if k.startswith("gs")},
         "max_abs_err": gs_err, "ms": gs_tot[0], "earlier_ms": gs_tot[1],
@@ -4034,7 +4838,8 @@ def main() -> int:
                     "cycles": cycles, "cycles_24": cycles24, "agg": agg,
                     "agg_24": agg24, "air_24": air24, "systems": systems,
                     "systems_24": systems24, "ij": ij_runs,
-                    "ij_assembly": ij_asm, "ij_24": ij_small}))
+                    "ij_assembly": ij_asm, "ij_24": ij_small,
+                    "family": family, "family_small": family_small}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

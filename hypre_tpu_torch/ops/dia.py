@@ -912,6 +912,15 @@ def kernel_launches(A) -> dict:
     raise TypeError(f"kernel_launches: unsupported operator {type(A).__name__}")
 
 
+def sum_launches(parts) -> dict:
+    """{kernel name: launches} of [({kernel name: launches}, times)]."""
+    out: dict = {}
+    for counts, k in parts:
+        for name, c in counts.items():
+            out[name] = out.get(name, 0) + k * c
+    return out
+
+
 def _spmv_form(A, x: torch.Tensor, form: str, **operands) -> torch.Tensor:
     if isinstance(A, DIAMatrix):
         return dia_spmv(A, x, form, **operands)

@@ -31,8 +31,11 @@ tests show that a plan writes every output element exactly once.
 `flat_take` is the solver's entry: GatherOp's x[pos] (ops/dia.py) goes
 through it, to the kernel for a CUDA tensor and to the plain version for
 a CPU tensor, but for the gather of a dense operator on cells (the
-collapsed coarse solve), which runs inside the cell_dense kernel.  The
-take_along_axis gathers are on no solver path.
+collapsed coarse solve), which runs inside the cell_dense kernel.
+AMG-DD's device cycle (solvers/amg/amgdd.py::AMGDDDevice) runs both on a
+solver path: every batched composite matvec gathers u[d, cols[d, j]],
+through take_along_axis along axis 1 for float32 vectors and flat_take
+over the flattened vectors for float64.
 """
 
 from __future__ import annotations
@@ -158,6 +161,20 @@ def _spread(gx: int, nseg: int, quads: int) -> int:
                       nseg * quads // TAKE_THREADS, nseg))
 
 
+def _long_row_span(ir: int, ic: int) -> int | None:
+    """The axis-1 segment length for long idx rows: None (a segment is a
+    whole idx row) unless a row holds more quads than one block has in
+    flight (TAKE_THREADS x TAKE_BATCH) and the rows are too few to fill
+    the card (AMG-DD's batched matvecs: 8 rows of ~28,000); then pieces
+    of a multiple of 4 elements, enough for the grid to near
+    TARGET_BLOCKS, each at least a quad for every thread."""
+    quads = _cdiv(ic, 4)
+    if quads <= TAKE_THREADS * TAKE_BATCH or ir >= TARGET_BLOCKS:
+        return None
+    pieces = min(_cdiv(TARGET_BLOCKS, ir), quads // TAKE_THREADS)
+    return 4 * _cdiv(quads, pieces)
+
+
 def take_plan(x_shape, idx_shape, axis: int, *, instance: str | None = None,
               span: int | None = None, spread: int | None = None,
               threads: int | None = None,
@@ -167,7 +184,8 @@ def take_plan(x_shape, idx_shape, axis: int, *, instance: str | None = None,
     an x of 2^31 elements or more (the kernel indexes in 32 bits).  The
     keywords override the plan's choices (lane_sweep.py --gathers times
     them): `instance`, `span` (axis 1: the elements of an idx row a
-    segment takes, a multiple of 4 below ic), `spread` (blocks a group),
+    segment takes, a multiple of 4 below ic; by default the whole row, or
+    `_long_row_span`'s pieces), `spread` (blocks a group),
     `threads` (a multiple of 32 up to TAKE_THREADS) and `batch` (1 or
     TAKE_BATCH; the plan takes 1, the instance without the unrolled batch,
     where no thread has more than one quad: a short run's time is its
@@ -180,6 +198,7 @@ def take_plan(x_shape, idx_shape, axis: int, *, instance: str | None = None,
             f"elements or more; the tiled kernel indexes in 32 bits")
     if axis == 1:
         reps, part = ir // xr, 4 * xc  # part: the bytes of a row of x
+        span = _long_row_span(ir, ic) if span is None else span
         span = max(ic, 1) if span is None or span >= ic else span
         if span < 1 or (span < ic and span % 4):
             raise ValueError(f"take_along_axis: span {span} must be a "

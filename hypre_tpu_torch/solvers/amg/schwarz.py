@@ -25,6 +25,7 @@ import torch
 
 from ...ops.csr import CSRMatrix
 from ...utils.errors import generic_error
+from .smoothed_aggregation import _aggregate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,41 +57,12 @@ class SchwarzOptions:
     domain: str = "rows"
 
 
-def aggregate(S: sp.csr_matrix) -> np.ndarray:
-    """Greedy root-based aggregation (femli MLI_AggrAMG style; the JAX
-    package's smoothed_aggregation._aggregate): pass 1 roots with
-    unaggregated neighborhoods; pass 2 attach leftovers."""
-    n = S.shape[0]
-    agg = np.full(n, -1, dtype=np.int64)
-    na = 0
-    indptr, indices = S.indptr, S.indices
-    for i in range(n):
-        if agg[i] != -1:
-            continue
-        nbrs = indices[indptr[i] : indptr[i + 1]]
-        if (agg[nbrs] == -1).all():
-            agg[i] = na
-            agg[nbrs] = na
-            na += 1
-    # pass 2: attach to an adjacent aggregate
-    for i in range(n):
-        if agg[i] == -1:
-            nbrs = indices[indptr[i] : indptr[i + 1]]
-            done = nbrs[agg[nbrs] != -1]
-            if done.size:
-                agg[i] = agg[done[0]]
-            else:
-                agg[i] = na
-                na += 1
-    return agg
-
-
 def _domains(As: sp.csr_matrix, opts: SchwarzOptions):
     """[(rows of the domain, which of them it owns)] in domain order."""
     n = As.shape[0]
     if opts.domain == "agglomerate":
         pat = As + As.T
-        agg = aggregate(pat.tocsr())
+        agg = _aggregate(pat.tocsr())
         doms = []
         for k in range(int(agg.max()) + 1):
             core = np.flatnonzero(agg == k)

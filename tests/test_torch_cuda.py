@@ -1026,3 +1026,47 @@ def test_smoothers_solve_the_same_on_card_and_cpu(cuda, kw):
     assert rc.converged and rc.num_iterations == rh.num_iterations
     assert nc == per * (rc.num_iterations + 1) and nh == 0
     assert _rel(rc.x.cpu(), rh.x) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_mgr_injection_wp_gives_zeros_on_card(cuda):
+    """MGR's injection W_p, the all-zero 8000 x 8000 block of
+    sys_laplacian_7pt(20^3, 2) frozen as a width-1 ELL: the ELL kernel
+    gives zeros, and one application agrees with the CPU's (1e-12)."""
+    from hypre_tpu_torch.models import sys_laplacian_7pt
+    from hypre_tpu_torch.solvers.amg.mgr import MGR, MGROptions
+
+    A = sys_laplacian_7pt(20, 20, 20, 2)
+    cm = np.arange(A.num_rows) % 2 == 1
+    opts = MGROptions(interp_type="injection")
+    m, mc = (MGR(A, cm, opts, device=d) for d in (cuda, "cpu"))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(8000))
+    y = spmv(m.levels[0]["Wp"], x.to(cuda))
+    assert torch.equal(y.cpu(), torch.zeros(8000, dtype=torch.float64))
+    r = torch.from_numpy(np.random.default_rng(8).standard_normal(A.num_rows))
+    assert _rel(m.precond(r.to(cuda)).cpu(), mc.precond(r)) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernel,tol", [
+    (np.float32, "take_along_axis", 1e-5), (np.float64, "flat_take", 1e-10)])
+def test_amgdd_device_cycle_runs_the_gather_kernels(cuda, dtype, kernel, tol):
+    """AMGDDDevice at 10^3 (8 domains, padding 2): the cycle's gathers go
+    through take_along_axis (f32) or flat_take (f64), launched as
+    `cycle_launches` says; the cycle agrees with the host cycle."""
+    from hypre_tpu_torch.solvers.amg import (AMGDD, AMGDDDevice, AMGDDOptions,
+                                             BoomerAMG, BoomerAMGOptions)
+
+    amg = BoomerAMG(laplacian_7pt(10, 10, 10), BoomerAMGOptions(
+        coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
+        relax_down=18, relax_up=18, embed_level1=False), device="cpu")
+    dd = AMGDD(amg, AMGDDOptions(num_domains=8, padding=2))
+    r = np.random.default_rng(0).standard_normal(1000)
+    dev = AMGDDDevice(dd, dtype=dtype, device=cuda)
+    take_along_axis_cuda.launches = flat_take_cuda.launches = 0
+    z = dev.cycle(torch.from_numpy(r).to(cuda))
+    got = {"take_along_axis": take_along_axis_cuda.launches,
+           "flat_take": flat_take_cuda.launches}
+    assert got == dev.cycle_launches() and got[kernel] > 1
+    z_host = torch.from_numpy(dd.cycle(r))
+    assert _rel(z.cpu().double(), z_host) <= tol

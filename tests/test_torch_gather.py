@@ -102,6 +102,7 @@ TAKE_CASES = {
     "axis0-ic%4=2": ((9, 6), (4, 18), 0, "shared"),
     "axis0-xc1": ((3, 1), (4, 5), 0, "shared"),
     "axis1-row-too-wide": ((1, 60_000), (3, 60_000), 1, "l2"),
+    "amgdd-long-rows": ((8, 4032), (8, 28224), 1, "shared"),
     "axis0-strip-too-wide": ((2000, 40), (10, 80), 0, "l2"),
 }
 
@@ -146,6 +147,16 @@ def test_take_plans_at_the_probes():
     k2b = take_plan((64, 512), (64, 512), 0)
     assert (k2b.group, k2b.quads, k2b.smem) == (32, 8, 64 * 32 * 4)
     assert k2b.grid[0] == 16
+
+
+def test_take_plan_splits_long_rows_to_fill_the_card():
+    """AMG-DD's level-0 gather (8 rows of 28,224 indices): the rows split
+    into 33 pieces of 856 elements, 264 blocks, where a whole row a
+    segment gave 8 blocks; the probes keep whole rows (above)."""
+    plan = take_plan((8, 4032), (8, 28224), 1)
+    assert (plan.span, plan.grid, plan.quads) == (856, (8, 33), 214)
+    whole = take_plan((8, 4032), (8, 28224), 1, span=28224)
+    assert whole.grid == (8, 1)
 
 
 @pytest.mark.parametrize("xs,ish,axis", [

@@ -20,6 +20,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.lane_sweep",
     "hypre_tpu_torch.models.ij",
     "hypre_tpu_torch.models.laplacian",
+    "hypre_tpu_torch.models.maxwell",
     "hypre_tpu_torch.ops.blas1",
     "hypre_tpu_torch.ops.cell_dense_kernel",
     "hypre_tpu_torch.ops.csr",
@@ -34,6 +35,11 @@ SLICE_MODULES = [
     "hypre_tpu_torch.ops.matops",
     "hypre_tpu_torch.ops.spmv",
     "hypre_tpu_torch.ops.tail_kernel",
+    "hypre_tpu_torch.solvers.amg.ads",
+    "hypre_tpu_torch.solvers.amg.ame",
+    "hypre_tpu_torch.solvers.amg.amgdd",
+    "hypre_tpu_torch.solvers.amg.ams",
+    "hypre_tpu_torch.solvers.amg.block_amg",
     "hypre_tpu_torch.solvers.amg.boomeramg",
     "hypre_tpu_torch.solvers.amg.coarsen",
     "hypre_tpu_torch.solvers.amg.device_coarsen",
@@ -41,10 +47,13 @@ SLICE_MODULES = [
     "hypre_tpu_torch.solvers.amg.hybrid",
     "hypre_tpu_torch.solvers.amg.ilu",
     "hypre_tpu_torch.solvers.amg.interp",
+    "hypre_tpu_torch.solvers.amg.mgr",
     "hypre_tpu_torch.solvers.amg.parasails",
+    "hypre_tpu_torch.solvers.amg.pilut",
     "hypre_tpu_torch.solvers.amg.rap",
     "hypre_tpu_torch.solvers.amg.relax",
     "hypre_tpu_torch.solvers.amg.schwarz",
+    "hypre_tpu_torch.solvers.amg.smoothed_aggregation",
     "hypre_tpu_torch.solvers.amg.strength",
     "hypre_tpu_torch.solvers.eigen.lobpcg",
     "hypre_tpu_torch.solvers.krylov.bicgstab",
