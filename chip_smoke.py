@@ -182,9 +182,33 @@ Phases (any failure raises and the script exits non-zero):
      idle for (a), (d), (g)); the frozen operators and auxiliary
      hierarchies held against their plain versions.  Then every solver
      at 4^3-16^3 card against CPU.
+ 17. the struct interface, each line through the port's struct driver
+     (hypre_tpu_torch/drivers/struct.py, f64) with the counts at 0
+     before and read after: (a) PFMG at 96^3, (b) PFMG-PCG at 96^3, (c)
+     the anisotropic pfmgbase3d shape (-c 2 3 40) at 96^3, (d) SMG and
+     SMG-PCG at 48^3 (the recursive 2-D plane solver, PCR line solves),
+     (e) SparseMSG at 32^3, its frozen transfers on the ELL kernel (K1
+     would carry a square one) exactly as `cycle_launches` says, then
+     each transfer held against its plain version (`hold_ops`) and one
+     cycle against the CPU's: each the JAX package's count
+     (STRUCT_JAX), the true residual, setup by phase (STRUCT_*), the
+     solve's median of 20 (of 3 for (d), (e): STRUCT_REPS), one
+     cycle's device busy, idle and kernels, the seconds of each step;
+     (f) solver ids 8, 17-19, 25, 30, 31, 38, 39
+     at 24^3 card against CPU (the same count, x within 1e-12); (g) the
+     [REF] / [REF~] lines of tests/test_regression_drivers.py; (h) the
+     multi-box lines (-P / -b): the multi-box matvec against the
+     canonical one within 1e-12, then the JAX package's count; (i)
+     examples/ex1.py's 32x32 PFMG through the port's API; (j)
+     struct_matvec at 96^3 alone, a variable 7-point stencil as built
+     (grid slices) and boxed (flat runs), a constant one, beside their
+     bytes bounds and kernels a call, and K1 on the same operator as a
+     7-offset DIA matrix, held against each other (run after the
+     builds, before any profile).
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
 the GS family, the device setup chain, the cycle options, aggressive
-coarsening and AIR, the systems phase, the ij phase, the AMG family),
+coarsening and AIR, the systems phase, the ij phase, the AMG family,
+the struct phase),
 the kernel report and {"ok": true, ...}.
 """
 
@@ -2388,12 +2412,13 @@ def solve_median_ms(solve, reps: int = 20):
     return float(np.median(times)), min(times), max(times)
 
 
-def busy(solve, its: int = 1) -> dict:
+def busy(solve, its: int = 1, cpu: bool = True) -> dict:
     """One solve() under torch.profiler: its wall time, device busy,
-    idle share and device events an iteration."""
+    idle share and device events an iteration (cpu=False: the device
+    activity alone recorded)."""
     from hypre_tpu_torch.profile_slice import profile_solve
 
-    _, wall, busy_us, events, _ = profile_solve(solve)
+    _, wall, busy_us, events, _ = profile_solve(solve, cpu)
     return {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
             "idle_share": 1 - busy_us / 1e6 / wall,
             "kernels_per_iteration": len(events) / max(its, 1)}
@@ -4380,6 +4405,370 @@ def phase_family(dev, card):
     return runs, small, total, dd_gathers
 
 
+# -- 17. the struct interface ------------------------------------------------
+
+# label -> (struct driver line, the JAX driver's count on the CPU; slow
+# test tests/test_torch_struct_driver.py::test_jax_count_is_the_chip_pin)
+STRUCT_JAX = {
+    "(a)": ("-n 96 96 96 -solver 1", 17),
+    "(b)": ("-n 96 96 96 -solver 11", 9),
+    "(c)": ("-n 96 96 96 -c 2.0 3.0 40 -solver 1", 13),
+    "(d) SMG": ("-n 48 48 48 -solver 0", 6),
+    "(d) SMG-PCG": ("-n 48 48 48 -solver 10", 5),
+    "(e)": ("-n 32 32 32 -solver 2", 13),
+}
+STRUCT24 = (8, 17, 18, 19, 25, 30, 31, 38, 39)  # (f): -n 24 24 24, card vs CPU
+# (g): the struct jobs of tests/test_regression_drivers.py:103-139 (line,
+# [REF] count, residual or None); tests/test_torch_struct_driver.py
+# replays them on the CPU
+STRUCT_REF = (
+    # [REF] TEST_struct/smgbase2d.saved
+    ("-n 12 12 1 -d 2 -solver 0", 5, 2.468039e-07),
+    # [REF] TEST_struct/smgbase3d.saved
+    ("-n 12 12 12 -c 2.0 3.0 40 -solver 0", 4, 8.971901e-07),
+    # [REF] TEST_struct/pfmgbase3d.saved (iterations)
+    ("-n 12 12 12 -c 2.0 3.0 40 -solver 1", 10, None),
+    # [REF] TEST_struct/cgpfmg3d.saved (iterations)
+    ("-n 12 12 12 -solver 11 -skip 1", 9, None),
+    # [REF] TEST_struct/solvers.saved: SMG-PCG
+    ("-solver 10", 4, None),
+    # [REF] TEST_struct/solvers.saved: unpreconditioned PCG
+    ("-solver 19", 20, 5.962015e-07),
+    # [REF] TEST_struct/solvers.saved: DS-PCG
+    ("-solver 18", 20, 5.962015e-07),
+    # [REF~] TEST_struct/pfmgbase2d.saved says 13; the JAX package's 11
+    ("-n 12 12 1 -d 2 -solver 1 -relax 1", 11, None),
+    # [REF~] TEST_struct/solvers.saved says 8; the JAX package's 7
+    ("-solver 11", 7, None),
+    # [REF~] TEST_struct/solvers.saved says 20 for solver 17; the JAX
+    # package's literal two-sweep Jacobi preconditioner: 11
+    ("-solver 17", 11, None),
+)
+# (h): multi-box lines and the JAX driver's counts
+STRUCT_MULTIBOX = {"-n 12 12 12 -P 2 1 2 -b 1 1 1 -solver 1": 16,
+                   "-n 24 24 1 -d 2 -P 2 2 1 -solver 1": 15}
+EX1_ITERS = 11  # (i): examples/ex1.py's PFMG through the JAX package
+STRUCT_PHASES = ("STRUCT_SETUP", "STRUCT_INTERP", "STRUCT_RAP",
+                 "STRUCT_FREEZE", "SMG_PLANES")
+# the solve's median of 20, but of 3 where a solve is seconds of
+# host-bound launches (~150,000 kernels: SMG 48^3, SparseMSG 32^3);
+# 20 there would add ~150 s to the phase
+STRUCT_REPS = {"(d) SMG": 3, "(d) SMG-PCG": 3, "(e)": 3}
+
+
+def drive_struct(line: str, device):
+    """The port's struct driver on one line, its printout captured and
+    logged.  Returns (result, wall seconds)."""
+    import contextlib
+    import io
+
+    from hypre_tpu_torch.drivers import struct as driver
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = driver.run(line.split(), device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for ln in buf.getvalue().splitlines():
+        log(f"  struct [{torch.device(device).type}] {ln}")
+    return res, wall
+
+
+def struct_true_residual(A, x, b, tol: float):
+    """(||b - A x|| / ||b|| in float64 through struct_matvec, the bound
+    it must meet: tol + 4 eps ||A||_inf ||x|| / ||b||), finite x."""
+    from hypre_tpu_torch.struct import struct_matvec
+
+    require(bool(torch.isfinite(x).all()), "non-finite solution")
+    r = b - struct_matvec(A, x)
+    nb = float(torch.linalg.vector_norm(b))
+    rel = float(torch.linalg.vector_norm(r)) / nb
+    norm_inf = float(A.data.abs().sum(0).max()) + sum(abs(v) for v in A.const_values)
+    bound = tol + 4 * torch.finfo(x.dtype).eps * norm_inf * float(
+        torch.linalg.vector_norm(x)) / nb
+    return rel, bound
+
+
+def struct_solve(res, line: str):
+    """(solve(), cycle()) -> the line's solve again on the objects the
+    driver built (b = ones, the driver's tolerance), and one application
+    of its multigrid cycle (the preconditioner of the PCG lines)."""
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+    from hypre_tpu_torch.struct import struct_matvec
+
+    sid = int(line.split("-solver")[1].split()[0])
+    A, s = res.A, res.solver
+    b = torch.ones(A.shape, dtype=torch.float64, device=A.device)
+    cycle = (lambda: s.cycle(b))
+    if sid in (10, 11):
+        return (lambda: pcg(lambda x: struct_matvec(A, x), b, M=s.precond,
+                            opts=PCGOptions(tol=1e-6, max_iter=200,
+                                            two_norm=True))), cycle
+    return (lambda: s.solve(b)), cycle
+
+
+def struct_line(label, dev, card) -> dict:
+    """One of (a)-(e): the JAX package's count, setup by phase, the
+    solve's median of 20 and one profiled cycle, the true residual, the
+    kernels' launches (K1 / ELL on SparseMSG's frozen transfers exactly
+    as `kernel_launches` says, none elsewhere); for (e) each transfer
+    held against its plain version and one cycle against the CPU's.
+    The seconds of each step are kept."""
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    line, want = STRUCT_JAX[label]
+    GLOBAL_TIMER.clear()
+    zero_counts()
+    res, wall = drive_struct(line, dev)
+    counts = read_counts()
+    its = int(res.num_iterations)
+    phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in STRUCT_PHASES
+              if GLOBAL_TIMER.seconds(k)}
+    b = torch.ones(res.A.shape, dtype=torch.float64, device=dev)
+    rel, bound = struct_true_residual(res.A, res.x, b, 1e-6)
+    require(res.converged and its == want,
+            f"struct {label}: {its} iterations, the JAX package's {want}")
+    require(rel < bound, f"struct {label}: true residual {rel:.3e} above "
+                         f"{bound:.3e}")
+    if label == "(e)":
+        per = res.solver.cycle_launches()
+        expected = {n: per.get(n, 0) * its for n in counts}
+        expected["dia_spmv_tail"] = 0
+        require(expected["ell_spmv"] > 0, "SparseMSG froze no ELL transfer")
+    else:
+        expected = {n: 0 for n in counts}
+    require(counts == expected, f"struct {label}: launches {counts}, "
+                                f"expected {expected}")
+    seconds = {"driver": wall}
+    solve, cycle = struct_solve(res, line)
+    reps = STRUCT_REPS.get(label, 20)
+    t = time.perf_counter()
+    med, lo, hi = solve_median_ms(solve, reps)
+    seconds["solves"] = time.perf_counter() - t
+    # one cycle under the profiler, the device activity alone (a whole
+    # solve's 10^4-10^5 kernels take the profiler a minute to collect)
+    t = time.perf_counter()
+    prof = busy(cycle, 1, cpu=False)
+    seconds["profile"] = time.perf_counter() - t
+    prof = {"cycle_wall_ms": prof["wall_ms"], "cycle_busy_ms": prof["busy_ms"],
+            "idle_share": prof["idle_share"],
+            "kernels_per_cycle": prof["kernels_per_iteration"]}
+    out = {"line": line, "iterations": its, "jax_iterations": want,
+           "true_rel_residual": rel, "bound": bound,
+           "driver_wall_s": wall, "setup_phases_s": phases,
+           "solve_median_ms": med, "solve_reps": reps,
+           "solve_min_max_ms": [lo, hi], **prof, "launches": counts}
+    full = ""
+    if label == "(a)":
+        # the device-only profile against the full one on the same cycle
+        t = time.perf_counter()
+        out["kernels_per_cycle_full_profile"] = busy(
+            cycle, 1)["kernels_per_iteration"]
+        seconds["profile, CPU activity too"] = time.perf_counter() - t
+        full = (f" ({out['kernels_per_cycle_full_profile']:.0f} with the CPU "
+                f"activity recorded too)")
+    if label == "(e)":
+        t = time.perf_counter()
+        out["held"] = hold_msg_transfers(res.solver, dev)
+        out["cycle_vs_cpu"] = msg_cycle_vs_cpu(res.solver, res.A, b)
+        seconds["held, cycle vs CPU"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    log(f"struct {label} [{card}] {line}: {its} iterations (JAX {want}), "
+        f"true rel residual {rel:.3e}; setup {phases}; solve median of "
+        f"{reps} {med:.2f} ms ({lo:.2f}-{hi:.2f}); one cycle: wall "
+        f"{prof['cycle_wall_ms']:.2f} ms, busy {prof['cycle_busy_ms']:.2f} ms, "
+        f"idle {prof['idle_share']:.1%}, {prof['kernels_per_cycle']:.0f} "
+        f"kernels{full}; launches { {k: v for k, v in counts.items() if v} }; "
+        f"seconds { {k: round(v, 1) for k, v in seconds.items()} }")
+    return out
+
+
+def hold_msg_transfers(solver, dev) -> dict:
+    """`hold_ops` on every transfer a SparseMSG froze: each R (fine rows
+    in, coarse rows out) and each P, in the plain form the cycle runs,
+    f64 within 1e-12 of the plain version, at the shapes of the line."""
+    ops = []
+    for key, (P, _) in solver.Pmat.items():
+        nf, nc = P.shape
+        ops.append((f"R {key}", solver.Rdev[key], nf, nc, ("plain",)))
+        ops.append((f"P {key}", solver.Pdev[key], nc, nf, ("plain",)))
+    return hold_ops(ops, 1e-12, "struct (e) transfers",
+                    np.random.default_rng(41), torch.float64, dev)
+
+
+def msg_cycle_vs_cpu(solver, A, b) -> dict:
+    """One SparseMSG cycle of the line on the card against the same
+    cycle of a CPU instance on the same matrix, from zero and from a
+    random guess: within 1e-12 of the largest entry."""
+    from hypre_tpu_torch.solvers.struct_ls import SparseMSG
+
+    host = SparseMSG(A.to("cpu"), solver.opts, device="cpu")
+    u = torch.from_numpy(np.random.default_rng(43).standard_normal(
+        tuple(A.shape)))
+    worst = 0.0
+    for guess in (None, u):
+        want = host.cycle(b.cpu(), guess)
+        got = solver.cycle(b, None if guess is None else guess.to(b.device))
+        worst = max(worst, float((got.cpu() - want).abs().max()
+                                 / want.abs().max()))
+    require(worst <= 1e-12, f"struct (e): a cycle on the card is {worst:.2e} "
+                            f"from the CPU's")
+    log(f"struct (e): every transfer held; one cycle on the card vs the "
+        f"CPU, from zero and from a guess: max rel {worst:.2e} (tol 1e-12)")
+    return {"max_rel": worst}
+
+
+def struct_card_vs_cpu(line: str, card) -> dict:
+    """(f): the line on the card and on the CPU, the same count, x
+    within 1e-12 of max |x|."""
+    rc, wc = drive_struct(line, torch.device("cuda", 0))
+    rh, wh = drive_struct(line, "cpu")
+    dx = float((rc.x.cpu() - rh.x).abs().max() / rh.x.abs().max())
+    log(f"struct 24^3 [{card}] {line}: card {rc.num_iterations} / CPU "
+        f"{rh.num_iterations} iterations, max rel diff of x {dx:.2e}")
+    require(rc.num_iterations == rh.num_iterations and dx <= 1e-12,
+            f"struct {line}: card and CPU differ")
+    return {"iterations": int(rc.num_iterations), "dx": dx, "card_s": wc,
+            "cpu_s": wh}
+
+
+def struct_matvec_case(dev, flush, card) -> dict:
+    """(j): struct_matvec at 96^3 alone, timed (L2 flushed) beside its
+    bytes bound, with the kernels a call ran (`busy`): a variable
+    7-point stencil as a driver builds it (grid slices), the same boxed
+    as a solver freezes a level (flat runs), a constant-coefficient
+    stencil, and the boxed data as a 7-offset DIA matrix through K1;
+    each held against K1's plain version on the DIA form.  It runs
+    before any other profile: after long profiles the profiler can miss
+    a few of a profile's events (all of a call's 8; phase 17 (a) logs
+    its cycle's count in both profile modes), which K1's wrapper count
+    shows beside its profile."""
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, dia_spmv_reference
+    from hypre_tpu_torch.struct import StructGrid, StructMatrix, struct_matvec
+
+    shape = (NX, NX, NX)
+    n = NX**3
+    rng = np.random.default_rng(17)
+    offs = [(0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+            (0, 0, -1), (0, 0, 1)]
+    ent = {o: (6.0 if o == (0, 0, 0) else -1.0) * (1 + 0.1 * rng.random(shape))
+           for o in offs}
+    A = StructMatrix.from_dict(ent, StructGrid(shape), device=dev)
+    Ab = A.boxed()
+    C = StructMatrix.from_dict({o: (6.0 if o == (0, 0, 0) else -1.0)
+                                for o in offs}, StructGrid(shape), device=dev)
+    x = torch.from_numpy(rng.standard_normal(shape)).to(dev)
+    # the DIA form: data[k, i] = A[i, i + flat(o_k)], 0 where i + o_k
+    # leaves the box (the boxed data), the offsets ascending
+    flat = [o[0] * NX * NX + o[1] * NX + o[2] for o in A.offsets]
+    order = np.argsort(flat)
+    data = Ab.data.reshape(len(flat), n)[torch.from_numpy(order).to(dev)].contiguous()
+    dia_offs = tuple(int(flat[k]) for k in order)
+    y_p = dia_spmv_reference(data, dia_offs, x.reshape(-1))
+    scale = float(y_p.abs().max())
+    err = {name: float((y.reshape(-1) - y_p).abs().max()) / scale
+           for name, y in (("grid slices", struct_matvec(A, x)),
+                           ("flat runs", struct_matvec(Ab, x)),
+                           ("K1", dia_spmv_cuda(data, dia_offs, x.reshape(-1))))}
+    log(f"struct_matvec 96^3 vs K1's plain version on the DIA form (rel, "
+        f"tol 1e-12): {err}")
+    require(max(err.values()) <= 1e-12,
+            "struct_matvec and K1 disagree on the 7-point stencil")
+    yc = struct_matvec(C, x)
+    yv = struct_matvec(StructMatrix.from_dict(
+        {o: v * np.ones(shape) for o, v in zip(C.const_offsets, C.const_values)},
+        StructGrid(shape), device=dev), x)
+    err["constant"] = float((yc - yv).abs().max() / yv.abs().max())
+    require(err["constant"] <= 1e-12, "constant-coefficient struct_matvec disagrees")
+
+    out = {}
+    for name, fn, nbytes in (
+            ("variable, grid slices", lambda: struct_matvec(A, x), 9 * n * 8),
+            ("variable, boxed: flat runs", lambda: struct_matvec(Ab, x), 9 * n * 8),
+            ("constant", lambda: struct_matvec(C, x), 2 * n * 8),
+            ("K1 on the DIA form", lambda: dia_spmv_cuda(
+                data, dia_offs, x.reshape(-1)), 9 * n * 8)):
+        ms = time_cuda_ms(fn, flush)
+        bms, by = bound_ms(nbytes, 13 * n, torch.float64)
+        before = dia_spmv_cuda.launches
+        k = busy(fn, 1)["kernels_per_iteration"]
+        out[name] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                     "bytes": nbytes, "kernels": k,
+                     "k1_launches": dia_spmv_cuda.launches - before}
+        log(f"struct_matvec (j) [{name}; {card}], L2 flushed, median of "
+            f"{REPS}: {ms * 1e3:.1f} us, {k:.0f} kernels a call by the "
+            f"profiler (K1's wrapper: {out[name]['k1_launches']}), "
+            f"{nbytes / 1e6:.1f} MB, bound {bms * 1e3:.1f} us ({by})")
+    out["max_rel_err"] = err
+    return out
+
+
+def phase_struct(dev, card, matvec):
+    """Phase 17: the struct interface (module docstring); `matvec` is
+    (j), `struct_matvec_case`, run before the other phases."""
+    from hypre_tpu_torch.solvers.struct_ls import PFMG, PFMGOptions
+    from hypre_tpu_torch.struct import StructGrid, StructMatrix
+
+    t0 = time.perf_counter()
+    runs = {}
+    for label in STRUCT_JAX:
+        t = time.perf_counter()
+        runs[label] = struct_line(label, dev, card)
+        runs[label]["wall_s"] = time.perf_counter() - t
+        log(f"struct {label}: {runs[label]['wall_s']:.1f} s")
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    small = {sid: struct_card_vs_cpu(f"-n 24 24 24 -solver {sid}", card)
+             for sid in STRUCT24}
+    log(f"struct (f) card vs CPU: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ref = {}
+    for line, want, rel_pin in STRUCT_REF:
+        res, _ = drive_struct(line, dev)
+        rel = float(res.rel_residual_norm)
+        require(res.converged and res.num_iterations == want,
+                f"struct [REF] {line}: {res.num_iterations}, pinned {want}")
+        require(rel_pin is None or abs(rel - rel_pin) < 2e-9,
+                f"struct [REF] {line}: residual {rel:.6e}, pinned {rel_pin}")
+        ref[line] = {"iterations": int(res.num_iterations), "rel": rel}
+    log(f"struct (g) the [REF] / [REF~] lines on the card, all held: "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    multibox = {}
+    for line, want in STRUCT_MULTIBOX.items():
+        res, wall = drive_struct(line, dev)
+        require(res.matvec_err is not None and res.matvec_err <= 1e-12,
+                f"struct {line}: multi-box matvec off by {res.matvec_err}")
+        require(res.converged and res.num_iterations == want,
+                f"struct {line}: {res.num_iterations}, the JAX package's {want}")
+        multibox[line] = {"iterations": int(res.num_iterations),
+                          "matvec_max_abs_err": res.matvec_err, "wall_s": wall}
+        log(f"struct (h) [{card}] {line}: multi-box matvec vs canonical "
+            f"{res.matvec_err:.2e}, {res.num_iterations} iterations (JAX {want})")
+    # (i) examples/ex1.py's problem through the port's API
+    shape = (32, 32)
+    ones = np.ones(shape)
+    A = StructMatrix.from_dict({(0, 0): 4.0 * ones, (-1, 0): -ones,
+                                (1, 0): -ones, (0, -1): -ones, (0, 1): -ones},
+                               StructGrid(shape), device=dev)
+    res = PFMG(A, PFMGOptions(tol=1e-6, skip_relax=0)).solve(
+        torch.ones(shape, dtype=torch.float64, device=dev))
+    require(res.converged and res.num_iterations == EX1_ITERS,
+            f"ex1: {res.num_iterations} iterations, the JAX package's {EX1_ITERS}")
+    ex1 = {"iterations": res.num_iterations,
+           "rel": float(res.rel_residual_norm)}
+    log(f"struct (i) ex1 32x32 PFMG [{card}]: {ex1}")
+    log(f"struct (h), (i): {time.perf_counter() - t:.1f} s")
+    total = {name: sum(v["launches"][name] for v in runs.values())
+             for name in read_counts()}
+    log(f"struct launches, lines (a)-(e): {total}")
+    log(f"the struct phase took {time.perf_counter() - t0:.1f} s")
+    return {"lines": runs, "card_vs_cpu_24": small, "ref": ref,
+            "multibox": multibox, "ex1": ex1, "matvec": matvec}, total
+
+
 def counted_wrappers():
     """{kernel name: its wrapper}; each wrapper's `launches` counts its
     kernel's launches."""
@@ -4480,6 +4869,10 @@ def main() -> int:
     # what the timing method reads for a kernel that does no work
     log(f"timing floor ({card}): an empty kernel reads "
         f"{time_cuda_ms(lambda: torch.cuda._sleep(0), flush) * 1e3:.1f} us")
+    # phase 17's (j) here, before any profile (struct_matvec_case)
+    t0 = time.perf_counter()
+    struct_matvec = struct_matvec_case(dev, flush, card)
+    log(f"struct (j): {time.perf_counter() - t0:.1f} s")
     # -- 3. K1 against its plain version ------------------------------------
     k1 = phase_k1(dev, flush, card)
     k1_forms = phase_k1_forms(dev, flush, card)
@@ -4678,15 +5071,19 @@ def main() -> int:
     # -- 16. the AMG family ------------------------------------------------
     family, family_small, family_total, dd_gathers = phase_family(dev, card)
 
+    # -- 17. the struct interface -------------------------------------------
+    struct, struct_total = phase_struct(dev, card, struct_matvec)
+
     # `launches` counts the two f64 96^3 runs, the plain path's and the
-    # lattice path's, and phase 16's lines (a)-(h), each driven with the
-    # counts at 0 just before and read just after; "per" says what the
-    # times cover
+    # lattice path's, phase 16's lines (a)-(h) and phase 17's (a)-(e),
+    # each driven with the counts at 0 just before and read just after;
+    # "per" says what the times cover
     def entry(name, source, replaces, err, ms, plain_ms, lib_ms, bms, by,
               **per):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": path64[name] + lat64[name] + family_total[name],
+                "launches": (path64[name] + lat64[name] + family_total[name]
+                             + struct_total[name]),
                 "path_launches": {"plain f64": path64[name],
                                   "lattice f64": lat64[name],
                                   "plain f32/bf16": path32[name],
@@ -4706,7 +5103,8 @@ def main() -> int:
                                      for k, v in systems.items()},
                                   **{f"ij {k}": v["launches"][name]
                                      for k, v in ij_runs.items()},
-                                  "family": family_total[name]},
+                                  "family": family_total[name],
+                                  "struct": struct_total[name]},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -4839,7 +5237,8 @@ def main() -> int:
                     "agg_24": agg24, "air_24": air24, "systems": systems,
                     "systems_24": systems24, "ij": ij_runs,
                     "ij_assembly": ij_asm, "ij_24": ij_small,
-                    "family": family, "family_small": family_small}))
+                    "family": family, "family_small": family_small,
+                    "struct": struct}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Carry a frozen hierarchy from the JAX package into the port.
+"""Carry a frozen hierarchy, and the struct interface's objects, from the
+JAX package into the port.
 
 `levels_from_numpy` takes hypre_tpu's frozen AMGLevels with every leaf
 already a numpy array (e.g. `jax.tree.map(np.asarray, levels)`) and
@@ -48,6 +49,9 @@ from .solvers.amg.euclid import EuclidData
 from .solvers.amg.parasails import ParaSailsData
 from .solvers.amg.relax import ChebyData, GSSchedule
 from .solvers.amg.schwarz import SchwarzData
+from .struct.box import Box
+from .struct.matrix import StructMatrix
+from .struct.multibox import MultiBoxGrid, MultiBoxVector
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -189,3 +193,31 @@ def levels_from_numpy(levels, device) -> list[AMGLevel]:
             parasails=_parasails(getattr(lvl, "parasails", None), device),
         ))
     return out
+
+
+def struct_matrix_from_numpy(M, device) -> StructMatrix:
+    """The port's StructMatrix on `device` from hypre_tpu's (its data read
+    as numpy, its static fields as they are)."""
+    return StructMatrix(
+        data=_tensor(np.asarray(M.data), device),
+        offsets=tuple(tuple(int(v) for v in o) for o in M.offsets),
+        periodic=None if M.periodic is None else tuple(M.periodic),
+        const_offsets=tuple(tuple(int(v) for v in o) for o in M.const_offsets),
+        const_values=tuple(float(v) for v in M.const_values),
+        _shape=None if M._shape is None else tuple(int(s) for s in M._shape),
+    )
+
+
+def multibox_grid_from(G) -> MultiBoxGrid:
+    """The port's MultiBoxGrid of hypre_tpu's (box order kept)."""
+    return MultiBoxGrid([Box(tuple(b.imin), tuple(b.imax)) for b in G.boxes],
+                        periodic=tuple(G.periodic))
+
+
+def multibox_vector_from(V, device, grid: MultiBoxGrid | None = None
+                         ) -> MultiBoxVector:
+    """The port's MultiBoxVector on `device` of hypre_tpu's (on `grid`, or
+    on the port's copy of its grid)."""
+    grid = multibox_grid_from(V.grid) if grid is None else grid
+    return MultiBoxVector(grid, {i: _tensor(np.asarray(a), device)
+                                 for i, a in V.arrays.items()})

@@ -20,7 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from .common import (SolverResult, Vec, identity_precond, taxpy, tdot,
-                     tnorm2, tsub, tzeros_like)
+                     tfirst, tnorm2, tsub, tzeros_like)
 
 _EPSMAC = 1e-128  # bicgstab.c epsmac
 
@@ -49,6 +49,7 @@ def bicgstab(
     M = M or identity_precond
     x = tzeros_like(b) if x0 is None else x0
     max_iter = int(opts.max_iter)
+    b0 = tfirst(b)  # the solve's dtype and device
 
     r0 = tsub(b, A(x))
     b_norm = tnorm2(b)
@@ -56,14 +57,14 @@ def bicgstab(
     den = torch.where(b_norm > 0, b_norm, r_norm0)
     epsilon = torch.clamp_min(opts.tol * den, opts.a_tol)
 
-    norms = torch.full((max_iter + 1,), float("nan"), dtype=b.dtype,
-                       device=b.device)
+    norms = torch.full((max_iter + 1,), float("nan"), dtype=b0.dtype,
+                       device=b0.device)
     norms[0] = r_norm0
     res = tdot(r0, r0)  # <r0, r>, first <r0, r0>
     r, p, r_norm = r0, r0, r_norm0
     converged = r_norm0 <= epsilon
     done = bool((r_norm0 == 0.0) | converged)
-    cf_ave_1 = torch.zeros((), dtype=b.dtype, device=b.device)
+    cf_ave_1 = torch.zeros((), dtype=b0.dtype, device=b0.device)
 
     it = 0
     while it < max_iter and not done:
@@ -90,13 +91,13 @@ def bicgstab(
 
         # the true residual confirms convergence (bicgstab.c:467-476)
         tentative = bool(r_norm <= epsilon) and it >= opts.min_iter
-        conv_now = torch.zeros((), dtype=torch.bool, device=b.device)
+        conv_now = torch.zeros((), dtype=torch.bool, device=b0.device)
         if tentative:
             r = tsub(b, A(x))
             r_norm = tnorm2(r)
             conv_now = r_norm <= epsilon
 
-        stop_cf = torch.zeros((), dtype=torch.bool, device=b.device)
+        stop_cf = torch.zeros((), dtype=torch.bool, device=b0.device)
         if opts.cf_tol > 0.0:
             cf_ave_0 = cf_ave_1
             cf_ave_1 = (r_norm / torch.where(r_norm0 > 0, r_norm0, 1.0)) ** (

@@ -16,7 +16,7 @@ from typing import Callable, Optional
 import torch
 
 from .common import (SolverResult, Vec, identity_precond, taxpy, tdot,
-                     tnorm2, tsub, tzeros_like)
+                     tfirst, tnorm2, tsub, tzeros_like)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +37,7 @@ def cgnr(
     M = M or identity_precond
     x = tzeros_like(b) if x0 is None else x0
     max_iter = int(opts.max_iter)
+    b0 = tfirst(b)  # the solve's dtype and device
 
     b_norm = tnorm2(b)
     r = tsub(b, A(x))
@@ -47,8 +48,8 @@ def cgnr(
     p = q
     gamma = tdot(q, q)
 
-    norms = torch.full((max_iter + 1,), float("nan"), dtype=b.dtype,
-                       device=b.device)
+    norms = torch.full((max_iter + 1,), float("nan"), dtype=b0.dtype,
+                       device=b0.device)
     norms[0] = r_norm
     converged = r_norm / den < opts.tol
     done = bool(converged)

@@ -16,7 +16,7 @@ from typing import Callable, Optional
 import torch
 
 from ...ops.blas1 import mass_axpy, mass_inner_prod
-from .common import SolverResult, Vec, identity_precond, tnorm2
+from .common import SolverResult, Vec, flat_problem, tnorm2
 from .gmres import _Hessenberg, _on_device, _Restarts, _scaled
 
 
@@ -50,7 +50,7 @@ def cogmres(
     M: Optional[Callable[[Vec], Vec]] = None,
     opts: COGMRESOptions = COGMRESOptions(),
 ) -> SolverResult:
-    M = M or identity_precond
+    edge, A, b, x0, M = flat_problem(A, b, x0, M)
     kd = int(opts.k_dim)
     passes = 2 if opts.cgs > 1 else 1
     st = _Restarts(A, b, x0, opts)
@@ -67,4 +67,4 @@ def cogmres(
                 break
         y = _on_device(hs.solve(i_used), b)
         st.restart(st.x + M(y @ V[:kd]), i_used)
-    return st.result()
+    return st.result(edge)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from .common import SolverResult, Vec, identity_precond
+from .common import SolverResult, Vec, flat_problem
 from .gmres import _Hessenberg, _mgs, _on_device, _Restarts, _scaled
 
 
@@ -31,7 +31,7 @@ def flexgmres(
     M: Optional[Callable[[Vec], Vec]] = None,
     opts: FlexGMRESOptions = FlexGMRESOptions(),
 ) -> SolverResult:
-    M = M or identity_precond
+    edge, A, b, x0, M = flat_problem(A, b, x0, M)
     kd = int(opts.k_dim)
     st = _Restarts(A, b, x0, opts)
     while st.running():
@@ -49,4 +49,4 @@ def flexgmres(
                 break
         y = _on_device(hs.solve(i_used), b)
         st.restart(st.x + y @ Z, i_used)
-    return st.result()
+    return st.result(edge)

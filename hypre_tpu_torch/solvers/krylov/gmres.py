@@ -16,7 +16,8 @@ would turn off (the estimate at or below epsilon, or max_iter reached),
 so the counts and the history are the JAX package's: the iteration
 number is it0 + i_used, norms[it0 + i + 1] holds step i's estimate, and
 the restart's true residual overwrites norms[it]; a cycle that takes no
-step ends the solve (the stall guard).  The Krylov basis and the
+step ends the solve (the stall guard).  The Krylov basis (one stacked
+tensor of the vectors' flat views, `common.py::FlatEdge`) and the
 products with it stay on the vectors' device; the small Hessenberg
 problem (H, the rotations cs / sn, rs) is solved on the host in the
 vectors' dtype, from one read of the new column a step.
@@ -30,8 +31,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .common import (SolverResult, Vec, identity_precond, taxpy, tdot,
-                     tnorm2, tscale, tsub, tzeros_like)
+from .common import (SolverResult, Vec, flat_problem, taxpy, tdot, tnorm2,
+                     tscale, tsub, tzeros_like)
 
 # the host dtype of the Hessenberg problem, the vectors' own
 _HOST = {torch.float64: np.float64, torch.float32: np.float32}
@@ -156,11 +157,12 @@ class _Restarts:
         self.converged = bool(self.r_norm <= self.eps)
         self.done = self.converged or i_used == 0 or self.it >= self.max_iter
 
-    def result(self) -> SolverResult:
+    def result(self, edge) -> SolverResult:
+        """The solve's result, x back in the caller's vector structure."""
         dev = self.b.device
         rel = self.r_norm / (self.den if self.den > 0 else self.dt(1))
         return SolverResult(
-            x=self.x,
+            x=edge.unflat(self.x),
             num_iterations=self.it,
             rel_residual_norm=torch.tensor(rel, dtype=self.b.dtype,
                                            device=dev),
@@ -180,7 +182,7 @@ def gmres(
     M: Optional[Callable[[Vec], Vec]] = None,
     opts: GMRESOptions = GMRESOptions(),
 ) -> SolverResult:
-    M = M or identity_precond
+    edge, A, b, x0, M = flat_problem(A, b, x0, M)
     kd = int(opts.k_dim)
     st = _Restarts(A, b, x0, opts)
     while st.running():
@@ -197,4 +199,4 @@ def gmres(
         # x += M (V y)   (right preconditioning, gmres.c:655-668)
         y = _on_device(hs.solve(i_used), b)
         st.restart(st.x + M(y @ V[:kd]), i_used)
-    return st.result()
+    return st.result(edge)

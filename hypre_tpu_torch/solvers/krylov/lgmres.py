@@ -20,7 +20,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .common import SolverResult, Vec, identity_precond, tnorm2
+from .common import SolverResult, Vec, flat_problem, tnorm2
 from .gmres import _Hessenberg, _mgs, _on_device, _Restarts, _scaled
 
 
@@ -40,7 +40,7 @@ def lgmres(
     M: Optional[Callable[[Vec], Vec]] = None,
     opts: LGMRESOptions = LGMRESOptions(),
 ) -> SolverResult:
-    M = M or identity_precond
+    edge, A, b, x0, M = flat_problem(A, b, x0, M)
     kd, ad = int(opts.k_dim), int(opts.aug_dim)
     st = _Restarts(A, b, x0, opts)
     aug_z = b.new_zeros((ad,) + tuple(b.shape))  # corrections z (before M)
@@ -79,4 +79,4 @@ def lgmres(
         aug_z[slot] = _scaled(w, tnorm2(w).cpu().numpy()[()], st.dt)
         aug_a[slot] = A(M(aug_z[slot]))
         aug_ct = min(aug_ct + 1, ad)
-    return st.result()
+    return st.result(edge)

@@ -30,7 +30,9 @@ from .common import (
     identity_precond,
     taxpy,
     tdot,
+    tfirst,
     tsub,
+    twhere,
     tzeros_like,
 )
 
@@ -65,6 +67,7 @@ def pcg(
     M = M or identity_precond
     x = tzeros_like(b) if x0 is None else x0
     max_iter = int(opts.max_iter)
+    b0 = tfirst(b)  # the solve's dtype and device
 
     # <C b, b> (or <b,b>): the normalization (pcg.c:358-366)
     Cb = M(b) if not opts.two_norm else b
@@ -77,14 +80,14 @@ def pcg(
     i_prod_0 = tdot(r, r) if opts.two_norm else gamma
     i_prod = i_prod_0
 
-    norms = torch.full((max_iter + 1,), float("nan"), dtype=b.dtype,
-                       device=b.device)
+    norms = torch.full((max_iter + 1,), float("nan"), dtype=b0.dtype,
+                       device=b0.device)
     norms[0] = torch.sqrt(i_prod_0)
 
     zero_rhs = ~(bi_prod > 0.0)
     done = zero_rhs
     converged = zero_rhs  # 0-rhs counts as converged at 0 iterations
-    cf_ave_1 = torch.zeros((), dtype=b.dtype, device=b.device)
+    cf_ave_1 = torch.zeros((), dtype=b0.dtype, device=b0.device)
 
     i = 0
     while i < max_iter and not bool(done):
@@ -124,7 +127,7 @@ def pcg(
             )
             # only trust the recomputed residual when tentatively converged
             i_prod = torch.where(tentatively, ip_true, i_prod)
-            r = torch.where(tentatively, r_true, r)
+            r = twhere(tentatively, r_true, r)
             tentatively = i_prod / _nz(bi_prod) < eps
         if opts.rel_change:
             pi_prod = tdot(p, p)
@@ -132,7 +135,7 @@ def pcg(
             ratio = alpha * alpha * pi_prod / _nz(xi_prod)
             tentatively = tentatively & (ratio < eps)
 
-        stop_rtol = torch.zeros((), dtype=torch.bool, device=b.device)
+        stop_rtol = torch.zeros((), dtype=torch.bool, device=b0.device)
         if opts.rtol > 0:
             if opts.two_norm:
                 stop_rtol = drob2 < opts.rtol**2
@@ -140,7 +143,7 @@ def pcg(
                 stop_rtol = (gamma + gamma_old) / bi_prod < opts.rtol**2
 
         # cf_tol early exit (pcg.c:700-727)
-        stop_cf = torch.zeros((), dtype=torch.bool, device=b.device)
+        stop_cf = torch.zeros((), dtype=torch.bool, device=b0.device)
         if opts.cf_tol > 0.0:
             cf_ave_0 = cf_ave_1
             cf_ave_1 = (i_prod / i_prod_0) ** (1.0 / (2.0 * i))
@@ -157,7 +160,7 @@ def pcg(
         p = taxpy(beta, p, z)  # p = z + beta p
 
     # zero-rhs: hypre copies b (= 0) into x (pcg.c:411-425)
-    x = torch.where(zero_rhs, b, x)
+    x = twhere(zero_rhs, b, x)
 
     rel = torch.where(bi_prod > 0, torch.sqrt(i_prod / _nz(bi_prod)), 0.0)
     return SolverResult(

@@ -3,8 +3,9 @@ COO tail in its launch, the gathers, the COO tail, the cell-dense
 kernel and the Gauss-Seidel sweep in its sync-free and wavefront forms)
 and the lattice operators that run
 on them, on
-the card against their plain versions, and the device RAP's pass and
-the device setup chain on the card against the same on the CPU (marker
+the card against their plain versions, and the device RAP's pass, the
+device setup chain and the struct driver (SparseMSG's transfers on the
+ELL kernel) on the card against the same on the CPU (marker
 `cuda`; each
 test skips where torch sees no CUDA device).  This file imports
 neither jax nor hypre_tpu, so it runs on a GPU machine without them:
@@ -1070,3 +1071,49 @@ def test_amgdd_device_cycle_runs_the_gather_kernels(cuda, dtype, kernel, tol):
     assert got == dev.cycle_launches() and got[kernel] > 1
     z_host = torch.from_numpy(dd.cycle(r))
     assert _rel(z.cpu().double(), z_host) <= tol
+
+
+@pytest.mark.cuda
+def test_sparse_msg_transfers_run_the_kernels_on_card(cuda):
+    """SparseMSG at 24^3: the frozen transfers of one cycle launch K1 /
+    the ELL kernel exactly as `cycle_launches` says (each R and P once),
+    and the cycle agrees with the CPU's (1e-12)."""
+    from hypre_tpu_torch.solvers.struct_ls import SparseMSG
+    from hypre_tpu_torch.struct import StructGrid, StructMatrix
+
+    shape = (24, 24, 24)
+    ones = np.ones(shape)
+    ent = {(0, 0, 0): 6.0 * ones}
+    for d in range(3):
+        for s in (-1, 1):
+            o = [0, 0, 0]
+            o[d] = s
+            ent[tuple(o)] = -ones
+    A = StructMatrix.from_dict(ent, StructGrid(shape), device="cpu")
+    m, mc = SparseMSG(A, device=cuda), SparseMSG(A)
+    f = torch.from_numpy(np.random.default_rng(3).standard_normal(shape))
+    dia_spmv_cuda.launches = ell_spmv_cuda.launches = 0
+    u = m.cycle(f.to(cuda))
+    got = {"dia_spmv": dia_spmv_cuda.launches, "ell_spmv": ell_spmv_cuda.launches}
+    want = m.cycle_launches()
+    assert got == {k: want.get(k, 0) for k in got} and got["ell_spmv"] > 0
+    assert _rel(u.cpu(), mc.cycle(f)) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("line", ["-n 12 12 12 -solver 1", "-n 12 12 12 -solver 0",
+                                  "-n 12 12 12 -solver 11", "-n 12 12 12 -solver 2",
+                                  "-n 4 4 4 -P 2 1 2 -solver 1"])
+def test_struct_driver_card_matches_cpu(cuda, line):
+    """The struct driver on the card and on the CPU: the same count, x
+    within 1e-12 (of max |x|)."""
+    import contextlib
+    import io
+
+    from hypre_tpu_torch.drivers import struct as driver
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = driver.run(line.split(), device=cuda)
+        rh = driver.run(line.split(), device="cpu")
+    assert rc.converged and rc.num_iterations == rh.num_iterations
+    assert _rel(rc.x.cpu(), rh.x) <= 1e-12

@@ -14,6 +14,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.convert",
     "hypre_tpu_torch.drivers",
     "hypre_tpu_torch.drivers.ij",
+    "hypre_tpu_torch.drivers.struct",
     "hypre_tpu_torch.entry",
     "hypre_tpu_torch.native",
     "hypre_tpu_torch.profile_slice",
@@ -64,6 +65,21 @@ SLICE_MODULES = [
     "hypre_tpu_torch.solvers.krylov.gmres",
     "hypre_tpu_torch.solvers.krylov.lgmres",
     "hypre_tpu_torch.solvers.krylov.pcg",
+    "hypre_tpu_torch.solvers.struct_ls",
+    "hypre_tpu_torch.solvers.struct_ls.cyclic_reduction",
+    "hypre_tpu_torch.solvers.struct_ls.hybrid",
+    "hypre_tpu_torch.solvers.struct_ls.jacobi",
+    "hypre_tpu_torch.solvers.struct_ls.pfmg",
+    "hypre_tpu_torch.solvers.struct_ls.relax",
+    "hypre_tpu_torch.solvers.struct_ls.smg",
+    "hypre_tpu_torch.solvers.struct_ls.smg_plane",
+    "hypre_tpu_torch.solvers.struct_ls.sparse_msg",
+    "hypre_tpu_torch.struct",
+    "hypre_tpu_torch.struct.box",
+    "hypre_tpu_torch.struct.grid",
+    "hypre_tpu_torch.struct.matrix",
+    "hypre_tpu_torch.struct.multibox",
+    "hypre_tpu_torch.struct.vector",
     "hypre_tpu_torch.utils.errors",
     "hypre_tpu_torch.utils.io",
     "hypre_tpu_torch.utils.lcg",
