@@ -97,9 +97,9 @@ Phases (any failure raises and the script exits non-zero):
      DS96_F32), launches exactly as the hierarchy says; the card's CF
      bitwise lattice_pmis_host's, P0 and level-1 A against the same
      chain on the CPU (f64 within 1e-14, f32 4 ulp); the solve's median
-     of 20, device busy and kernels an iteration; setup by phase (DS_*)
-     and time to a first solution, medians of 3, in turns with the host
-     setup and the plain path.
+     of 10, device busy and kernels an iteration; setup by phase (DS_*)
+     and time to a first solution, medians of 2 (DS_ROUNDS), in turns
+     with the host setup and the plain path.
  12. the cycle options and the coarsening family at 96^3, each through
      the user's entry points with the counts at 0 before and read
      after: W-cycles (f64, f32/bf16/ngt 0.02, and f64 on the lattice
@@ -109,7 +109,7 @@ Phases (any failure raises and the script exits non-zero):
      package's counts (CYCLES96; f32/bf16 within one), a right
      solution, launches exactly `cycle_launches` x the cycles plus
      PCG's matvecs, with the statistics, the setup by phase, the
-     solve's median of 20 and device busy; every operator of the
+     solve's median of 5 and device busy; every operator of the
      lattice W hierarchy held against its plain version; at 24^3 CLJP,
      Falgout, CGC, CR, strength_abs, seq_threshold 150 and SolveT card
      against CPU (the same counts, residuals within 1e-10).
@@ -118,7 +118,7 @@ Phases (any failure raises and the script exits non-zero):
      level in the multipass form (f64 and f32/bf16/ngt 0.02), the
      two-stage form and MFEM's CPU default (HMIS, relax 8), each as in
      12 (AGG96: the JAX package's counts, launches exactly, statistics,
-     setup by phase, median of 20, device busy), every operator of the
+     setup by phase, median of 5, device busy), every operator of the
      f64 multipass hierarchy held against its plain version; at 24^3
      card against CPU standard, standard-sep, ff, ff1, ext, direct and
      multipass interpolation, post_interp_type 1, num_paths 2 with
@@ -149,7 +149,7 @@ Phases (any failure raises and the script exits non-zero):
      counts at 0 before and read after: (a) the oracle line at 96^3
      (IJ96_ORACLE: exactly 25 iterations, the true residual, the
      complexity lines the JAX driver prints, launches exactly as the
-     hierarchy says, the lattice forms engaged; median of 20, busy);
+     hierarchy says, the lattice forms engaged; median of 5, busy);
      (f) that hierarchy saved (utils/io.py), loaded on the card, solved
      again: the same count and x bitwise; (b) AMG hybrid (-solver 20
      -rlx 18: the JAX package's DS-PCG and AMG-PCG counts, launches
@@ -192,7 +192,7 @@ Phases (any failure raises and the script exits non-zero):
      each transfer held against its plain version (`hold_ops`) and one
      cycle against the CPU's: each the JAX package's count
      (STRUCT_JAX), the true residual, setup by phase (STRUCT_*), the
-     solve's median of 20 (of 3 for (d), (e): STRUCT_REPS), one
+     solve's median of 5 (one timed solve for (d), (e): STRUCT_REPS), one
      cycle's device busy, idle and kernels, the seconds of each step;
      (f) solver ids 8, 17-19, 25, 30, 31, 38, 39
      at 24^3 card against CPU (the same count, x within 1e-12); (g) the
@@ -204,11 +204,30 @@ Phases (any failure raises and the script exits non-zero):
      (grid slices) and boxed (flat runs), a constant one, beside their
      bytes bounds and kernels a call, and K1 on the same operator as a
      7-offset DIA matrix, held against each other (run after the
-     builds, before any profile).
+     builds, before any profile);
+ 18. the sstruct interface: the port's `sstruct` driver
+     (hypre_tpu_torch/drivers/sstruct.py, f64, b = ones, tol 1e-6) on the
+     built-in two-part layout with the counts at 0 before and read after:
+     (a) PCG + Split-PFMG, (b) Split-PFMG, (c) SysPFMG, (d) DS-PCG, each
+     at 96^3 a part (1,769,472 unknowns; SysPFMG part 0's block) against
+     the port's CPU count there (SSTRUCT96), (a), (c), (d) also at 48^3
+     against the JAX package's (SSTRUCT_JAX); the true residual, setup by
+     phase, the solve's seconds (medians: SSTRUCT_REPS), one iteration's
+     busy / idle / kernels, K1 / ELL launches as the code predicts (the U
+     part, a 2-offset DIA matrix, is K1's: once a sstruct_matvec, once a
+     Split step); (e) ids 8, 13, 19 at 24^3 and 0, 10 at 12^3 card vs
+     CPU; (f) every
+     SSTRUCT_INFILES text through -in with ids 18, 20, 11 (FAC-AMR 99 on
+     the FacParts text), card vs CPU, the largest composite 135,265
+     unknowns; (g) SStructMaxwell's three branches (parts at origins and
+     rotated parts through the TV multigrid, block-diagonal parts through
+     AMS), card vs CPU; (h) FAC on build_composite_amr inside GMRES,
+     card vs CPU; (i) (a)'s U alone: K1 against its plain version, timed
+     beside cuSPARSE and the DIA-bytes and nonzero-bytes bounds.
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
 the GS family, the device setup chain, the cycle options, aggressive
 coarsening and AIR, the systems phase, the ij phase, the AMG family,
-the struct phase),
+the struct phase, the sstruct phase),
 the kernel report and {"ok": true, ...}.
 """
 
@@ -1565,7 +1584,7 @@ def phase_device_rap(amg, card, label):
     inputs (outputs and scratch, at most 2 GB), and FREEZE (which
     includes DEVICE_RAP) / DEVICE_RAP / COLLAPSE seconds of both
     branches from freezing the same host hierarchy again, once each
-    (phase 11 gives medians of 3 of the whole setup; the hierarchy ends
+    (phase 11 gives medians of 2 of the whole setup; the hierarchy ends
     frozen with the device RAP)."""
     from hypre_tpu_torch.ops.device_rap import (dia_transpose_device,
                                                 embedded_rap_device)
@@ -1750,7 +1769,7 @@ DS96_F32 = 21
 # the chain's timers (DS_PHASES), then the host setup's and the freeze's
 SETUP_PHASES = DS_PHASES + ("SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP",
                             "FREEZE", "DEVICE_RAP", "COLLAPSE")
-DS_ROUNDS = 3  # setups a path for the medians
+DS_ROUNDS = 2  # setups a path for the medians (3 until phase 18 came)
 
 
 def ds_options(**kw):
@@ -1853,7 +1872,7 @@ def phase_device_setup(dev, card):
     at 0 just before and read just after: the chain engaged (amg._fast),
     the JAX package's count (DS96_F64 / DS96_F32), a right solution,
     launches exactly as `kernel_launches` says; the chain held against
-    its CPU run (`hold_chain_on_cpu`); the solve's median of 20 warm
+    its CPU run (`hold_chain_on_cpu`); the solve's median of 5 warm
     solves, device busy and kernels an iteration (torch.profiler); then
     setup by phase and time to a first solution (setup + one solve),
     medians of DS_ROUNDS, in turns with the same options with
@@ -1886,7 +1905,7 @@ def phase_device_setup(dev, card):
         solve = make_solve(amg)
         solve()
         times = []
-        for _ in range(20):
+        for _ in range(MEDIAN_REPS):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -1935,7 +1954,7 @@ def phase_device_setup(dev, card):
                                     for k, v in runs.items()}}
         log(f"device setup [{tag} 96^3; {card}]: {its} iterations (JAX "
             f"package: {want}), true rel residual {rel:.3e} (bound "
-            f"{bound:.1e}); solve median of 20 {o['solve_median_ms']:.2f} ms "
+            f"{bound:.1e}); solve median of {MEDIAN_REPS} {o['solve_median_ms']:.2f} ms "
             f"({o['solve_min_ms']:.2f}-{o['solve_max_ms']:.2f}); under the "
             f"profiler wall {wall * 1e3:.2f} ms, device busy "
             f"{busy_us / 1e3:.2f} ms (idle {100 * o['idle_share']:.1f}%), "
@@ -2397,7 +2416,12 @@ def statistics(amg) -> dict:
             "cycle_complexity": amg.cycle_complexity()}
 
 
-def solve_median_ms(solve, reps: int = 20):
+# warm solves timed for a median: 5 keep the whole script well inside
+# its 1,200 s
+MEDIAN_REPS = 5
+
+
+def solve_median_ms(solve, reps: int = MEDIAN_REPS):
     """(median, min, max) ms of `reps` warm solves, CUDA events around
     each."""
     times = []
@@ -2429,7 +2453,7 @@ def run_cycle(opts, dev, card, label, want, slack, A=None):
     problem, or on the matrix A), the counts set to 0 just before and
     read just after: the JAX package's count, a right solution, launches
     exactly `cycle_launches` x the cycles plus PCG's matvecs; then the
-    statistics, the setup by phase, the solve's median of 20 and one
+    statistics, the setup by phase, the solve's median of 5 and one
     profiled solve.  Returns (amg, numbers)."""
     from hypre_tpu_torch.profile_slice import profile_solve
     from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
@@ -2454,7 +2478,7 @@ def run_cycle(opts, dev, card, label, want, slack, A=None):
         f"{want}{f' +- {slack}' if slack else ''}), final rel residual "
         f"{float(res.rel_residual_norm):.3e} (true, in f64: {rel:.3e}, bound "
         f"{bound:.1e}); statistics {stats}; setup {setup_s:.2f} s (phases "
-        f"{phases}); solve median of 20 {med:.2f} ms ({lo:.2f}-{hi:.2f}); "
+        f"{phases}); solve median of {MEDIAN_REPS} {med:.2f} ms ({lo:.2f}-{hi:.2f}); "
         f"under the profiler wall {wall * 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms (idle {100 * (1 - busy_us / 1e6 / wall):.1f}"
         f"%), {len(events)} device events ({len(events) / max(its, 1):.0f} "
@@ -2838,7 +2862,7 @@ def run_krylov(amg, label, name, kw, want, card, A0):
     just before and read just after: the JAX package's count, a right
     solution (the true residual in f64), the operator applications the
     solver's loop predicts and exactly their launches; then the solve's
-    median of 20 and one profiled solve.  Returns the numbers."""
+    median of 5 and one profiled solve.  Returns the numbers."""
     from hypre_tpu_torch.profile_slice import profile_solve
 
     b = torch.ones_like(amg.levels[0].dinv)
@@ -2857,7 +2881,7 @@ def run_krylov(amg, label, name, kw, want, card, A0):
     log(f"krylov [{label} 96^3; {card}]: {its} iterations (JAX package: "
         f"{want}), final rel residual {float(res.rel_residual_norm):.3e} "
         f"(true, in f64: {rel:.3e}, bound {bound:.1e}); applications {made} "
-        f"(predicted {want_calls}); solve median of 20 {med:.2f} ms "
+        f"(predicted {want_calls}); solve median of {MEDIAN_REPS} {med:.2f} ms "
         f"({lo:.2f}-{hi:.2f}); under the profiler wall {wall * 1e3:.2f} ms, "
         f"device busy {busy_us / 1e3:.2f} ms (idle "
         f"{100 * (1 - busy_us / 1e6 / wall):.1f}%), {len(events)} device "
@@ -3106,7 +3130,7 @@ def lobpcg_card_vs_cpu(dev):
 def phase_systems(dev, card):
     """14. Systems / nodal / GSMG BoomerAMG, the Krylov family and LOBPCG.
     At 96^3 through `run_cycle` (the JAX package's counts, launches
-    exactly, statistics, setup by phase, median of 20, busy): (a) the
+    exactly, statistics, setup by phase, median of 5, busy): (a) the
     oracle's nodal protocol on sys_laplacian_7pt x 2 with K1 alone timed
     at its 19-offset level 0 and every operator held against its plain
     version, (b) the unknown approach with ext+i, (c) (a) in f32/bf16, (d)
@@ -3256,7 +3280,7 @@ def true_residual(A0, x, tol: float):
 
 
 def ij_timing(solve, its: int) -> dict:
-    """The solve's median of 20 and one profiled run (`busy`)."""
+    """The solve's median of 5 and one profiled run (`busy`)."""
     med, lo, hi = solve_median_ms(solve)
     return {"solve_median_ms": med, "solve_min_max_ms": [lo, hi],
             **busy(solve, its)}
@@ -4147,7 +4171,7 @@ def family_amgdd(dev, card, flush, gathers):
         prof = busy(lambda: dv.cycle(rt))
         held = hold_gathers(dv, label, rng)
         log(f"family [{label}; {card}]: cycle vs the host cycle rel {rel:.3e} "
-            f"(tol {tol:g}); build {build_s:.2f} s; cycle median of 20 "
+            f"(tol {tol:g}); build {build_s:.2f} s; cycle median of {MEDIAN_REPS} "
             f"{med:.3f} ms ({lo:.3f}-{hi:.3f}); under the profiler {prof}; "
             f"{held} gathers bitwise their plain versions; launches "
             f"{counts}, predicted {expected} ({dv.num_levels} levels, "
@@ -4450,10 +4474,10 @@ STRUCT_MULTIBOX = {"-n 12 12 12 -P 2 1 2 -b 1 1 1 -solver 1": 16,
 EX1_ITERS = 11  # (i): examples/ex1.py's PFMG through the JAX package
 STRUCT_PHASES = ("STRUCT_SETUP", "STRUCT_INTERP", "STRUCT_RAP",
                  "STRUCT_FREEZE", "SMG_PLANES")
-# the solve's median of 20, but of 3 where a solve is seconds of
-# host-bound launches (~150,000 kernels: SMG 48^3, SparseMSG 32^3);
-# 20 there would add ~150 s to the phase
-STRUCT_REPS = {"(d) SMG": 3, "(d) SMG-PCG": 3, "(e)": 3}
+# the solve's median of MEDIAN_REPS, but one timed solve where a solve is
+# seconds of host-bound launches (~150,000 kernels: SMG 48^3, SparseMSG
+# 32^3)
+STRUCT_REPS = {"(d) SMG": 1, "(d) SMG-PCG": 1, "(e)": 1}
 
 
 def drive_struct(line: str, device):
@@ -4511,7 +4535,7 @@ def struct_solve(res, line: str):
 
 def struct_line(label, dev, card) -> dict:
     """One of (a)-(e): the JAX package's count, setup by phase, the
-    solve's median of 20 and one profiled cycle, the true residual, the
+    solve's median of 5 and one profiled cycle, the true residual, the
     kernels' launches (K1 / ELL on SparseMSG's frozen transfers exactly
     as `kernel_launches` says, none elsewhere); for (e) each transfer
     held against its plain version and one cycle against the CPU's.
@@ -4543,7 +4567,7 @@ def struct_line(label, dev, card) -> dict:
                                 f"expected {expected}")
     seconds = {"driver": wall}
     solve, cycle = struct_solve(res, line)
-    reps = STRUCT_REPS.get(label, 20)
+    reps = STRUCT_REPS.get(label, MEDIAN_REPS)
     t = time.perf_counter()
     med, lo, hi = solve_median_ms(solve, reps)
     seconds["solves"] = time.perf_counter() - t
@@ -4767,6 +4791,704 @@ def phase_struct(dev, card, matvec):
     log(f"the struct phase took {time.perf_counter() - t0:.1f} s")
     return {"lines": runs, "card_vs_cpu_24": small, "ref": ref,
             "multibox": multibox, "ex1": ex1, "matvec": matvec}, total
+
+
+# -- 18. the sstruct interface -----------------------------------------------
+
+# label -> (sstruct driver line, the JAX driver's count on the CPU; slow
+# test tests/test_torch_sstruct_driver.py::test_jax_count_is_the_chip_pin).
+# 48^3 a part: the largest size at which the JAX package's Split loop
+# (one lax.while_loop with every level a constant) is run on a CPU here
+SSTRUCT_JAX = {
+    "(a)": ("-n 48 48 48 -solver 11", 24),
+    "(b)": ("-n 48 48 48 -solver 1", 200),  # max_iter, unconverged
+    "(c)": ("-n 48 48 48 -solver 3", 18),
+    "(d)": ("-n 48 48 48 -solver 18", 160),
+}
+# the 48^3 lines the card runs too; (b)'s 200 Split iterations (~15 s)
+# are held on the CPU only (the slow test runs the port there as well)
+SSTRUCT_JAX_CARD = ("(a)", "(c)", "(d)")
+# label -> (the 96^3 line, the port's count on a CPU: `python -m
+# hypre_tpu_torch.drivers.sstruct <line> --device cpu`)
+SSTRUCT96 = {
+    "(a)": ("-n 96 96 96 -solver 11", 33),
+    "(b)": ("-n 96 96 96 -solver 1", 200),  # max_iter, unconverged
+    "(c)": ("-n 96 96 96 -solver 3", 18),
+    "(d)": ("-n 96 96 96 -solver 18", 200),  # max_iter, unconverged
+}
+# (e): card vs CPU at 24^3 a part; the Split-SMG lines (0, 10) at 12^3:
+# at 24^3 an SMG cycle is ~0.25 s of host-bound launches on the card and
+# as long on the CPU (-solver 0: 79 iterations, two cycles each; 10: 26
+# preconditioner applications, ~27 s card and CPU together)
+SSTRUCT24 = {0: 12, 8: 24, 10: 12, 13: 24, 19: 24}
+SSTRUCT_IN_IDS = (18, 20, 11)  # (f): every text; FAC-AMR 99 on FacParts texts
+SSTRUCT_FAC_ID = 99
+# solves timed again after the driver's own, on what it built
+# (`res.resolve`), for the median: 10 where a solve is under a second, 3
+# where it is seconds of host-bound launches ((a) 2-3 s, (c) ~1 s); (b)'s
+# 200 Split iterations (~17 s a solve) are timed once, by the driver, as
+# the script's 1,200 s leave no room for more
+SSTRUCT_REPS = {"(a)": 3, "(b)": 0, "(c)": 3, "(d)": 10}
+SSTRUCT_MAX_ITER = 200  # the driver's default; (b) and (d) stop there
+# lines whose whole solve is profiled (kernels and busy per iteration =
+# the solve's / its count): a DS-PCG iteration is ~18 kernels, and a
+# profile that short late in the script can read none (run 4)
+SSTRUCT_PROFILE_SOLVE = ("(d)",)
+# (f): the grid-spec texts; tests/test_torch_sstruct_infile.py builds its
+# corpus from them.  Each refinement (-r) a text runs at here; cell_node's
+# composite is the largest, 135,265 unknowns
+SSTRUCT_INFILE_R = {"neighbor": "-r 2 2 2", "cell_node": "-r 8 8 8",
+                    "fac": ""}
+SSTRUCT_INFILES = {
+
+    # two cell-centred parts side by side along x: the stencil legs that
+    # leave a part through its x face land on the other part through
+    # GridSetNeighborPart; part 0's diagonal set to 7 on every other
+    # cell of its lower half, part 1's raised by 0.5 (the index of the
+    # AddTo box written with an explicit zero shift)
+    "neighbor": """\
+GridCreate: 3 2
+GridSetExtents: 0 (1- 1- 1-) (6+ 6+ 6+)
+GridSetExtents: 1 (1- 1- 1-) (6+ 6+ 6+)
+GridSetVariables: 0 1 [0]
+GridSetVariables: 1 1 [0]
+GridSetPeriodic: 0 [0 0 0]
+GridSetNeighborPart: 0 (7- 1- 1-) (7- 6+ 6+) 1 (1- 1- 1-) (1- 6+ 6+) [0 1 2] [1 1 1]
+GridSetNeighborPart: 1 (0+ 1- 1-) (0+ 6+ 6+) 0 (6+ 1- 1-) (6+ 6+ 6+) [0 1 2] [1 1 1]
+StencilCreate: 0 7
+StencilSetEntry: 0 0 [0 0 0] 0 6.0
+StencilSetEntry: 0 1 [-1 0 0] 0 -1.0
+StencilSetEntry: 0 2 [1 0 0] 0 -1.0
+StencilSetEntry: 0 3 [0 -1 0] 0 -1.0
+StencilSetEntry: 0 4 [0 1 0] 0 -1.0
+StencilSetEntry: 0 5 [0 0 -1] 0 -1.0
+StencilSetEntry: 0 6 [0 0 1] 0 -1.0
+GraphSetStencil: 0 0 0
+GraphSetStencil: 1 0 0
+MatrixSetValues: 0 (1- 1- 1-) (6+ 6+ 3+) [2 1 1] 0 0 7.0
+MatrixAddToValues: 1 (1- 1- 1- : 0 0 0) (6+ 6+ 6+ : 0 0 0) [1 1 1] 0 0 0.5
+""",
+    # two parts of two variables each: part 0 CELL + NODE, part 1 CELL +
+    # XFACE; each variable's 7-point stencil, and legs from the cells to
+    # the other variable (and back) that join boxes of different shapes
+    # (they assemble into U); the parts' cells couple across x through
+    # GraphAddEntries
+    "cell_node": """\
+GridCreate: 3 2
+GridSetExtents: 0 (1- 1- 1-) (4+ 4+ 4+)
+GridSetExtents: 1 (1- 1- 1-) (4+ 4+ 4+)
+GridSetVariables: 0 2 [0 1]
+GridSetVariables: 1 2 [0 2]
+GridSetPeriodic: 1 [0 0 0]
+StencilCreate: 0 9
+StencilSetEntry: 0 0 [0 0 0] 0 7.0
+StencilSetEntry: 0 1 [-1 0 0] 0 -1.0
+StencilSetEntry: 0 2 [1 0 0] 0 -1.0
+StencilSetEntry: 0 3 [0 -1 0] 0 -1.0
+StencilSetEntry: 0 4 [0 1 0] 0 -1.0
+StencilSetEntry: 0 5 [0 0 -1] 0 -1.0
+StencilSetEntry: 0 6 [0 0 1] 0 -1.0
+StencilSetEntry: 0 7 [0 0 0] 1 -0.25
+StencilSetEntry: 0 8 [-1 -1 -1] 1 -0.25
+StencilCreate: 1 9
+StencilSetEntry: 1 0 [0 0 0] 1 7.0
+StencilSetEntry: 1 1 [-1 0 0] 1 -1.0
+StencilSetEntry: 1 2 [1 0 0] 1 -1.0
+StencilSetEntry: 1 3 [0 -1 0] 1 -1.0
+StencilSetEntry: 1 4 [0 1 0] 1 -1.0
+StencilSetEntry: 1 5 [0 0 -1] 1 -1.0
+StencilSetEntry: 1 6 [0 0 1] 1 -1.0
+StencilSetEntry: 1 7 [0 0 0] 0 -0.25
+StencilSetEntry: 1 8 [1 1 1] 0 -0.25
+StencilCreate: 2 9
+StencilSetEntry: 2 0 [0 0 0] 0 7.0
+StencilSetEntry: 2 1 [-1 0 0] 0 -1.0
+StencilSetEntry: 2 2 [1 0 0] 0 -1.0
+StencilSetEntry: 2 3 [0 -1 0] 0 -1.0
+StencilSetEntry: 2 4 [0 1 0] 0 -1.0
+StencilSetEntry: 2 5 [0 0 -1] 0 -1.0
+StencilSetEntry: 2 6 [0 0 1] 0 -1.0
+StencilSetEntry: 2 7 [0 0 0] 1 -0.25
+StencilSetEntry: 2 8 [-1 0 0] 1 -0.25
+StencilCreate: 3 9
+StencilSetEntry: 3 0 [0 0 0] 1 7.0
+StencilSetEntry: 3 1 [-1 0 0] 1 -1.0
+StencilSetEntry: 3 2 [1 0 0] 1 -1.0
+StencilSetEntry: 3 3 [0 -1 0] 1 -1.0
+StencilSetEntry: 3 4 [0 1 0] 1 -1.0
+StencilSetEntry: 3 5 [0 0 -1] 1 -1.0
+StencilSetEntry: 3 6 [0 0 1] 1 -1.0
+StencilSetEntry: 3 7 [0 0 0] 0 -0.25
+StencilSetEntry: 3 8 [1 0 0] 0 -0.25
+GraphSetStencil: 0 0 0
+GraphSetStencil: 0 1 1
+GraphSetStencil: 1 0 2
+GraphSetStencil: 1 1 3
+GraphAddEntries: 0 (4+ 1- 1-) (4+ 4+ 4+) [1 1 1] 0 1 (1- 1- 1-) (1- 4+ 4+) [1 1 1] 0 [0 1 2] 9 -1.0
+GraphAddEntries: 1 (1- 1- 1-) (1- 4+ 4+) [1 1 1] 0 0 (4+ 1- 1-) (4+ 4+ 4+) [1 1 1] 0 [0 1 2] 9 -1.0
+MatrixAddToValues: 0 (1- 1- 1-) (4+ 4+ 4+) [1 1 1] 1 0 0.5
+""",
+    # a two-level AMR composite in 2-D (FacParts): part 0 the coarse
+    # 16 x 16 cells, part 1 a factor-2 patch over coarse cells 4..11;
+    # each coarse cell beside the patch couples to its two facing fine
+    # cells, and each fine boundary cell to its parent's neighbour
+    # (GraphAddEntries with strides), all with -0.5
+    "fac": """\
+GridCreate: 2 2
+GridSetExtents: 0 (0- 0-) (15+ 15+)
+GridSetExtents: 1 (8- 8-) (23+ 23+)
+GridSetVariables: 0 1 [0]
+GridSetVariables: 1 1 [0]
+StencilCreate: 0 5
+StencilSetEntry: 0 0 [0 0] 0 5.0
+StencilSetEntry: 0 1 [-1 0] 0 -1.0
+StencilSetEntry: 0 2 [1 0] 0 -1.0
+StencilSetEntry: 0 3 [0 -1] 0 -1.0
+StencilSetEntry: 0 4 [0 1] 0 -1.0
+GraphSetStencil: 0 0 0
+GraphSetStencil: 1 0 0
+FacParts: 0 0 [1 1]
+FacParts: 1 1 [2 2]
+GraphAddEntries: 1 (8- 8-) (8- 22-) [1 2] 0 0 (3- 4-) (3- 11-) [1 1] 0 [0 1] 5 -0.5
+GraphAddEntries: 1 (8- 9-) (8- 23-) [1 2] 0 0 (3- 4-) (3- 11-) [1 1] 0 [0 1] 5 -0.5
+GraphAddEntries: 1 (23- 8-) (23- 22-) [1 2] 0 0 (12- 4-) (12- 11-) [1 1] 0 [0 1] 5 -0.5
+GraphAddEntries: 1 (23- 9-) (23- 23-) [1 2] 0 0 (12- 4-) (12- 11-) [1 1] 0 [0 1] 5 -0.5
+GraphAddEntries: 1 (8- 8-) (22- 8-) [2 1] 0 0 (4- 3-) (11- 3-) [1 1] 0 [0 1] 6 -0.5
+GraphAddEntries: 1 (9- 8-) (23- 8-) [2 1] 0 0 (4- 3-) (11- 3-) [1 1] 0 [0 1] 6 -0.5
+GraphAddEntries: 1 (8- 23-) (22- 23-) [2 1] 0 0 (4- 12-) (11- 12-) [1 1] 0 [0 1] 6 -0.5
+GraphAddEntries: 1 (9- 23-) (23- 23-) [2 1] 0 0 (4- 12-) (11- 12-) [1 1] 0 [0 1] 6 -0.5
+GraphAddEntries: 0 (3- 4-) (3- 11-) [1 1] 0 1 (8- 8-) (8- 23-) [1 2] 0 [0 1] 5 -0.5
+GraphAddEntries: 0 (3- 4-) (3- 11-) [1 1] 0 1 (8- 9-) (8- 23-) [1 2] 0 [0 1] 6 -0.5
+GraphAddEntries: 0 (12- 4-) (12- 11-) [1 1] 0 1 (23- 8-) (23- 23-) [1 2] 0 [0 1] 5 -0.5
+GraphAddEntries: 0 (12- 4-) (12- 11-) [1 1] 0 1 (23- 9-) (23- 23-) [1 2] 0 [0 1] 6 -0.5
+GraphAddEntries: 0 (4- 3-) (11- 3-) [1 1] 0 1 (8- 8-) (23- 8-) [2 1] 0 [0 1] 5 -0.5
+GraphAddEntries: 0 (4- 3-) (11- 3-) [1 1] 0 1 (9- 8-) (23- 8-) [2 1] 0 [0 1] 6 -0.5
+GraphAddEntries: 0 (4- 12-) (11- 12-) [1 1] 0 1 (8- 23-) (23- 23-) [2 1] 0 [0 1] 5 -0.5
+GraphAddEntries: 0 (4- 12-) (11- 12-) [1 1] 0 1 (9- 23-) (23- 23-) [2 1] 0 [0 1] 6 -0.5
+""",
+}
+
+
+def drive_sstruct(line: str, device, path=None):
+    """The port's sstruct driver on one line (`-in path` prepended when a
+    grid-spec file is given), its printout captured and logged.  Returns
+    (result, wall seconds)."""
+    import contextlib
+    import io
+
+    from hypre_tpu_torch.drivers import sstruct as driver
+
+    argv = (["-in", path] if path else []) + line.split()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = driver.run(argv, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for ln in buf.getvalue().splitlines():
+        log(f"  sstruct [{torch.device(device).type}] {ln}")
+    return res, wall
+
+
+def sstruct_id(line: str) -> int:
+    return int(line.split("-solver")[1].split()[0])
+
+
+def flat_parts(x) -> torch.Tensor:
+    """A solution as one flat f64 tensor: a tensor, a tuple of parts
+    (nested), or FAC-AMR's {part: tensor}."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1)
+    if isinstance(x, dict):
+        return torch.cat([flat_parts(x[k]) for k in sorted(x)])
+    return torch.cat([flat_parts(v) for v in x])
+
+
+def sstruct_true_residual(res, tol: float):
+    """(||b - A x|| / ||b|| in f64 of a built-in line, the bound it must
+    meet: tol + 4 eps ||A||_inf ||x|| / ||b||), finite x.  SysPFMG (-solver
+    3) solves part 0's (0, 0) block alone, so that block is its A."""
+    from hypre_tpu_torch.sstruct import sstruct_matvec
+    from hypre_tpu_torch.struct import struct_matvec
+
+    A, b = res.A, res.b
+    x = flat_parts(res.x)
+    require(bool(torch.isfinite(x).all()), "non-finite solution")
+    if sstruct_id(res.line) == 3:
+        blk = A.diag_block(0, 0)
+        r = b[0][0] - struct_matvec(blk, res.x[0])
+        bf = b[0][0].reshape(-1)
+        norm_inf = float(blk.data.abs().sum(0).max())
+    else:
+        r = flat_parts(tuple(tuple(bv - av for bv, av in zip(bp, ap))
+                             for bp, ap in zip(b, sstruct_matvec(A, res.x))))
+        bf = flat_parts(b)
+        U = A.u_host.to_scipy()
+        norm_inf = max(float(sm.data.abs().sum(0).max())
+                       for sm in A.smats.values()) + float(
+            abs(U).sum(axis=1).max())
+    nb = float(torch.linalg.vector_norm(bf))
+    rel = float(torch.linalg.vector_norm(r)) / nb
+    bound = tol + 4 * torch.finfo(torch.float64).eps * norm_inf * float(
+        torch.linalg.vector_norm(x)) / nb
+    return rel, bound
+
+
+def sstruct_launches(res, its: int) -> dict:
+    """The K1 / ELL launches a built-in line's solve makes, from the
+    code's own counts: the U product (`kernel_launches(A.umat)`) runs
+    once in each sstruct_matvec and once in each Split step; PCG applies
+    A and M its + 1 times, a Split solve steps `its` times and takes
+    its + 1 residuals; PFMG / SMG cycles, SysPFMG and the diagonal
+    scaling launch neither kernel."""
+    from hypre_tpu_torch.ops.dia import kernel_launches, sum_launches
+
+    sid = sstruct_id(res.line)
+    u = kernel_launches(res.A.umat) if res.A.umat is not None else {}
+    if sid == 3:
+        k = 0
+    elif sid in (0, 1, 8):
+        k = 2 * its + 1
+    elif sid in (10, 11):
+        k = 2 * (its + 1)
+    else:
+        k = its + 1
+    return sum_launches([(u, k)])
+
+
+def infile_launches(res, its: int) -> dict:
+    """The same for an -in line: the frozen monolithic operator `op` its
+    + 1 times in PCG, the assembled U once a Split step, BoomerAMG's
+    `cycle_launches` once an application, FAC-AMR's coarsest SysPFMG
+    transfers (each non-coarsest level's P^T and P) once a cycle."""
+    from hypre_tpu_torch.ops.dia import kernel_launches, sum_launches
+
+    sid = sstruct_id(res.line)
+    if 50 <= sid < 100:
+        cs = res.solver.csolver
+        per = [(kernel_launches(M), 1) for M in cs._P + cs._PT if M is not None]
+        return sum_launches([(sum_launches(per), its)])
+    parts = [(kernel_launches(res.op), its + 1)]
+    if sid in (10, 11) and res.A.umat is not None:
+        parts.append((kernel_launches(res.A.umat), its + 1))
+    if sid == 20:
+        parts.append((res.solver.cycle_launches(), its + 1))
+    return sum_launches(parts)
+
+
+def sstruct_iteration(res):
+    """One iteration of a Split, PCG + Split or SysPFMG line's solve, for
+    the profile: a SysPFMG cycle, a Split step and its residual, PCG's A
+    and M."""
+    from hypre_tpu_torch.solvers.krylov.common import tzeros_like
+    from hypre_tpu_torch.sstruct import sstruct_matvec
+
+    sid, A, b, s = sstruct_id(res.line), res.A, res.b, res.solver
+    if sid == 3:
+        return lambda: s._cycle_from(res.x, (b[0][0],))
+    if sid in (0, 1, 8):
+        return lambda: sstruct_matvec(A, s._step(res.x, b))
+    return lambda: (sstruct_matvec(A, b), s._step(tzeros_like(b), b))
+
+
+def drive_checked(label, line, want, dev):
+    """A built-in line through the driver with the counts at 0 before and
+    read after: its count `want` (None: any), the true residual or the
+    max_iter stop, K1 / ELL launches exactly as `sstruct_launches`
+    predicts.  Returns (result, wall s, launches, true residual, bound)."""
+    zero_counts()
+    res, wall = drive_sstruct(line, dev)
+    counts = read_counts()
+    res.line = line
+    its = int(res.num_iterations)
+    rel, bound = sstruct_true_residual(res, 1e-6)
+    require(want is None or its == want,
+            f"sstruct {label} {line}: {its} iterations, pinned {want}")
+    sstruct_require_solution(label, res, its, rel, bound)
+    expected = {n: 0 for n in counts}
+    expected.update(sstruct_launches(res, its))
+    require(counts == expected, f"sstruct {label} {line}: launches "
+                                f"{counts}, expected {expected}")
+    return res, wall, counts, rel, bound
+
+
+def sstruct_line(label, dev, card) -> dict:
+    """One of (a)-(d) at 96^3 (`drive_checked` against the port's CPU
+    count there, SSTRUCT96): setup by phase, the solve's median and one
+    profiled iteration; then, for SSTRUCT_JAX_CARD, the line at 48^3
+    against the JAX package's count (SSTRUCT_JAX)."""
+    from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    line, want = SSTRUCT96[label]
+    GLOBAL_TIMER.clear()
+    res, wall, counts, rel, bound = drive_checked(label, line, want, dev)
+    its = int(res.num_iterations)
+    phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in STRUCT_PHASES
+              if GLOBAL_TIMER.seconds(k)}
+    seconds = {"driver": wall, "setup": res.setup_s, "solve": res.solve_s}
+    reps = SSTRUCT_REPS[label]
+    t = time.perf_counter()
+    med, lo, hi = (solve_median_ms(res.resolve, reps) if reps
+                   else (res.solve_s * 1e3,) * 3)
+    seconds["solves"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if label in SSTRUCT_PROFILE_SOLVE:
+        prof = busy(res.resolve, its, cpu=False)
+        prof["wall_ms"] /= its
+        prof["busy_ms"] /= its
+    else:
+        prof = busy(sstruct_iteration(res), 1, cpu=False)
+    seconds["profile"] = time.perf_counter() - t
+    out = {"line": line, "iterations": its, "cpu_iterations": want,
+           "converged": bool(res.converged),
+           "rel_residual": float(res.rel_residual_norm),
+           "true_rel_residual": rel, "bound": bound, "driver_wall_s": wall,
+           "setup_s": res.setup_s, "setup_phases_s": phases,
+           "driver_solve_s": res.solve_s, "solve_median_ms": med,
+           "solve_reps": reps, "solve_min_max_ms": [lo, hi],
+           "iteration_wall_ms": prof["wall_ms"],
+           "iteration_busy_ms": prof["busy_ms"],
+           "idle_share": prof["idle_share"],
+           "kernels_per_iteration": prof["kernels_per_iteration"],
+           "launches": dict(counts)}
+    del res
+    torch.cuda.empty_cache()
+    jline, jwant = SSTRUCT_JAX[label]
+    jtext = ""
+    if label in SSTRUCT_JAX_CARD:
+        t = time.perf_counter()
+        jres, jwall, jcounts, jrel, _ = drive_checked(label, jline, jwant, dev)
+        seconds["48^3 line"] = time.perf_counter() - t
+        out["jax_line"] = {"line": jline, "iterations": jwant,
+                           "true_rel_residual": jrel, "wall_s": jwall,
+                           "launches": jcounts}
+        for k, v in jcounts.items():
+            out["launches"][k] += v
+        jtext = (f"; {jline}: {jres.num_iterations} iterations (JAX {jwant}),"
+                 f" true rel residual {jrel:.3e}")
+    out["seconds"] = seconds
+    if reps:
+        solve = (f"median of {reps} {med:.2f} ms ({lo:.2f}-{hi:.2f}; the "
+                 f"driver's {out['driver_solve_s'] * 1e3:.2f})")
+    else:
+        solve = f"the driver's {med:.2f} ms"
+    log(f"sstruct {label} [{card}] {line}: {its} iterations (the port's CPU "
+        f"count {want}), true rel residual {rel:.3e}; setup "
+        f"{out['setup_s']:.2f} s {phases}; solve {solve}; one iteration: "
+        f"wall {out['iteration_wall_ms']:.2f} ms, busy "
+        f"{out['iteration_busy_ms']:.2f} ms, idle {out['idle_share']:.1%}, "
+        f"{out['kernels_per_iteration']:.0f} kernels; launches "
+        f"{ {k: v for k, v in counts.items() if v} } (predicted){jtext}; "
+        f"seconds { {k: round(v, 1) for k, v in seconds.items()} }")
+    return out
+
+
+def sstruct_require_solution(label, res, its, rel, bound) -> None:
+    """A converged line's true residual within its bound; a line that
+    stopped at max_iter (as the JAX package's does) reports the residual
+    it has (the true one within 1e-3 of the solver's)."""
+    if res.converged:
+        require(rel < bound, f"sstruct {label}: true residual {rel:.3e} "
+                             f"above {bound:.3e}")
+        return
+    reported = float(res.rel_residual_norm)
+    require(its == SSTRUCT_MAX_ITER and abs(rel - reported) <= 1e-3 * reported,
+            f"sstruct {label}: unconverged after {its} iterations, true "
+            f"residual {rel:.3e}, reported {reported:.3e}")
+
+
+def sstruct_card_vs_cpu(line: str, card, path=None, tol=1e-12) -> dict:
+    """A line on the card and on the CPU: the same count, x within tol of
+    max |x|, the card's K1 / ELL launches as predicted."""
+    zero_counts()
+    rc, wc = drive_sstruct(line, torch.device("cuda", 0), path)
+    counts = read_counts()
+    rh, wh = drive_sstruct(line, "cpu", path)
+    rc.line = rh.line = line
+    its = int(rc.num_iterations)
+    predict = infile_launches if path else sstruct_launches
+    expected = {n: 0 for n in counts}
+    expected.update(predict(rc, its))
+    xc, xh = flat_parts(rc.x).cpu(), flat_parts(rh.x)
+    dx = float((xc - xh).abs().max() / xh.abs().max())
+    drel = abs(float(rc.rel_residual_norm) - float(rh.rel_residual_norm))
+    log(f"sstruct [{card}] {'-in ' + path.rsplit('/', 1)[1] + ' ' if path else ''}"
+        f"{line}: card {its} / CPU {rh.num_iterations} iterations, max rel "
+        f"diff of x {dx:.2e}, of the final residual {drel:.2e}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; card {wc:.1f} s, CPU "
+        f"{wh:.1f} s")
+    require(its == int(rh.num_iterations) and dx <= tol,
+            f"sstruct {line}: card and CPU differ")
+    require(counts == expected, f"sstruct {line}: launches {counts}, "
+                                f"expected {expected}")
+    return {"iterations": its, "dx": dx, "converged": bool(rc.converged),
+            "rel_residual": float(rc.rel_residual_norm), "card_s": wc,
+            "cpu_s": wh, "card_setup_s": rc.setup_s,
+            "card_solve_s": rc.solve_s, "launches": counts}
+
+
+def sstruct_infiles(card) -> dict:
+    """(f): every SSTRUCT_INFILES text through `-in`, at its refinement,
+    with SSTRUCT_IN_IDS (and FAC-AMR on the FacParts text), card vs CPU."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, text in SSTRUCT_INFILES.items():
+            path = f"{tmp}/{name}.in"
+            with open(path, "w") as fh:
+                fh.write(text)
+            ids = SSTRUCT_IN_IDS + ((SSTRUCT_FAC_ID,) if "FacParts" in text
+                                    else ())
+            for sid in ids:
+                line = f"-solver {sid} {SSTRUCT_INFILE_R[name]}".strip()
+                out[f"{name} {line}"] = sstruct_card_vs_cpu(line, card, path,
+                                                            tol=1e-10)
+    return out
+
+
+def maxwell_cases():
+    """(g)'s three SStructMaxwell problems: name -> (constructor kwargs,
+    the right-hand side's kind)."""
+    from hypre_tpu_torch.models.maxwell import (curlcurl_matrix,
+                                                curlcurl_matrix_part)
+
+    gshape = (16, 16, 16)
+    parts = [(8, 16, 16), (8, 16, 16)]
+    origins = [(0, 0, 0), (8, 0, 0)]
+    A_parts = [curlcurl_matrix_part(p, o, gshape, 1.0, 1.0)[0]
+               for p, o in zip(parts, origins)]
+    rot = [(8, 16, 16), (8, 16, 16)]
+    transforms = [((0, 0, 0), (0, 1, 2), (1, 1, 1)),
+                  ((16, 16, 0), (0, 1, 2), (-1, -1, 1))]
+    s = (MAXWELL_AMS_N,) * 3
+    A1 = curlcurl_matrix(*s)[0]
+    U = maxwell_interface_u(MAXWELL_AMS_N)
+    return {
+        "origins TV": (dict(parts=parts, A_parts=A_parts, origins=origins,
+                            global_shape=gshape), "parts"),
+        "transforms TV": (dict(parts=rot, transforms=transforms), "parts"),
+        "block-diagonal + U AMS": (dict(parts=[s, s], A_parts=[A1, A1], U=U),
+                                   "A"),
+    }
+
+
+MAXWELL_AMS_N = 24  # (g)'s AMS line: two 24^3 parts, 90,000 edges
+MAXWELL_U = -0.1  # the value of each U coupling
+
+
+def maxwell_interface_u(n: int):
+    """(g)'s U over two stacked n^3 parts' edges (edge_structure's
+    numbering, part 1 after part 0): each y- and z-edge on part 0's face
+    x = n coupled to the edge in the same place on part 1's face x = 0,
+    both ways, MAXWELL_U."""
+    from hypre_tpu_torch.ops.csr import CSRMatrix
+
+    m = n + 1
+    ne = 3 * n * m * m
+    rows, cols = [], []
+    for d, shape in ((1, (m, n, m)), (2, (m, m, n))):
+        ids = np.arange(d * n * m * m, (d + 1) * n * m * m).reshape(shape)
+        a, b = ids[n].ravel(), ne + ids[0].ravel()
+        rows += [a, b]
+        cols += [b, a]
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return CSRMatrix.from_coo(rows, cols, np.full(len(rows), MAXWELL_U),
+                              (2 * ne, 2 * ne))
+
+
+def maxwell_launches(mx, its: int) -> dict:
+    """PCG's A (its + 1) and preconditioner applications: the TV cycle's
+    `cycle_launches`, or AMS's `apply_launches`, its + 2 times (the
+    energy-norm test applies M to b once more)."""
+    from hypre_tpu_torch.ops.dia import kernel_launches, sum_launches
+
+    if mx.tv is not None:
+        A, per = mx.tv.levels[0]["A_f"], mx.tv.cycle_launches()
+    else:
+        A, per = mx.ams._E, mx.ams.apply_launches()
+    return sum_launches([(kernel_launches(A), its + 1), (per, its + 2)])
+
+
+def sstruct_maxwell(card) -> dict:
+    """(g): each SStructMaxwell branch on the card and on the CPU: the
+    same count, x within 1e-10 of max |x|, launches as predicted."""
+    from hypre_tpu_torch.solvers.sstruct_ls import SStructMaxwell
+
+    out = {}
+    dev = torch.device("cuda", 0)
+    for name, (kw, rhs) in maxwell_cases().items():
+        t0 = time.perf_counter()
+        runs = []  # the card's, then the CPU's
+        for where in (dev, torch.device("cpu")):
+            zero_counts()
+            t = time.perf_counter()
+            mx = SStructMaxwell(**kw, device=where)
+            setup = time.perf_counter() - t
+            rng = np.random.default_rng(23)
+            t = time.perf_counter()
+            if rhs == "parts":
+                res = mx.solve_parts([rng.standard_normal(len(m))
+                                      for m in mx.edge_maps])
+            else:
+                b = mx.A.to_scipy() @ rng.standard_normal(mx.A.num_rows)
+                res = mx.solve(torch.from_numpy(b).to(where))
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+            runs.append((mx, res, read_counts(), setup,
+                         time.perf_counter() - t))
+        (mx, rc, counts, setup, solve), (_, rh, _, hsetup, hsolve) = runs
+        its = int(rc.num_iterations)
+        expected = {n: 0 for n in counts}
+        expected.update(maxwell_launches(mx, its))
+        dx = float((rc.x.cpu() - rh.x).abs().max() / rh.x.abs().max())
+        log(f"sstruct (g) Maxwell {name} [{card}]: {mx.A.num_rows} edges, "
+            f"{'TV ' + str(len(mx.tv.levels)) + ' levels' if mx.tv else 'AMS'}"
+            f"; card {its} / CPU {rh.num_iterations} iterations, rel residual "
+            f"{float(rc.rel_residual_norm):.3e}, max rel diff of x {dx:.2e}; "
+            f"setup {setup:.2f} s, solve {solve:.3f} s (CPU {hsetup:.2f} / "
+            f"{hsolve:.3f}); launches {({k: v for k, v in counts.items() if v})}"
+            f"; {time.perf_counter() - t0:.1f} s")
+        require(rc.converged and its == int(rh.num_iterations) and dx <= 1e-10,
+                f"sstruct (g) Maxwell {name}: card and CPU differ")
+        require(counts == expected, f"sstruct (g) Maxwell {name}: launches "
+                                    f"{counts}, expected {expected}")
+        out[name] = {"edges": mx.A.num_rows, "iterations": its, "dx": dx,
+                     "rel_residual": float(rc.rel_residual_norm),
+                     "setup_s": setup, "solve_s": solve, "launches": counts}
+    return out
+
+
+def sstruct_fac(card) -> dict:
+    """(h): FAC on `build_composite_amr` as GMRES's preconditioner, the
+    shape of tests/test_sstruct.py::test_fac_multilevel_amr (3 levels,
+    factors 2 then 4), card vs CPU: the same count, x within 1e-10 (every
+    operator of this size is dense: no K1 / ELL launch)."""
+    from hypre_tpu_torch.ops.csr import CSRMatrix
+    from hypre_tpu_torch.ops.dia import freeze_auto, spmv
+    from hypre_tpu_torch.solvers.krylov import GMRESOptions, gmres
+    from hypre_tpu_torch.solvers.sstruct_ls.fac import (FAC, FACOptions,
+                                                        build_composite_amr)
+
+    A, ranges, _ = build_composite_amr(
+        (10, 10), [((2, 2), (5, 5), 2), ((2, 2), (5, 5), 4)])
+    n = A.shape[0]
+    runs = []  # the card's, then the CPU's
+    for where in (torch.device("cuda", 0), torch.device("cpu")):
+        zero_counts()
+        t = time.perf_counter()
+        fac = FAC(A, ranges, FACOptions(max_iter=1), device=where)
+        E = freeze_auto(CSRMatrix.from_scipy(A), torch.float64, where)
+        b = torch.from_numpy(A @ np.ones(n)).to(where)
+        res = gmres(lambda x: spmv(E, x), b,
+                    M=lambda r: fac.cycle(r, torch.zeros_like(r)),
+                    opts=GMRESOptions(tol=1e-8, max_iter=60, k_dim=30))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        runs.append((res, read_counts(), time.perf_counter() - t))
+    (rc, counts, wc), (rh, _, wh) = runs
+    dx = float((rc.x.cpu() - rh.x).abs().max() / rh.x.abs().max())
+    err1 = float((rc.x.cpu() - 1.0).abs().max())
+    log(f"sstruct (h) FAC-GMRES [{card}]: {n} composite unknowns, card "
+        f"{rc.num_iterations} / CPU {rh.num_iterations} iterations, max rel "
+        f"diff of x {dx:.2e}, |x - 1| {err1:.2e}; {wc:.2f} s / CPU {wh:.2f} s")
+    require(rc.converged and rc.num_iterations == rh.num_iterations
+            and dx <= 1e-10 and err1 <= 1e-5, "sstruct (h): FAC-GMRES differs")
+    require(not any(counts.values()), f"sstruct (h): launches {counts}")
+    return {"unknowns": n, "iterations": int(rc.num_iterations), "dx": dx,
+            "card_s": wc, "cpu_s": wh}
+
+
+def sstruct_u_case(dev, flush, card) -> dict:
+    """(i): the U of (a) alone (-n 96 96 96: 1,769,472 rows, the two
+    interface planes' 18,432 couplings on the diagonals -/+ 9,216): K1
+    against its plain version, timed (L2 flushed, median of REPS) beside
+    the cuSPARSE CSR product of its nonzeros and both bounds: the DIA
+    bytes (2 diagonals, x and y) and the nonzero bytes (the nonzeros'
+    values, column indices, x at them and y)."""
+    from hypre_tpu_torch.drivers.sstruct import build_two_part
+    from hypre_tpu_torch.ops.dia import DIAMatrix
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, dia_spmv_reference
+
+    _, A = build_two_part(96, 96, 96, 3, device=dev)
+    U = A.umat
+    require(isinstance(U, DIAMatrix) and U.offsets == (-9216, 9216),
+            f"sstruct (i): U froze as {type(U).__name__}")
+    data, offs = U.data, U.offsets
+    n = data.shape[1]
+    x = torch.from_numpy(np.random.default_rng(29).standard_normal(n)).to(dev)
+    zero_counts()
+    y = dia_spmv_cuda(data, offs, x)
+    y_ref = dia_spmv_reference(data, offs, x)
+    torch.cuda.synchronize()
+    require(read_counts()["dia_spmv"] == 1, "sstruct (i): K1 did not launch")
+    err = float((y - y_ref).abs().max())
+    require(err == 0.0, f"sstruct (i): K1 differs from its plain version by {err}")
+    Uh = A.u_host.to_scipy().tocsr()
+    nnz = Uh.nnz
+    with warnings.catch_warnings():  # torch's "sparse CSR is beta" notice
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(Uh.indptr.astype(np.int64)),
+            torch.from_numpy(Uh.indices.astype(np.int64)),
+            torch.from_numpy(Uh.data), size=Uh.shape).to(dev)
+    ms = time_cuda_ms(lambda: dia_spmv_cuda(data, offs, x), flush)
+    plain_ms = time_cuda_ms(lambda: dia_spmv_reference(data, offs, x), flush)
+    lib_ms = time_cuda_ms(lambda: csr @ x, flush)
+    dia_bytes = (len(offs) + 2) * n * 8
+    nz_bytes = 2 * nnz * 8 + nnz * 8 + n * 8  # values + cols + x, and y
+    bms, by = bound_ms(dia_bytes, 2 * len(offs) * n, torch.float64)
+    nz_ms, _ = bound_ms(nz_bytes, 2 * nnz, torch.float64)
+    log(f"sstruct (i) U of -n 96 96 96 alone [{card}]: {n} rows, {nnz} "
+        f"nonzeros on offsets {offs}; L2 flushed, median of {REPS}: K1 "
+        f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, cuSPARSE CSR "
+        f"{lib_ms * 1e3:.1f} us; bound {bms * 1e3:.1f} us on "
+        f"{dia_bytes / 1e6:.1f} MB of DIA bytes, {nz_ms * 1e3:.1f} us on "
+        f"{nz_bytes / 1e6:.1f} MB of nonzero bytes; max abs err {err:.2e}")
+    del A, U, csr
+    torch.cuda.empty_cache()
+    return {"rows": n, "nnz": nnz, "offsets": list(offs), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "bound_nonzero_bytes_ms": nz_ms,
+            "max_abs_err": err}
+
+
+def phase_sstruct(dev, card, flush):
+    """Phase 18: the sstruct interface (module docstring)."""
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    ucase = sstruct_u_case(dev, flush, card)
+    log(f"sstruct (i): {time.perf_counter() - t:.1f} s")
+    runs = {}
+    for label in SSTRUCT96:
+        t = time.perf_counter()
+        runs[label] = sstruct_line(label, dev, card)
+        runs[label]["wall_s"] = time.perf_counter() - t
+        log(f"sstruct {label}: {runs[label]['wall_s']:.1f} s")
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    small = {sid: sstruct_card_vs_cpu(f"-n {n} {n} {n} -solver {sid}", card)
+             for sid, n in SSTRUCT24.items()}
+    log(f"sstruct (e) card vs CPU: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    infiles = sstruct_infiles(card)
+    log(f"sstruct (f) -in card vs CPU: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    maxwell = sstruct_maxwell(card)
+    log(f"sstruct (g) Maxwell: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    fac = sstruct_fac(card)
+    log(f"sstruct (h) FAC: {time.perf_counter() - t:.1f} s")
+    total = {name: 0 for name in read_counts()}
+    for group in (runs, small, infiles, maxwell):
+        for v in group.values():
+            for name in total:
+                total[name] += v["launches"][name]
+    log(f"sstruct launches, lines (a)-(g): {total}")
+    log(f"the sstruct phase took {time.perf_counter() - t0:.1f} s")
+    return {"lines": runs, "card_vs_cpu_24": small, "infiles": infiles,
+            "maxwell": maxwell, "fac": fac, "u_matvec": ucase}, total
 
 
 def counted_wrappers():
@@ -5074,8 +5796,14 @@ def main() -> int:
     # -- 17. the struct interface -------------------------------------------
     struct, struct_total = phase_struct(dev, card, struct_matvec)
 
+    # -- 18. the sstruct interface ------------------------------------------
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    sstruct, sstruct_total = phase_sstruct(dev, card, flush)
+    del flush
+
     # `launches` counts the two f64 96^3 runs, the plain path's and the
-    # lattice path's, phase 16's lines (a)-(h) and phase 17's (a)-(e),
+    # lattice path's, phase 16's lines (a)-(h), phase 17's (a)-(e) and
+    # phase 18's (a)-(g),
     # each driven with the counts at 0 just before and read just after;
     # "per" says what the times cover
     def entry(name, source, replaces, err, ms, plain_ms, lib_ms, bms, by,
@@ -5083,7 +5811,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": (path64[name] + lat64[name] + family_total[name]
-                             + struct_total[name]),
+                             + struct_total[name] + sstruct_total[name]),
                 "path_launches": {"plain f64": path64[name],
                                   "lattice f64": lat64[name],
                                   "plain f32/bf16": path32[name],
@@ -5104,7 +5832,8 @@ def main() -> int:
                                   **{f"ij {k}": v["launches"][name]
                                      for k, v in ij_runs.items()},
                                   "family": family_total[name],
-                                  "struct": struct_total[name]},
+                                  "struct": struct_total[name],
+                                  "sstruct": sstruct_total[name]},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -5199,7 +5928,8 @@ def main() -> int:
         "source": "hypre_tpu_torch/csrc/gs_sweep.cu",
         "replaces": "hypre_tpu/solvers/amg/relax.py:174",
         "tpu_form": "lax.scan over the wavefronts, no Pallas kernel",
-        "launches": gs64["launches"]["gs_sweep"] + family_total["gs_sweep"],
+        "launches": (gs64["launches"]["gs_sweep"] + family_total["gs_sweep"]
+                     + sstruct_total["gs_sweep"]),
         "path_launches": {**{k: v["launches"]["gs_sweep"]
                              for k, v in gs_runs.items()},
                           **{f"cycles {k}": v["launches"]["gs_sweep"]
@@ -5210,7 +5940,8 @@ def main() -> int:
                              for k, v in ds.items()},
                           **{f"ij {k}": v["launches"]["gs_sweep"]
                              for k, v in ij_runs.items()},
-                          "family": family_total["gs_sweep"]},
+                          "family": family_total["gs_sweep"],
+                          "sstruct": sstruct_total["gs_sweep"]},
         "syncfree_launches": {k: v["syncfree_launches"]
                               for k, v in gs_runs.items() if k.startswith("gs")},
         "max_abs_err": gs_err, "ms": gs_tot[0], "earlier_ms": gs_tot[1],
@@ -5238,7 +5969,7 @@ def main() -> int:
                     "systems_24": systems24, "ij": ij_runs,
                     "ij_assembly": ij_asm, "ij_24": ij_small,
                     "family": family, "family_small": family_small,
-                    "struct": struct}))
+                    "struct": struct, "sstruct": sstruct}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

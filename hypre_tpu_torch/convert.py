@@ -1,5 +1,5 @@
-"""Carry a frozen hierarchy, and the struct interface's objects, from the
-JAX package into the port.
+"""Carry a frozen hierarchy, and the struct and sstruct interfaces'
+objects, from the JAX package into the port.
 
 `levels_from_numpy` takes hypre_tpu's frozen AMGLevels with every leaf
 already a numpy array (e.g. `jax.tree.map(np.asarray, levels)`) and
@@ -40,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.csr import ELLMatrix
+from .ops.csr import CSRMatrix, ELLMatrix
 from .ops.dia import (DenseMatrix, DIAMatrix, DIAWithTail, GatherOp,
                       ParityInterpOp, ParityRestrictOp, ScatterOp, on_cells,
                       split_interp_tail, tail_on_rows)
@@ -49,7 +49,10 @@ from .solvers.amg.euclid import EuclidData
 from .solvers.amg.parasails import ParaSailsData
 from .solvers.amg.relax import ChebyData, GSSchedule
 from .solvers.amg.schwarz import SchwarzData
+from .sstruct.grid import SStructGrid, VarType
+from .sstruct.matrix import SStructMatrix
 from .struct.box import Box
+from .struct.grid import StructGrid
 from .struct.matrix import StructMatrix
 from .struct.multibox import MultiBoxGrid, MultiBoxVector
 
@@ -221,3 +224,35 @@ def multibox_vector_from(V, device, grid: MultiBoxGrid | None = None
     grid = multibox_grid_from(V.grid) if grid is None else grid
     return MultiBoxVector(grid, {i: _tensor(np.asarray(a), device)
                                  for i, a in V.arrays.items()})
+
+
+def sstruct_grid_from(G) -> SStructGrid:
+    """The port's SStructGrid of hypre_tpu's (its StructGrids' shapes and
+    periodicity, its variable types by value)."""
+    return SStructGrid(
+        parts=tuple(tuple(StructGrid(tuple(int(v) for v in g.shape),
+                                     tuple(int(v) for v in g.periodic))
+                          for g in pv) for pv in G.parts),
+        var_types=tuple(tuple(VarType(t.value) for t in pv)
+                        for pv in G.var_types))
+
+
+def sstruct_matrix_from_numpy(A, device) -> SStructMatrix:
+    """The port's SStructMatrix on `device` from hypre_tpu's: each S
+    block through `struct_matrix_from_numpy`, U from its host CSR (frozen
+    by the port's `freeze_auto`, as the JAX package froze its own)."""
+    U = A.u_host
+    return SStructMatrix(
+        sstruct_grid_from(A.grid),
+        {k: struct_matrix_from_numpy(sm, device) for k, sm in A.smats.items()},
+        None if U is None else CSRMatrix(np.asarray(U.indptr),
+                                         np.asarray(U.indices),
+                                         np.asarray(U.data), U.shape),
+        device=device)
+
+
+def sstruct_vector_from(x, device) -> tuple:
+    """An sstruct vector (nested tuples [part][var]) of hypre_tpu's as
+    tensors on `device`."""
+    return tuple(tuple(_tensor(np.asarray(v), device) for v in pv)
+                 for pv in x)

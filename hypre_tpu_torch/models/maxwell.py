@@ -9,8 +9,9 @@ Unknowns: edges of an (nx+1)x(ny+1)x(nz+1) node lattice (x-, y-,
 z-directed), nodes for the gradient space, faces for the curl.
 A = alpha * C^T C + beta * M_e  (curl-curl plus lumped edge mass).
 Host numpy / scipy, line for line the JAX package's, so both build the
-same matrices bit for bit.  The part-local curl-curl operators of the
-multi-part sstruct Maxwell solver are not ported yet.
+same matrices bit for bit; with the part-local curl-curl operators of
+the multi-part sstruct Maxwell solver (`curlcurl_matrix_part`,
+`curlcurl_matrix_part_weighted`).
 """
 
 from __future__ import annotations
@@ -119,6 +120,81 @@ def curlcurl_matrix(nx, ny, nz, alpha=1.0, beta=1.0, h=1.0):
     G, C, coords, ne = edge_structure(nx, ny, nz, h)
     Cs = C.to_scipy()
     A = alpha * (Cs.T @ Cs) + beta * sp.eye(ne)
+    A = A.tocsr()
+    A.sort_indices()
+    return CSRMatrix.from_scipy(A), G, coords
+
+
+def curlcurl_matrix_part(shape, origin, global_shape, alpha=1.0,
+                         beta=1.0, h=1.0):
+    """Part-local curl-curl contribution with OWNERSHIP weighting.
+
+    Parts tiling a global box share the faces and edges on their
+    interfaces; summing naive per-part operators through the shared-DOF
+    maps (sstruct/shared_dof.py) would double-count them.  Ownership
+    assigns every face/edge to exactly one part -- the part whose
+    half-open cell box contains its anchor cell (node-aligned axes
+    clamp to the global cell range, so global-boundary objects belong
+    to the last part touching them).  Then
+        sum_p S_p^T A_p S_p == curlcurl_matrix(global_shape)
+    EXACTLY (the FEM-subassembly identity the reference's shared-DOF
+    layer maintains across ranks; maxwell_TV_setup.c assembles the
+    parallel edge system the same way).
+    """
+    nx, ny, nz = shape
+    G, C, coords, ne = edge_structure(nx, ny, nz, h)
+    NS = (nx + 1, ny + 1, nz + 1)
+
+    def own_weights(shapes_reduce):
+        """shapes_reduce: per direction d, which axes are cell-aligned
+        (reduced by 1)."""
+        ws = []
+        for d in range(3):
+            lat = list(NS)
+            cell_axes = shapes_reduce(d)
+            for ax in cell_axes:
+                lat[ax] -= 1
+            idx = np.indices(lat)
+            own = np.ones(lat, dtype=bool)
+            for ax in range(3):
+                g = idx[ax] + origin[ax]
+                if ax in cell_axes:
+                    anchor = g
+                else:
+                    anchor = np.minimum(g, global_shape[ax] - 1)
+                own &= (anchor >= origin[ax]) & (
+                    anchor < origin[ax] + shape[ax]
+                )
+            ws.append(own.ravel())
+        return np.concatenate(ws).astype(np.float64)
+
+    # faces normal to d are cell-aligned on the two other axes
+    wf = own_weights(lambda d: [x for x in range(3) if x != d])
+    # direction-d edges are cell-aligned on d only
+    we = own_weights(lambda d: [d])
+    Cs = C.to_scipy()
+    A = alpha * (Cs.T @ sp.diags(wf) @ Cs) + beta * sp.diags(we)
+    A = A.tocsr()
+    A.sort_indices()
+    return CSRMatrix.from_scipy(A), G, coords
+
+
+def curlcurl_matrix_part_weighted(shape, wf, we, alpha=1.0, beta=1.0,
+                                  h=1.0):
+    """Part-local curl-curl with CALLER-SUPPLIED face/edge weights:
+    A_p = alpha C^T diag(wf) C + beta diag(we).
+
+    With wf/we = 1/multiplicity in the global frame
+    (sstruct/shared_dof.py partition_of_unity_weights), the signed
+    subassembly over arbitrarily ORIENTED parts reproduces
+    curlcurl_matrix(global) exactly — the orientation-agnostic
+    generalization of curlcurl_matrix_part's ownership weighting
+    (reference: maxwell_TV_setup.c parallel assembly +
+    maxwell_PNedelec.c transformed-part handling)."""
+    G, C, coords, ne = edge_structure(*shape, h)
+    Cs = C.to_scipy()
+    A = alpha * (Cs.T @ sp.diags(np.asarray(wf, np.float64)) @ Cs) \
+        + beta * sp.diags(np.asarray(we, np.float64))
     A = A.tocsr()
     A.sort_indices()
     return CSRMatrix.from_scipy(A), G, coords

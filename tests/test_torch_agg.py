@@ -35,6 +35,7 @@ from hypre_tpu_torch.ops import spmv
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.amg import boomeramg as port_boomeramg
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 SLICE = dict(coarsen_type="pmis", interp_type="ext+i", P_max_elmts=4,
              relax_down=18, relax_up=18, embed_level1=False,

@@ -30,6 +30,7 @@ from hypre_tpu_torch.models import difconv_7pt
 from hypre_tpu_torch.ops import dia as port_dia
 from hypre_tpu_torch.ops import spmv
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+from torch_threads import one_thread  # noqa: F401
 
 PLAIN = dict(embed_level1=False, relocate_level2=False, collapse_coarse_n=0)
 # the JAX package's AIR setting (tests/test_amg.py:364)

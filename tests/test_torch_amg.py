@@ -27,6 +27,7 @@ from hypre_tpu_torch.ops import spmv
 from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 NX = 24
 # JAX package on the CPU, collapse_coarse_n=0, PCG two-norm, tol 1e-6,

@@ -26,6 +26,7 @@ from hypre_tpu_torch.solvers.amg import (AMGDD, AMGDDDevice, AMGDDOptions,
 from hypre_tpu_torch.solvers.amg.amgdd import (BatchedELL, batched_gather,
                                                _ell_stack)
 from torch_family import chip_smoke, host, rel, same_csr
+from torch_threads import one_thread  # noqa: F401
 
 # tests/test_amg.py:446-449 (the device test) and :307-309
 CLASSICAL = dict(coarsen_type="pmis", interp_type="classical", P_max_elmts=4,

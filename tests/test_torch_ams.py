@@ -22,6 +22,7 @@ from hypre_tpu_torch.ops.csr import CSRMatrix
 from hypre_tpu_torch.solvers.amg import ads, ame, ams
 from torch_family import (chip_smoke, host, rel, same_csr, same_hierarchy,
                           same_solve)
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shape,h", [((3, 2, 2), 1.0), ((4, 4, 4), 0.5)])

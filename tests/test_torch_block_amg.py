@@ -21,6 +21,7 @@ from hypre_tpu_torch.ops.dia import freeze_auto, spmv
 from hypre_tpu_torch.solvers.amg import block_amg
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
 from torch_family import chip_smoke, host, rel, same_solve
+from torch_threads import one_thread  # noqa: F401
 
 INTERPS = ["direct", "classical", "classical_diag"]
 

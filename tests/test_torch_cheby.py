@@ -26,6 +26,7 @@ from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.amg.relax import (_cheby_std_coefs, cheby_setup,
                                                chebyshev, max_eig_estimate_cg)
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 CHEBY = dict(coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
              relax_down=16, relax_up=16, embed_level1=False,

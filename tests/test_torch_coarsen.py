@@ -22,6 +22,7 @@ from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.amg import coarsen
 from hypre_tpu_torch.solvers.amg.strength import (strength_matrix,
                                                   strength_matrix_abs)
+from torch_threads import one_thread  # noqa: F401
 
 PROBLEMS = {
     "7pt-10": (laplacian_7pt, jax_laplacian_7pt, (10, 10, 10)),

@@ -40,6 +40,7 @@ from hypre_tpu_torch.ops.cell_dense_kernel import (
     cell_dense_cuda, cell_dense_reference)
 from hypre_tpu_torch.ops.forms import epilogue
 from test_torch_gather import TAKE_CASES, take_inputs
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -1117,3 +1118,67 @@ def test_struct_driver_card_matches_cpu(cuda, line):
         rh = driver.run(line.split(), device="cpu")
     assert rc.converged and rc.num_iterations == rh.num_iterations
     assert _rel(rc.x.cpu(), rh.x) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_sstruct_u_runs_k1_on_card(cuda):
+    """The built-in sstruct layout's U (the interface planes, two
+    diagonals) freezes to DIA; one sstruct_matvec launches K1 once and
+    agrees with the CPU's (1e-12)."""
+    from hypre_tpu_torch.drivers.sstruct import build_two_part
+    from hypre_tpu_torch.ops.dia import DIAMatrix
+    from hypre_tpu_torch.sstruct import sstruct_matvec
+    from hypre_tpu_torch.sstruct.vector import pack_vector, unpack_vector
+
+    gc, Ac = build_two_part(24, 24, 24, 3, device=cuda)
+    _, Ah = build_two_part(24, 24, 24, 3, device="cpu")
+    assert isinstance(Ac.umat, DIAMatrix) and Ac.umat.offsets == (-576, 576)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        gc.total_size))
+    dia_spmv_cuda.launches = 0
+    yc = pack_vector(sstruct_matvec(Ac, unpack_vector(x.to(cuda), gc)))
+    assert dia_spmv_cuda.launches == 1
+    yh = pack_vector(sstruct_matvec(Ah, unpack_vector(x, gc)))
+    assert _rel(yc.cpu(), yh) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_sstruct_split_step_card_matches_cpu(cuda):
+    """One Split-PFMG step (the PCG preconditioner of -solver 11) at 24^3
+    a part on the card and on the CPU: within 1e-12, K1 once (the U
+    product)."""
+    from hypre_tpu_torch.drivers.sstruct import build_two_part
+    from hypre_tpu_torch.solvers.krylov.common import tzeros_like
+    from hypre_tpu_torch.solvers.sstruct_ls import SplitOptions, SStructSplit
+    from hypre_tpu_torch.sstruct.vector import full, pack_vector
+
+    steps = []
+    for dev in (cuda, torch.device("cpu")):
+        g, A = build_two_part(24, 24, 24, 3, device=dev)
+        s = SStructSplit(A, SplitOptions(ssolver="pfmg"))
+        b = full(g, 1.0, device=dev)
+        dia_spmv_cuda.launches = 0
+        steps.append(pack_vector(s._step(tzeros_like(b), b)).cpu())
+        if dev.type == "cuda":
+            assert dia_spmv_cuda.launches == 1
+    assert _rel(*steps) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("line", ["-n 12 12 12 -solver 11", "-n 12 12 12 -solver 1",
+                                  "-n 12 12 12 -solver 3", "-n 12 12 12 -solver 18"])
+def test_sstruct_driver_card_matches_cpu(cuda, line):
+    """The sstruct driver on the card and on the CPU: the same count, x
+    within 1e-12 (of max |x|)."""
+    import contextlib
+    import io
+
+    from hypre_tpu_torch.drivers import sstruct as driver
+    from hypre_tpu_torch.solvers.krylov.common import tleaves
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = driver.run(line.split(), device=cuda)
+        rh = driver.run(line.split(), device="cpu")
+    assert rc.converged and rc.num_iterations == rh.num_iterations
+    flat = lambda x: torch.cat([t.reshape(-1) for t in tleaves(x)])  # noqa: E731
+    assert _rel(flat(rc.x).cpu(), flat(rh.x)) <= 1e-12

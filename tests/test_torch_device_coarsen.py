@@ -25,6 +25,7 @@ from hypre_tpu_torch.solvers.amg.device_coarsen import (
     device_pmis, lattice_pmis_host, lcg_states_host, strength_masks_impl)
 from hypre_tpu_torch.solvers.amg.strength import strength_matrix
 from hypre_tpu_torch.utils.lcg import M, lcg_fill
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_lcg_states_match_values_and_jax():

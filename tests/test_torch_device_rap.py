@@ -27,6 +27,7 @@ from hypre_tpu_torch.ops.device_rap import (dia_transpose_device,
 from hypre_tpu_torch.ops.dia import (build_embedded_dia, csr_to_dia,
                                      embedded_offsets)
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+from torch_threads import one_thread  # noqa: F401
 
 PLAIN = dict(coarsen_type="pmis", P_max_elmts=4, relax_down=18,
              relax_up=18, embed_level1=False, relocate_level2=False,

@@ -58,6 +58,7 @@ from hypre_tpu_torch.solvers.amg.interp import classical_interp
 from hypre_tpu_torch.solvers.amg.rap import galerkin_rap, nongalerkin_filter
 from hypre_tpu_torch.solvers.amg.strength import strength_matrix
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 NX = 12
 DTYPES = {"float64": (np.float64, torch.float64),

@@ -24,6 +24,7 @@ from hypre_tpu_torch.ops import CSRMatrix, spmv
 from hypre_tpu_torch.ops.dia import DIAMatrix, csr_to_dia, freeze_auto
 from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, dia_spmv_reference
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+from torch_threads import one_thread  # noqa: F401
 
 
 def banded(n, offsets, seed):

@@ -22,6 +22,7 @@ from hypre_tpu_torch.convert import levels_from_numpy
 from hypre_tpu_torch.ops import CSRMatrix, ELLMatrix, spmv
 from hypre_tpu_torch.ops.ell_kernel import ell_spmv_cuda, ell_spmv_reference
 from hypre_tpu_torch.ops.spmv import ell_spmv
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = {"square": (3000, 3000, 37), "tall": (2000, 700, 4),
           "wide": (700, 2000, 35)}

@@ -10,6 +10,7 @@ import torch
 
 import __graft_entry__
 from hypre_tpu_torch.entry import entry
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_entry_on_cpu_matches_the_jax_entry():

@@ -30,6 +30,7 @@ from hypre_tpu_torch.solvers.amg.interp import (extended_i_interp,
                                                 truncate_interp)
 from hypre_tpu_torch.solvers.amg.strength import strength_matrix
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 PLAIN = dict(coarsen_type="pmis", interp_type="ext+i", P_max_elmts=4,
              relax_down=18, relax_up=18, embed_level1=False,

@@ -36,6 +36,7 @@ from hypre_tpu_torch.ops.dia_kernel import (dia_spmv_cuda, launch_plan,
 from hypre_tpu_torch.ops.ell_kernel import ell_spmv_cuda, slot_lanes
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.amg.relax import jacobi
+from torch_threads import one_thread  # noqa: F401
 
 W = 0.7  # the Jacobi weight
 

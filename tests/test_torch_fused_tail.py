@@ -33,6 +33,7 @@ from hypre_tpu_torch.ops.csr import to_device
 from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, dia_spmv_reference
 from hypre_tpu_torch.ops.forms import epilogue
 from hypre_tpu_torch.ops.tail_kernel import coo_tail_reference
+from torch_threads import one_thread  # noqa: F401
 
 SHAPE, FACTORS = (24, 24, 24), (2, 2, 2)
 N = 24**3

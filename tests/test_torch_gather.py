@@ -16,6 +16,7 @@ from hypre_tpu_torch.ops.gather_kernel import (
     MAX_SHARED_BYTES, flat_plan, flat_take_cuda, flat_take_reference,
     flat_take_tiled, take_along_axis_cuda, take_along_axis_reference,
     take_along_axis_tiled, take_plan)
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture

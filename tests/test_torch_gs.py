@@ -34,6 +34,7 @@ from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.amg.relax import (GSSchedule, build_gs_schedule,
                                                gauss_seidel)
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 SLICE = dict(coarsen_type="pmis", interp_type="classical", P_max_elmts=4)
 

@@ -28,6 +28,7 @@ from hypre_tpu_torch.models import laplacian_7pt
 from hypre_tpu_torch.ops import CSRMatrix
 from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda, gs_sweep_reference
 from hypre_tpu_torch.solvers.amg.relax import build_gs_schedule
+from torch_threads import one_thread  # noqa: F401
 
 W, OMEGA = 0.9, 0.8
 

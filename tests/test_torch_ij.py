@@ -30,6 +30,7 @@ from hypre_tpu_torch.ops.dia import freeze_auto
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
 from hypre_tpu_torch.utils import io as port_io
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

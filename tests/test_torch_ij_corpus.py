@@ -6,6 +6,7 @@ tests/torch_ij_runs.py says what is held."""
 import pytest
 
 from torch_ij_runs import assert_jax_matches_pin, assert_port_matches_pin
+from torch_threads import one_thread  # noqa: F401
 
 CORPUS = [
     "-rhsrand -n 15 15 10 -interptype 0 -Pmx 0 -cljp -27pt",

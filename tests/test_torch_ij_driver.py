@@ -9,6 +9,7 @@ import pytest
 
 from torch_ij_runs import (assert_jax_matches_pin, assert_port_matches_live_jax,
                            assert_port_matches_pin)
+from torch_threads import one_thread  # noqa: F401
 
 # CGNR stops at 20 iterations unconverged (the hypre error line)
 LINES = {s: f"-n 8 8 8 -solver {s}" for s in (0, 1, 2, 3, 4, 9, 10, 16, 20,

@@ -18,6 +18,7 @@ from hypre_tpu.ops.dia import freeze_auto, spmv
 from hypre_tpu.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu.solvers.amg.hybrid import AMGHybrid, AMGHybridOptions
 from hypre_tpu.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 N = 96
 OFF = dict(embed_level1=False, relocate_level2=False, collapse_coarse_n=0)

@@ -17,6 +17,7 @@ from hypre_tpu.solvers.amg.hybrid import AMGHybridOptions as JaxHybridOptions
 from hypre_tpu_torch.models import difconv_7pt, laplacian_7pt
 from hypre_tpu_torch.solvers.amg import ilu
 from hypre_tpu_torch.solvers.amg.hybrid import AMGHybrid, AMGHybridOptions
+from torch_threads import one_thread  # noqa: F401
 
 PROBLEMS = {"laplacian": (laplacian_7pt, jax_laplacian_7pt),
             "difconv": (difconv_7pt, jax_difconv_7pt)}

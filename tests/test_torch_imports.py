@@ -6,6 +6,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -14,6 +15,7 @@ SLICE_MODULES = [
     "hypre_tpu_torch.convert",
     "hypre_tpu_torch.drivers",
     "hypre_tpu_torch.drivers.ij",
+    "hypre_tpu_torch.drivers.sstruct",
     "hypre_tpu_torch.drivers.struct",
     "hypre_tpu_torch.entry",
     "hypre_tpu_torch.native",
@@ -65,6 +67,12 @@ SLICE_MODULES = [
     "hypre_tpu_torch.solvers.krylov.gmres",
     "hypre_tpu_torch.solvers.krylov.lgmres",
     "hypre_tpu_torch.solvers.krylov.pcg",
+    "hypre_tpu_torch.solvers.sstruct_ls",
+    "hypre_tpu_torch.solvers.sstruct_ls.fac",
+    "hypre_tpu_torch.solvers.sstruct_ls.fac_amr",
+    "hypre_tpu_torch.solvers.sstruct_ls.maxwell",
+    "hypre_tpu_torch.solvers.sstruct_ls.split",
+    "hypre_tpu_torch.solvers.sstruct_ls.sys_pfmg",
     "hypre_tpu_torch.solvers.struct_ls",
     "hypre_tpu_torch.solvers.struct_ls.cyclic_reduction",
     "hypre_tpu_torch.solvers.struct_ls.hybrid",
@@ -74,6 +82,14 @@ SLICE_MODULES = [
     "hypre_tpu_torch.solvers.struct_ls.smg",
     "hypre_tpu_torch.solvers.struct_ls.smg_plane",
     "hypre_tpu_torch.solvers.struct_ls.sparse_msg",
+    "hypre_tpu_torch.sstruct",
+    "hypre_tpu_torch.sstruct.assemble",
+    "hypre_tpu_torch.sstruct.grid",
+    "hypre_tpu_torch.sstruct.infile",
+    "hypre_tpu_torch.sstruct.matrix",
+    "hypre_tpu_torch.sstruct.neighbors",
+    "hypre_tpu_torch.sstruct.shared_dof",
+    "hypre_tpu_torch.sstruct.vector",
     "hypre_tpu_torch.struct",
     "hypre_tpu_torch.struct.box",
     "hypre_tpu_torch.struct.grid",

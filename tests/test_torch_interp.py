@@ -27,6 +27,7 @@ from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.amg import coarsen, interp
 from hypre_tpu_torch.solvers.amg.strength import (second_strength,
                                                   strength_matrix)
+from torch_threads import one_thread  # noqa: F401
 
 PROBLEMS = {
     "7pt-10": (laplacian_7pt, jax_laplacian_7pt, (10, 10, 10)),

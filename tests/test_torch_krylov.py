@@ -18,6 +18,7 @@ from hypre_tpu.solvers.krylov import PCGOptions as JaxPCGOptions
 from hypre_tpu.solvers.krylov import pcg as jax_pcg
 from hypre_tpu_torch.models import laplacian_7pt
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 CASES = {
     "energy": dict(tol=1e-8),

@@ -31,6 +31,7 @@ from hypre_tpu_torch.ops import blas1, freeze_auto, spmv
 from hypre_tpu_torch.ops.csr import CSRMatrix
 from hypre_tpu_torch.solvers import krylov as pk
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+from torch_threads import one_thread  # noqa: F401
 
 NX = 10
 AMG = dict(coarsen_type="pmis", interp_type="ext+i", P_max_elmts=4,

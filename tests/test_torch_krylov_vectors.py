@@ -31,6 +31,7 @@ from hypre_tpu.struct import struct_matvec as jax_struct_matvec
 from hypre_tpu_torch.solvers import krylov as pk
 from hypre_tpu_torch.solvers.krylov import common
 from hypre_tpu_torch.struct import StructGrid, StructMatrix, struct_matvec
+from torch_threads import one_thread  # noqa: F401
 
 SHAPE = (6, 5, 4)
 NU = 7  # the flat part's length

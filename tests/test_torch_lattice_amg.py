@@ -42,6 +42,7 @@ from hypre_tpu_torch.ops.gather_kernel import flat_take_cuda
 from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 NX = 24
 COMMON = dict(coarsen_type="pmis", interp_type="classical", P_max_elmts=4,

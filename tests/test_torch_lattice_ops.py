@@ -26,6 +26,7 @@ from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, offset_lanes
 from hypre_tpu_torch.ops.forms import epilogue
 from hypre_tpu_torch.ops.gather_kernel import flat_take_cuda
 from hypre_tpu_torch.ops.tail_kernel import coo_tail_cuda
+from torch_threads import one_thread  # noqa: F401
 
 # (matrix dtype, vector dtype, jax vector dtype, tolerance)
 DTYPES = {

@@ -24,6 +24,7 @@ from hypre_tpu_torch.models import laplacian_5pt_2d, laplacian_7pt
 from hypre_tpu_torch.ops import freeze_auto, spmv
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.eigen import LOBPCGOptions, lobpcg
+from torch_threads import one_thread  # noqa: F401
 
 
 def columns(apply):

@@ -9,6 +9,7 @@ import pytest
 
 from hypre_tpu.models import maxwell as jax_maxwell
 from hypre_tpu_torch.models import maxwell
+from torch_threads import one_thread  # noqa: F401
 
 
 def same_csr(a, b):

@@ -21,6 +21,7 @@ from hypre_tpu_torch.ops.dia import spmv
 from hypre_tpu_torch.solvers.amg import mgr
 from torch_family import (chip_smoke, host, rel, same_csr, same_dense,
                           same_hierarchy, same_solve)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _case(kind, nx, opts, split=2):

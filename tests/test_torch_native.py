@@ -16,6 +16,7 @@ import pytest
 import hypre_tpu_torch
 from hypre_tpu_torch.models import laplacian_7pt
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_C = os.path.join(REPO, "hypre_tpu_torch", "csrc", "host_kernels.c")

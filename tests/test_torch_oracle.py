@@ -16,6 +16,7 @@ from hypre_tpu_torch.models import laplacian_7pt
 from hypre_tpu_torch.ops import spmv
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 ORACLE_F64 = {48: 20, 96: 25}
 JAX_F32_BF16 = {48: 18, 96: 21}

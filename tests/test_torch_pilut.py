@@ -20,6 +20,7 @@ from hypre_tpu_torch.ops.dia import freeze_auto, spmv
 from hypre_tpu_torch.solvers.amg import pilut
 from hypre_tpu_torch.solvers.krylov import GMRESOptions, gmres
 from torch_family import chip_smoke, host, rel, same_csr, same_dense, same_solve
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("kind", ["laplacian", "difconv"])

@@ -22,6 +22,7 @@ from hypre_tpu_torch.solvers.amg import smoothed_aggregation as sa
 from hypre_tpu_torch.solvers.amg.strength import strength_matrix
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
 from torch_family import chip_smoke, host, rel, same_dense, same_solve
+from torch_threads import one_thread  # noqa: F401
 
 PROBLEMS = {"laplacian": (pm.laplacian_7pt, jm.laplacian_7pt),
             "difconv": (pm.difconv_7pt, jm.difconv_7pt)}

@@ -12,6 +12,7 @@ from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.amg.coarsen import pmis_coarsen
 from hypre_tpu_torch.solvers.amg.strength import strength_matrix
 from hypre_tpu_torch.utils.lcg import HypreLCG, lcg_fill
+from torch_threads import one_thread  # noqa: F401
 
 SLICE = dict(coarsen_type="pmis", interp_type="classical", P_max_elmts=4,
              relax_down=18, relax_up=18, embed_level1=False,

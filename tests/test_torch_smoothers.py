@@ -33,6 +33,7 @@ from hypre_tpu_torch.ops.dia import freeze_auto
 from hypre_tpu_torch.solvers.amg import BoomerAMG, BoomerAMGOptions
 from hypre_tpu_torch.solvers.amg import euclid, parasails, schwarz
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 N = 8
 

@@ -31,6 +31,7 @@ from hypre_tpu_torch.struct import (StructGrid, StructMatrix, box,
                                     struct_inner_prod, struct_matvec)
 from hypre_tpu_torch.struct import multibox as mb
 from hypre_tpu_torch.struct.matrix import shift
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-12
 OFFS7 = [(0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),

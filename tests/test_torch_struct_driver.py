@@ -27,6 +27,7 @@ import pytest
 
 from hypre_tpu.drivers import struct as jax_driver
 from hypre_tpu_torch.drivers import struct as port_driver
+from torch_threads import one_thread  # noqa: F401
 
 # line -> (iterations, final relative residual, ||x||_2) of the JAX driver
 JAX_RUNS = {

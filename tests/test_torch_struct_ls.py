@@ -39,6 +39,7 @@ from hypre_tpu_torch.solvers import struct_ls as tls
 from hypre_tpu_torch.solvers.struct_ls.cyclic_reduction import (
     CyclicReduction, pcr_solve_batched)
 from hypre_tpu_torch.struct import StructGrid, StructMatrix
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-12
 

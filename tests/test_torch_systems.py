@@ -38,6 +38,7 @@ from hypre_tpu_torch.solvers.amg.interp import interp_vec_modify
 from hypre_tpu_torch.solvers.amg.rap import offset_budget_filter
 from hypre_tpu_torch.solvers.amg.strength import create_nodal_A, gsmg_strength
 from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+from torch_threads import one_thread  # noqa: F401
 
 PLAIN = dict(embed_level1=False, relocate_level2=False, collapse_coarse_n=0)
 # the bench protocol on the plain forms, and the hypre oracle's systems

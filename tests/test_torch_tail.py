@@ -21,6 +21,7 @@ from hypre_tpu_torch.ops import dia as tdia
 from hypre_tpu_torch.ops.csr import to_device
 from hypre_tpu_torch.ops.tail_kernel import (coo_tail, coo_tail_cuda,
                                              coo_tail_reference)
+from torch_threads import one_thread  # noqa: F401
 
 # (storage dtype of vals, torch vector dtype, numpy vector dtype, jax
 # vector dtype, tolerance against the JAX package)
