@@ -98,7 +98,7 @@ Phases (any failure raises and the script exits non-zero):
      bitwise lattice_pmis_host's, P0 and level-1 A against the same
      chain on the CPU (f64 within 1e-14, f32 4 ulp); the solve's median
      of 10, device busy and kernels an iteration; setup by phase (DS_*)
-     and time to a first solution, medians of 2 (DS_ROUNDS), in turns
+     and time to a first solution, one round (DS_ROUNDS), in turns
      with the host setup and the plain path.
  12. the cycle options and the coarsening family at 96^3, each through
      the user's entry points with the counts at 0 before and read
@@ -109,7 +109,7 @@ Phases (any failure raises and the script exits non-zero):
      package's counts (CYCLES96; f32/bf16 within one), a right
      solution, launches exactly `cycle_launches` x the cycles plus
      PCG's matvecs, with the statistics, the setup by phase, the
-     solve's median of 5 and device busy; every operator of the
+     solve's median of 3 and device busy; every operator of the
      lattice W hierarchy held against its plain version; at 24^3 CLJP,
      Falgout, CGC, CR, strength_abs, seq_threshold 150 and SolveT card
      against CPU (the same counts, residuals within 1e-10).
@@ -118,7 +118,7 @@ Phases (any failure raises and the script exits non-zero):
      level in the multipass form (f64 and f32/bf16/ngt 0.02), the
      two-stage form and MFEM's CPU default (HMIS, relax 8), each as in
      12 (AGG96: the JAX package's counts, launches exactly, statistics,
-     setup by phase, median of 5, device busy), every operator of the
+     setup by phase, median of 3, device busy), every operator of the
      f64 multipass hierarchy held against its plain version; at 24^3
      card against CPU standard, standard-sep, ff, ff1, ext, direct and
      multipass interpolation, post_interp_type 1, num_paths 2 with
@@ -149,7 +149,7 @@ Phases (any failure raises and the script exits non-zero):
      counts at 0 before and read after: (a) the oracle line at 96^3
      (IJ96_ORACLE: exactly 25 iterations, the true residual, the
      complexity lines the JAX driver prints, launches exactly as the
-     hierarchy says, the lattice forms engaged; median of 5, busy);
+     hierarchy says, the lattice forms engaged; median of 3, busy);
      (f) that hierarchy saved (utils/io.py), loaded on the card, solved
      again: the same count and x bitwise; (b) AMG hybrid (-solver 20
      -rlx 18: the JAX package's DS-PCG and AMG-PCG counts, launches
@@ -170,7 +170,7 @@ Phases (any failure raises and the script exits non-zero):
      against the plain versions; (c) MGR-FlexGMRES on the 48^3 two-
      function systems Laplacian, function 1 C, with MGROptions() and
      with block-Jacobi interpolation / restriction, AMG F-relaxation and
-     the Galerkin coarse grid; (d) AMS-PCG on the 64^3 curl-curl edge
+     the Galerkin coarse grid; (d) AMS-PCG on the 48^3 curl-curl edge
      problem; (e) ADS-PCG on the 13^3 div-div face problem; (f) AME on
      the 16^3 curl-curl problem; (g) AMG-DD at 24^3 (8 domains, padding
      2): the host solve, the device cycle in f64 (flat_take) and f32
@@ -192,7 +192,7 @@ Phases (any failure raises and the script exits non-zero):
      each transfer held against its plain version (`hold_ops`) and one
      cycle against the CPU's: each the JAX package's count
      (STRUCT_JAX), the true residual, setup by phase (STRUCT_*), the
-     solve's median of 5 (one timed solve for (d), (e): STRUCT_REPS), one
+     solve's median of 3 (one timed solve for (d), (e): STRUCT_REPS), one
      cycle's device busy, idle and kernels, the seconds of each step;
      (f) solver ids 8, 17-19, 25, 30, 31, 38, 39
      at 24^3 card against CPU (the same count, x within 1e-12); (g) the
@@ -208,10 +208,11 @@ Phases (any failure raises and the script exits non-zero):
  18. the sstruct interface: the port's `sstruct` driver
      (hypre_tpu_torch/drivers/sstruct.py, f64, b = ones, tol 1e-6) on the
      built-in two-part layout with the counts at 0 before and read after:
-     (a) PCG + Split-PFMG, (b) Split-PFMG, (c) SysPFMG, (d) DS-PCG, each
-     at 96^3 a part (1,769,472 unknowns; SysPFMG part 0's block) against
-     the port's CPU count there (SSTRUCT96), (a), (c), (d) also at 48^3
-     against the JAX package's (SSTRUCT_JAX); the true residual, setup by
+     (a) PCG + Split-PFMG, (c) SysPFMG, (d) DS-PCG, each at 96^3 a part
+     (1,769,472 unknowns; SysPFMG part 0's block) against the port's CPU
+     count there (SSTRUCT96), and at 48^3 against the JAX package's
+     (SSTRUCT_JAX); (b) Split-PFMG at 48^3 a part against the JAX
+     package's (its 96^3 line made room for phase 19); the true residual, setup by
      phase, the solve's seconds (medians: SSTRUCT_REPS), one iteration's
      busy / idle / kernels, K1 / ELL launches as the code predicts (the U
      part, a 2-offset DIA matrix, is K1's: once a sstruct_matvec, once a
@@ -224,10 +225,29 @@ Phases (any failure raises and the script exits non-zero):
      AMS), card vs CPU; (h) FAC on build_composite_amr inside GMRES,
      card vs CPU; (i) (a)'s U alone: K1 against its plain version, timed
      beside cuSPARSE and the DIA-bytes and nonzero-bytes bounds.
+ 19. the sharded solver (hypre_tpu_torch/parallel/): 4 shards on the
+     card(s) (shard s on CUDA device s % count; one card holds them all,
+     and a printed line says what that can and cannot show), f64.
+     `entry.dryrun_multichip` with the counts at 0 before and read after:
+     (a) 48^3 l1-Jacobi ext+i, the fine level a ParDIA, the sharded PCG
+     at the serial count and the JAX package's (PAR_JAX); (b) hybrid
+     SSOR (relax 6) at 24^3, two sharded levels, the JAX package's
+     count; (c) the general-CSR setup chain at 12^3, CF and P bitwise at
+     both transitions.  Then (a)'s and (b)'s sharded PCG again, each
+     with the counts at 0 before and read after (the kernels line's
+     `par` launches): launches exactly as `ParAMG.cycle_launches` and
+     the fine products predict, their median of 3 (CUDA events), busy /
+     idle and kernels an iteration, the unsharded solve on the same card
+     beside them; K1, the ELL kernel and gs_sweep each on one shard's
+     operator against its plain version, timed beside its bound and
+     cuSPARSE (K1 also beside the bound of the shard product's kept
+     rows, which its extended operator exceeds);
+     dist_lattice_setup at 48^3 bitwise the serial device chain;
+     IJMatrixSharded at 48^3 equal to from_row_blocks.
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
 the GS family, the device setup chain, the cycle options, aggressive
 coarsening and AIR, the systems phase, the ij phase, the AMG family,
-the struct phase, the sstruct phase),
+the struct phase, the sstruct phase, the sharded phase),
 the kernel report and {"ok": true, ...}.
 """
 
@@ -1584,7 +1604,7 @@ def phase_device_rap(amg, card, label):
     inputs (outputs and scratch, at most 2 GB), and FREEZE (which
     includes DEVICE_RAP) / DEVICE_RAP / COLLAPSE seconds of both
     branches from freezing the same host hierarchy again, once each
-    (phase 11 gives medians of 2 of the whole setup; the hierarchy ends
+    (phase 11 gives one timed round of the whole setup; the hierarchy ends
     frozen with the device RAP)."""
     from hypre_tpu_torch.ops.device_rap import (dia_transpose_device,
                                                 embedded_rap_device)
@@ -1769,7 +1789,7 @@ DS96_F32 = 21
 # the chain's timers (DS_PHASES), then the host setup's and the freeze's
 SETUP_PHASES = DS_PHASES + ("SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP",
                             "FREEZE", "DEVICE_RAP", "COLLAPSE")
-DS_ROUNDS = 2  # setups a path for the medians (3 until phase 18 came)
+DS_ROUNDS = 1  # setups a path (3 until phase 18 came, 2 until phase 19)
 
 
 def ds_options(**kw):
@@ -1872,7 +1892,7 @@ def phase_device_setup(dev, card):
     at 0 just before and read just after: the chain engaged (amg._fast),
     the JAX package's count (DS96_F64 / DS96_F32), a right solution,
     launches exactly as `kernel_launches` says; the chain held against
-    its CPU run (`hold_chain_on_cpu`); the solve's median of 5 warm
+    its CPU run (`hold_chain_on_cpu`); the solve's median of 3 warm
     solves, device busy and kernels an iteration (torch.profiler); then
     setup by phase and time to a first solution (setup + one solve),
     medians of DS_ROUNDS, in turns with the same options with
@@ -2418,7 +2438,7 @@ def statistics(amg) -> dict:
 
 # warm solves timed for a median: 5 keep the whole script well inside
 # its 1,200 s
-MEDIAN_REPS = 5
+MEDIAN_REPS = 3  # 5 until phase 19 came
 
 
 def solve_median_ms(solve, reps: int = MEDIAN_REPS):
@@ -2453,7 +2473,7 @@ def run_cycle(opts, dev, card, label, want, slack, A=None):
     problem, or on the matrix A), the counts set to 0 just before and
     read just after: the JAX package's count, a right solution, launches
     exactly `cycle_launches` x the cycles plus PCG's matvecs; then the
-    statistics, the setup by phase, the solve's median of 5 and one
+    statistics, the setup by phase, the solve's median of 3 and one
     profiled solve.  Returns (amg, numbers)."""
     from hypre_tpu_torch.profile_slice import profile_solve
     from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
@@ -2862,7 +2882,7 @@ def run_krylov(amg, label, name, kw, want, card, A0):
     just before and read just after: the JAX package's count, a right
     solution (the true residual in f64), the operator applications the
     solver's loop predicts and exactly their launches; then the solve's
-    median of 5 and one profiled solve.  Returns the numbers."""
+    median of 3 and one profiled solve.  Returns the numbers."""
     from hypre_tpu_torch.profile_slice import profile_solve
 
     b = torch.ones_like(amg.levels[0].dinv)
@@ -3688,7 +3708,9 @@ MGR_BLK = dict(interp_type="blk_jacobi", restrict_type="blk_jacobi",
 # max_iter 100 (AUX_MGR48_DEFAULT_REL: its final relative residual)
 AUX_MGR48 = {"default": ({}, 100), "blk_jacobi": (MGR_BLK, 19)}
 AUX_MGR48_DEFAULT_REL = 0.11860760775943988
-AUX_AMS64 = (9, True)  # AMS-PCG, curlcurl_matrix(64^3), tol 1e-6: (its, G-space)
+# AMS-PCG, curlcurl_matrix(48^3), tol 1e-6: (its, G-space); 64^3 until
+# phase 19 came (the same (9, True))
+AUX_AMS48 = (9, True)
 AUX_ADS13 = 1  # ADS-PCG, divdiv_matrix(13^3), tol 1e-6
 # AME, curlcurl_matrix(16^3), M = I, AMEOptions(): (iterations, eigenvalues)
 AUX_AME16 = (56, (1.068107601264485, 1.0681076012646722, 1.068107601264822,
@@ -3914,12 +3936,12 @@ def family_mgr(dev, card, label):
 
 
 def family_ams(dev, card):
-    """(d) AMS-PCG on curlcurl_matrix(64^3)."""
+    """(d) AMS-PCG on curlcurl_matrix(48^3)."""
     from hypre_tpu_torch.models import curlcurl_matrix
     from hypre_tpu_torch.ops.dia import kernel_launches
     from hypre_tpu_torch.solvers.amg.ams import AMS
 
-    A, G, coords = curlcurl_matrix(64, 64, 64)
+    A, G, coords = curlcurl_matrix(48, 48, 48)
     zero_counts()
     t0 = time.perf_counter()
     a = AMS(A, G, coords, device=dev)
@@ -3934,11 +3956,11 @@ def family_ams(dev, card):
     expected = expect([(kernel_launches(a._E), calls["A"]),
                        (a.apply_launches(), calls["M"])])
     ms = solve_median_ms(solve, reps=1)[0]
-    want_its, want_g = AUX_AMS64
+    want_its, want_g = AUX_AMS48
     g_space = a._amg_G is not None
     require(g_space == want_g, f"(d) AMS: G-space AMG built {g_space}, the "
                                f"JAX package's {want_g}")
-    out = family_line("(d) AMS-PCG 64^3", card, its, want_its,
+    out = family_line("(d) AMS-PCG 48^3", card, its, want_its,
                       host_rel(A.to_scipy(), b, res.x), setup_s, ms, counts,
                       expected, edges=A.num_rows, g_space_built=g_space,
                       **busy(solve, its))
@@ -4403,7 +4425,7 @@ def phase_family(dev, card):
     line("(b) PILUT 48", family_pilut)
     for label in AUX_MGR48:
         line(f"(c) MGR {label} 48", family_mgr, label)
-    line("(d) AMS 64", family_ams)
+    line("(d) AMS 48", family_ams)
     line("(e) ADS 13", family_ads)
     line("(f) AME 16", family_ame)
     dd_gathers = {}
@@ -4809,10 +4831,14 @@ SSTRUCT_JAX = {
 # are held on the CPU only (the slow test runs the port there as well)
 SSTRUCT_JAX_CARD = ("(a)", "(c)", "(d)")
 # label -> (the 96^3 line, the port's count on a CPU: `python -m
-# hypre_tpu_torch.drivers.sstruct <line> --device cpu`)
+# hypre_tpu_torch.drivers.sstruct <line> --device cpu`); (b) at 48^3,
+# the JAX package's count (SSTRUCT_JAX; the port's CPU count is the
+# same), since phase 19 came: at 96^3 its 200 unconverged Split steps
+# took 12.6-17.1 s a solve and its setup ~12 s (NVIDIA H100 80GB HBM3,
+# 700 W)
 SSTRUCT96 = {
     "(a)": ("-n 96 96 96 -solver 11", 33),
-    "(b)": ("-n 96 96 96 -solver 1", 200),  # max_iter, unconverged
+    "(b)": ("-n 48 48 48 -solver 1", 200),  # max_iter, unconverged
     "(c)": ("-n 96 96 96 -solver 3", 18),
     "(d)": ("-n 96 96 96 -solver 18", 200),  # max_iter, unconverged
 }
@@ -4824,11 +4850,11 @@ SSTRUCT24 = {0: 12, 8: 24, 10: 12, 13: 24, 19: 24}
 SSTRUCT_IN_IDS = (18, 20, 11)  # (f): every text; FAC-AMR 99 on FacParts texts
 SSTRUCT_FAC_ID = 99
 # solves timed again after the driver's own, on what it built
-# (`res.resolve`), for the median: 10 where a solve is under a second, 3
-# where it is seconds of host-bound launches ((a) 2-3 s, (c) ~1 s); (b)'s
-# 200 Split iterations (~17 s a solve) are timed once, by the driver, as
-# the script's 1,200 s leave no room for more
-SSTRUCT_REPS = {"(a)": 3, "(b)": 0, "(c)": 3, "(d)": 10}
+# (`res.resolve`), for the median: 5 where a solve is under a second, one
+# where it is seconds of host-bound launches ((a) 2-3 s, (c) ~1 s on the
+# NVIDIA H100 80GB HBM3 at 700 W; 10 and 3 until phase 19 came); (b)'s 200 Split iterations are timed once, by
+# the driver, as the script's 1,200 s leave no room for more
+SSTRUCT_REPS = {"(a)": 1, "(b)": 0, "(c)": 1, "(d)": 5}
 SSTRUCT_MAX_ITER = 200  # the driver's default; (b) and (d) stop there
 # lines whose whole solve is profiled (kernels and busy per iteration =
 # the solve's / its count): a DS-PCG iteration is ~18 kernels, and a
@@ -5114,8 +5140,9 @@ def drive_checked(label, line, want, dev):
 
 
 def sstruct_line(label, dev, card) -> dict:
-    """One of (a)-(d) at 96^3 (`drive_checked` against the port's CPU
-    count there, SSTRUCT96): setup by phase, the solve's median and one
+    """One of (a)-(d) at its SSTRUCT96 size (`drive_checked` against the
+    count there: the port's CPU count at 96^3, the JAX package's at
+    48^3): setup by phase, the solve's median and one
     profiled iteration; then, for SSTRUCT_JAX_CARD, the line at 48^3
     against the JAX package's count (SSTRUCT_JAX)."""
     from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
@@ -5491,6 +5518,335 @@ def phase_sstruct(dev, card, flush):
             "maxwell": maxwell, "fac": fac, "u_matvec": ucase}, total
 
 
+# -- 19. the sharded solver ----------------------------------------------
+PAR_SHARDS = 4
+# the JAX package's dry run on the CPU at 4 shards, f64 (its legs' code,
+# `python -m pytest -m slow tests/test_torch_par_amg.py -k jax_count`):
+# (a) l1-Jacobi PCG at 48^3 (serial 12 too), (b) hybrid SSOR at 24^3
+PAR_JAX = {"a": 12, "b": 6}
+PAR_SETUP_NX = 48  # dist_lattice_setup and IJMatrixSharded at 48^3
+PAR_CARD_NOTE = (
+    "one card: the shards share it, so this run shows partition "
+    "invariance (the sharded l1-Jacobi count is the serial one), the halo "
+    "plans, the per-shard kernels and the hybrid-GS count at 4 shards; it "
+    "cannot show peer-copy (NVLink) times or any speed-up from more cards")
+
+
+def par_kernels(pamg_a, pamg_b, flush, card) -> dict:
+    """Each kernel of the sharded path on one shard's operator, against
+    its plain version (1e-12 relative, f64), timed beside it, its bound
+    and the cuSPARSE CSR product: K1 on shard 0's extended fine operator
+    of (a), the ELL kernel on shard 0's merged level-1 operator of (a),
+    gs_sweep on shard 0's forward schedule of (b)'s fine level."""
+    from hypre_tpu_torch.ops.dia_kernel import dia_spmv_cuda, dia_spmv_reference
+    from hypre_tpu_torch.ops.ell_kernel import ell_spmv_cuda, ell_spmv_reference
+    from hypre_tpu_torch.ops.gs_kernel import gs_sweep_cuda, gs_sweep_reference
+
+    rng = np.random.default_rng(1919)
+    out = {}
+    D = pamg_a.par_levels[0].A.ext[0]
+    dev = D.data.device
+    x = torch.from_numpy(rng.standard_normal(D.num_rows)).to(dev)
+    E = pamg_a.par_levels[1].A.ell[0]
+    xe = torch.from_numpy(rng.standard_normal(E.num_cols)).to(dev)
+    cases = (
+        ("dia_spmv", f"K1, shard 0 of (a) L0 ({D.num_rows} rows, "
+                     f"{len(D.offsets)} offsets)",
+         lambda: dia_spmv_cuda(D.data, D.offsets, x),
+         lambda: dia_spmv_reference(D.data, D.offsets, x),
+         (len(D.offsets) * 8 + 16) * D.num_rows, 2 * len(D.offsets) * D.num_rows,
+         operator_csr(D, D.num_rows, D.num_rows, torch.float64), x),
+        ("ell_spmv", f"ELL, shard 0 of (a) L1 ({E.num_rows} rows, "
+                     f"{E.data.shape[0]} slots, {E.nnz} entries)",
+         lambda: ell_spmv_cuda(E.data, E.cols, E.row_len, xe),
+         lambda: ell_spmv_reference(E.data, E.cols, xe),
+         E.nnz * 12 + E.num_rows * 12 + E.num_cols * 8, 2 * E.nnz,
+         csr_from_ell(E, torch.float64), xe))
+    for name, label, kern, plain, nbytes, flops, csr, xv in cases:
+        y, y_ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max())
+        rel = err / max(float(y_ref.abs().max()), 1e-300)
+        require(rel <= 1e-12, f"par {label}: disagrees with its plain "
+                              f"version, rel {rel:.3e}")
+        bms, by = bound_ms(nbytes, flops, torch.float64)
+        ms = time_cuda_ms(kern, flush)
+        plain_ms = time_cuda_ms(plain, flush)
+        lib_ms = time_cuda_ms(lambda: csr @ xv, flush)
+        out[name] = {"operator": label, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms}
+        log(f"par kernel [{label}; {card}]: max abs err {err:.3e} (rel "
+            f"{rel:.1e}); {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+            f"cuSPARSE CSR {lib_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us "
+            f"({by})")
+    # the shard product itself, on the rows K1's extended operator keeps:
+    # data of per rows, x of per + 2h, y of per (the bound a K1 that
+    # reads the halo in place, with no extended rows, would have)
+    PD = pamg_a.par_levels[0].A
+    per, h, k = PD.part.rows_per_shard, PD.h, len(D.offsets)
+    kept, kept_by = bound_ms(k * 8 * per + 8 * (per + 2 * h) + 8 * per,
+                             2 * k * per, torch.float64)
+    out["dia_spmv"].update(kept_rows=per, kept_rows_bound_ms=kept,
+                           kept_rows_bound_by=kept_by)
+    log(f"par kernel [K1, shard 0 of (a) L0; {card}]: the shard product on "
+        f"its {per} kept rows of {D.num_rows} ({1 - per / D.num_rows:.1%} "
+        f"of K1's rows discarded) is bound at {kept * 1e3:.2f} us "
+        f"({kept_by}), against {out['dia_spmv']['bound_ms'] * 1e3:.2f} us "
+        f"for K1's extended operator")
+    sched = pamg_b.par_levels[0].gs[(True, False)].scheds[0]
+    err, same = hold_gs(sched, "par shard 0 (b) L0 fwd", torch.float64, 1e-12,
+                        rng, forms=("plain",), grids=(True,))
+    n = sched.n
+    u, f = (torch.from_numpy(rng.standard_normal(n)).to(dev) for _ in range(2))
+    slabs = sched.slabs(dev)
+    m = sched.mat
+    nbytes = (m.indptr.numel() * 4 + m.indices.numel() * 12 + n * 8 * 4
+              + sched.order.numel() * 8)
+    bms, by = bound_ms(nbytes, 2 * m.indices.numel(), torch.float64)
+    ms = time_cuda_ms(lambda: gs_sweep_cuda(sched, u, f), flush)
+    plain_ms = time_cuda_ms(lambda: gs_sweep_reference(slabs, n, u, f), flush)
+    out["gs_sweep"] = {"operator": f"shard 0 of (b) L0, {n} rows, "
+                                   f"{sched.num_wavefronts} wavefronts",
+                       "max_abs_err": err, "bitwise_wavefront": same,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": None}
+    log(f"par kernel [gs_sweep, {out['gs_sweep']['operator']}; {card}]: max "
+        f"abs err {err:.3e}, the wavefront form's bits; {ms * 1e3:.1f} us, "
+        f"plain {plain_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by})")
+    return out
+
+
+def par_solves(label, amg, pamg, b, card) -> dict:
+    """The sharded PCG of a dry-run leg with the counts at 0 before and
+    read after: launches exactly (its + 2) cycles (`ParAMG.cycle_launches`)
+    and its + 1 sharded fine products; then its median and one profiled
+    solve, and the unsharded solve on the same card beside them."""
+    from hypre_tpu_torch.ops import spmv
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+
+    opts = PCGOptions(tol=1e-8, max_iter=40)
+    F = pamg.fine
+
+    def solve():
+        return pcg(F.matvec_fn, b, M=pamg.precond, opts=opts)
+
+    zero_counts()
+    res = solve()
+    got = read_counts()
+    its = res.num_iterations
+    want = {name: 0 for name in got}
+    for name, c in pamg.cycle_launches().items():
+        want[name] += c * (its + 2)
+    for name, c in F.kernel_launches().items():
+        want[name] += c * (its + 1)
+    for d in set(pamg.mesh.devices):
+        require_no_gs_fault(d, f"par ({label}) sharded solve")
+    require(got == want, f"par ({label}): launches {got}, the sharded "
+                         f"hierarchy says {want}")
+    med, lo, hi = solve_median_ms(solve)
+    prof = busy(solve, its, cpu=False)
+    E = amg.levels[0].A
+    dev0 = pamg.mesh.devices[0]
+    bs = torch.cat([blk.to(dev0) for blk in b])[: F.n]
+
+    def serial():
+        return pcg(lambda v: spmv(E, v), bs, M=amg.precond, opts=opts)
+
+    s_its = serial().num_iterations
+    s_med, s_lo, s_hi = solve_median_ms(serial)
+    s_prof = busy(serial, s_its, cpu=False)
+    per_it = {k: v / its for k, v in got.items() if v}
+    out = {"iterations": its, "serial_iterations": s_its,
+           "launches": {k: v for k, v in got.items() if v},
+           "launches_per_iteration": per_it,
+           "solve_median_ms": med, "solve_min_max_ms": [lo, hi],
+           "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+           "kernels_per_iteration": prof["kernels_per_iteration"],
+           "serial": {"solve_median_ms": s_med, "solve_min_max_ms": [s_lo, s_hi],
+                      "busy_ms": s_prof["busy_ms"],
+                      "idle_share": s_prof["idle_share"],
+                      "kernels_per_iteration": s_prof["kernels_per_iteration"]}}
+    log(f"par ({label}) [{card}]: sharded PCG {its} iterations, median of "
+        f"{MEDIAN_REPS} {med:.2f} ms ({lo:.2f}-{hi:.2f}), busy "
+        f"{prof['busy_ms']:.2f} ms, idle {prof['idle_share']:.1%}, "
+        f"{prof['kernels_per_iteration']:.0f} kernels an iteration, launches "
+        f"an iteration { {k: round(v, 2) for k, v in per_it.items()} } "
+        f"(predicted, exactly); unsharded on the same card {s_its} "
+        f"iterations, {s_med:.2f} ms ({s_lo:.2f}-{s_hi:.2f}), busy "
+        f"{s_prof['busy_ms']:.2f} ms, idle {s_prof['idle_share']:.1%}")
+    return out
+
+
+def par_lattice_setup(devices, card) -> dict:
+    """dist_lattice_setup at 48^3 on the shards, the table generated a
+    shard at a time, against the port's serial device chain on shard 0's
+    device: CF, P and the coarse operator bitwise (f64)."""
+    from hypre_tpu_torch.ops.device_setup import (device_classical_interp,
+                                                  device_rap)
+    from hypre_tpu_torch.ops.dia import DIAMatrix
+    from hypre_tpu_torch.parallel import make_mesh
+    from hypre_tpu_torch.parallel.dist_setup import (dist_lattice_setup,
+                                                     local_laplacian_dia_block)
+    from hypre_tpu_torch.solvers.amg.device_coarsen import device_pmis
+
+    nx, S = PAR_SETUP_NX, len(devices)
+    n = nx**3
+    n_loc = n // S
+    mesh = make_mesh(S, devices)
+    blocks, offsets = zip(*(local_laplacian_dia_block(
+        nx, nx, nx, s * n_loc, (s + 1) * n_loc) for s in range(S)))
+    offsets = offsets[0]
+    blocks = [torch.from_numpy(b).to(d) for b, d in zip(blocks, mesh.devices)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cf, P, offs_P, A1, offs_1 = dist_lattice_setup(blocks, offsets, n, mesh,
+                                                    max_elmts=4)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t
+    dev0 = mesh.devices[0]
+    data = torch.cat([b.to(dev0) for b in blocks], dim=1)
+    t = time.perf_counter()
+    scf = device_pmis(data, offsets, n)
+    sP, rowmax = device_classical_interp(data, scf, offsets=offsets,
+                                         trunc_factor=0.0, max_elmts=4)
+    keep = [k for k in range(len(offsets)) if rowmax[k] > 0]
+    soffs_P = tuple(offsets[k] for k in keep)
+    sP = sP[torch.tensor(keep, device=dev0)]
+    sA1, soffs_1 = device_rap(DIAMatrix(sP, soffs_P, n, n),
+                              DIAMatrix(data, offsets, n, n))
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t
+
+    def cat(parts):
+        return torch.cat([p.to(dev0) for p in parts], dim=-1)
+
+    same = (torch.equal(cat(cf), scf) and offs_P == soffs_P
+            and torch.equal(cat(P), sP) and offs_1 == soffs_1
+            and torch.equal(cat(A1), sA1))
+    require(same, "par: dist_lattice_setup is not the serial device chain "
+                  "bit for bit")
+    nc = int((scf > 0).sum())
+    log(f"par dist_lattice_setup [{nx}^3 on {S} shards; {card}]: CF ({nc} "
+        f"C points), P ({len(offs_P)} offsets) and the coarse operator "
+        f"({len(offs_1)} offsets) bitwise the serial device chain; "
+        f"{dist_s:.2f} s sharded, {serial_s:.2f} s serial")
+    return {"rows": n, "coarse_rows": nc, "P_offsets": len(offs_P),
+            "A1_offsets": len(offs_1), "sharded_s": dist_s,
+            "serial_s": serial_s}
+
+
+def par_ij(devices, card) -> dict:
+    """IJMatrixSharded at 48^3: each shard Sets its block's off-diagonal
+    entries and AddTos half of each diagonal, the next shard AddTos the
+    other half (rows it does not own); the assembled ParCSR equals
+    from_row_blocks of the generated rows (every host array, and a
+    product, bitwise)."""
+    from hypre_tpu_torch.models import IJMatrixSharded, laplacian_7pt_row_block
+    from hypre_tpu_torch.parallel import ParCSR, make_mesh
+    from hypre_tpu_torch.parallel.partition import block_partition
+
+    nx, S = PAR_SETUP_NX, len(devices)
+    n = nx**3
+    mesh = make_mesh(S, devices)
+    per = block_partition(n, S).rows_per_shard
+    t = time.perf_counter()
+    ij = IJMatrixSharded(n, n, mesh=mesh)
+    blocks = []
+    for s in range(S):
+        lo, hi = min(s * per, n), min(s * per + per, n)
+        B = laplacian_7pt_row_block(nx, nx, nx, lo, hi).tocoo()
+        blocks.append(B.tocsr())
+        rows = B.row + lo
+        diag = rows == B.col
+        ij.set_values(s, rows[~diag], B.col[~diag], B.data[~diag])
+        ij.add_to_values(s, rows[diag], B.col[diag], B.data[diag] / 2)
+        ij.add_to_values((s + 1) % S, rows[diag], B.col[diag], B.data[diag] / 2)
+    A = ij.assemble()
+    asm_s = time.perf_counter() - t
+    R = ParCSR.from_row_blocks(blocks, (n, n), mesh)
+    same = all(np.array_equal(getattr(A, k), getattr(R, k)) for k in (
+        "diag_cols", "diag_data", "offd_cols", "offd_data", "diag_counts",
+        "offd_counts"))
+    x = np.random.default_rng(48).standard_normal(n)
+    same = same and np.array_equal(A.unpad(A.matvec(A.pad_vec(x))),
+                                   R.unpad(R.matvec(R.pad_vec(x))))
+    require(same, "par: IJMatrixSharded is not from_row_blocks' matrix")
+    log(f"par IJMatrixSharded [{nx}^3 on {S} shards; {card}]: equal to "
+        f"from_row_blocks bit for bit (arrays and a product); assembly "
+        f"{asm_s:.2f} s")
+    return {"rows": n, "assembly_s": asm_s}
+
+
+def phase_par(dev, card, flush):
+    """Phase 19: the sharded solver (module docstring)."""
+    from hypre_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{s % count}" for s in range(PAR_SHARDS)]
+    log(f"par: {PAR_SHARDS} shards on {devices} ({count} card"
+        f"{'s' if count > 1 else ''})")
+    log(f"par: {PAR_CARD_NOTE}" if count == 1 else
+        f"par: the shards spread over {count} cards")
+    seconds = {}
+    zero_counts()
+    t = time.perf_counter()
+    dry = dryrun_multichip(PAR_SHARDS, devices=devices,
+                           log=lambda m: log(f"par {m}"))
+    dry_total = read_counts()
+    seconds["dryrun"] = time.perf_counter() - t
+    for d in set(torch.device(x) for x in devices):
+        require_no_gs_fault(d, "par dry run")
+    require(dry["a"]["iterations"] == dry["a"]["serial_iterations"]
+            == PAR_JAX["a"], f"par (a): {dry['a']['iterations']} iterations "
+                             f"(serial {dry['a']['serial_iterations']}), the "
+                             f"JAX package's {PAR_JAX['a']}")
+    require(dry["b"]["iterations"] == PAR_JAX["b"],
+            f"par (b): {dry['b']['iterations']} iterations, the JAX "
+            f"package's {PAR_JAX['b']}")
+    for name in ("dia_spmv", "ell_spmv", "gs_sweep"):
+        require(dry_total[name] > 0, f"par: the dry run launched no {name}")
+    log(f"par dry run [{card}]: (a) {dry['a']['iterations']} = serial "
+        f"{dry['a']['serial_iterations']} = JAX {PAR_JAX['a']}, (b) "
+        f"{dry['b']['iterations']} = JAX {PAR_JAX['b']}, (c) rows "
+        f"{dry['c']['rows']}; launches (sharded and unsharded solves, "
+        f"setups) {dry_total}; {seconds['dryrun']:.1f} s")
+    solves = {}
+    for leg in ("a", "b"):
+        t = time.perf_counter()
+        solves[leg] = par_solves(leg, *dry["solvers"][leg], card)
+        seconds[f"({leg}) solves"] = time.perf_counter() - t
+    # the sharded path's launches: the two sharded solves, each with the
+    # counts at 0 just before and read just after (par_solves)
+    total = {name: sum(solves[leg]["launches"].get(name, 0)
+                       for leg in solves) for name in dry_total}
+    for name in ("dia_spmv", "ell_spmv", "gs_sweep"):
+        require(total[name] > 0, f"par: the sharded solves launched no "
+                                 f"{name}")
+    log(f"par sharded solves' launches [{card}]: {total}")
+    t = time.perf_counter()
+    kern = par_kernels(dry["solvers"]["a"][1], dry["solvers"]["b"][1], flush,
+                       card)
+    seconds["kernels"] = time.perf_counter() - t
+    legs = {k: dry[k] for k in ("a", "b", "c")}
+    del dry
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    setup = par_lattice_setup(devices, card)
+    seconds["dist_lattice_setup"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ij = par_ij(devices, card)
+    seconds["ij"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    log(f"par seconds { {k: round(v, 1) for k, v in seconds.items()} }")
+    log(f"the sharded phase took {time.perf_counter() - t0:.1f} s")
+    return {"devices": devices, "cards": count, "note": PAR_CARD_NOTE,
+            "dryrun": legs, "dryrun_launches": dry_total, "solves": solves,
+            "kernels": kern,
+            "dist_lattice_setup": setup, "ij": ij, "seconds": seconds}, total
+
+
 def counted_wrappers():
     """{kernel name: its wrapper}; each wrapper's `launches` counts its
     kernel's launches."""
@@ -5799,11 +6155,14 @@ def main() -> int:
     # -- 18. the sstruct interface ------------------------------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     sstruct, sstruct_total = phase_sstruct(dev, card, flush)
+
+    # -- 19. the sharded solver ---------------------------------------------
+    par, par_total = phase_par(dev, card, flush)
     del flush
 
     # `launches` counts the two f64 96^3 runs, the plain path's and the
-    # lattice path's, phase 16's lines (a)-(h), phase 17's (a)-(e) and
-    # phase 18's (a)-(g),
+    # lattice path's, phase 16's lines (a)-(h), phase 17's (a)-(e),
+    # phase 18's (a)-(g) and phase 19's two sharded solves,
     # each driven with the counts at 0 just before and read just after;
     # "per" says what the times cover
     def entry(name, source, replaces, err, ms, plain_ms, lib_ms, bms, by,
@@ -5811,7 +6170,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": (path64[name] + lat64[name] + family_total[name]
-                             + struct_total[name] + sstruct_total[name]),
+                             + struct_total[name] + sstruct_total[name]
+                             + par_total[name]),
                 "path_launches": {"plain f64": path64[name],
                                   "lattice f64": lat64[name],
                                   "plain f32/bf16": path32[name],
@@ -5833,7 +6193,8 @@ def main() -> int:
                                      for k, v in ij_runs.items()},
                                   "family": family_total[name],
                                   "struct": struct_total[name],
-                                  "sstruct": sstruct_total[name]},
+                                  "sstruct": sstruct_total[name],
+                                  "par": par_total[name]},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -5929,7 +6290,7 @@ def main() -> int:
         "replaces": "hypre_tpu/solvers/amg/relax.py:174",
         "tpu_form": "lax.scan over the wavefronts, no Pallas kernel",
         "launches": (gs64["launches"]["gs_sweep"] + family_total["gs_sweep"]
-                     + sstruct_total["gs_sweep"]),
+                     + sstruct_total["gs_sweep"] + par_total["gs_sweep"]),
         "path_launches": {**{k: v["launches"]["gs_sweep"]
                              for k, v in gs_runs.items()},
                           **{f"cycles {k}": v["launches"]["gs_sweep"]
@@ -5941,7 +6302,8 @@ def main() -> int:
                           **{f"ij {k}": v["launches"]["gs_sweep"]
                              for k, v in ij_runs.items()},
                           "family": family_total["gs_sweep"],
-                          "sstruct": sstruct_total["gs_sweep"]},
+                          "sstruct": sstruct_total["gs_sweep"],
+                          "par": par_total["gs_sweep"]},
         "syncfree_launches": {k: v["syncfree_launches"]
                               for k, v in gs_runs.items() if k.startswith("gs")},
         "max_abs_err": gs_err, "ms": gs_tot[0], "earlier_ms": gs_tot[1],
@@ -5969,7 +6331,7 @@ def main() -> int:
                     "systems_24": systems24, "ij": ij_runs,
                     "ij_assembly": ij_asm, "ij_24": ij_small,
                     "family": family, "family_small": family_small,
-                    "struct": struct, "sstruct": sstruct}))
+                    "struct": struct, "sstruct": sstruct, "par": par}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -33,6 +33,11 @@ Layout changes:
     pair as two GS schedules (from their slabs, as above) with its row
     colors; Schwarz's block pinvs as they are, its row map int64 (the
     pads keep the sink n); ParaSails' G / G^T or M as frozen operators.
+  * The sharded solver (parallel/): a HaloPlan's index arrays, a
+    ParCSR's host ELL arrays, counts, col maps and row blocks, and a
+    ParDIA's per-shard table come across as numpy, as they are; the
+    port then lays each shard's operator out on its device of `mesh`
+    (`halo_plan_from_numpy`, `par_csr_from_numpy`, `par_dia_from_numpy`).
 """
 
 from __future__ import annotations
@@ -256,3 +261,59 @@ def sstruct_vector_from(x, device) -> tuple:
     tensors on `device`."""
     return tuple(tuple(_tensor(np.asarray(v), device) for v in pv)
                  for pv in x)
+
+
+def halo_plan_from_numpy(plan):
+    """The port's HaloPlan of hypre_tpu's (its index arrays as numpy)."""
+    from .parallel.halo import HaloPlan
+
+    gids = getattr(plan, "ghost_gids", None)
+    return HaloPlan(
+        send_idx=tuple(np.asarray(a) for a in plan.send_idx),
+        recv_pos=tuple(np.asarray(a) for a in plan.recv_pos),
+        offsets=tuple(int(d) for d in plan.offsets),
+        ghost_width=int(plan.ghost_width),
+        use_allgather=bool(plan.use_allgather), n_shards=int(plan.n_shards),
+        ghost_gids=None if gids is None else np.asarray(gids))
+
+
+def par_csr_from_numpy(P, mesh):
+    """The port's ParCSR of hypre_tpu's, its shards on `mesh`'s devices:
+    the host arrays carried, each shard's merged ELL operator built from
+    them (parallel/par_csr.py)."""
+    from .parallel.par_csr import ParCSR
+    from .parallel.partition import BlockPartition
+
+    def part(p):
+        return BlockPartition(int(p.n_global), int(p.n_shards),
+                              int(p.rows_per_shard))
+
+    out = ParCSR.__new__(ParCSR)
+    out.mesh, out.axis = mesh, mesh.axis
+    out.n, out.m = int(P.n), int(P.m)
+    out.part, out.col_part = part(P.part), part(P.col_part)
+    out.host_blocks = list(P.host_blocks)
+    out.col_maps = [np.asarray(c) for c in P.col_maps]
+    out.plan = halo_plan_from_numpy(P.plan)
+    for k in ("diag_cols", "diag_data", "offd_cols", "offd_data"):
+        setattr(out, k, np.array(getattr(P, k)))
+    out.diag_counts = np.array(P.diag_counts)
+    out.offd_counts = np.array(P.offd_counts)
+    out._place()
+    return out
+
+
+def par_dia_from_numpy(P, mesh):
+    """The port's ParDIA of hypre_tpu's (its [S, noff, per] table)."""
+    from .parallel.par_dia import ParDIA
+    from .parallel.partition import block_partition
+
+    out = ParDIA.__new__(ParDIA)
+    out.mesh, out.axis = mesh, mesh.axis
+    out.n = out.m = int(P.n)
+    out.offsets = tuple(int(o) for o in P.offsets)
+    out.part = out.col_part = block_partition(out.n, mesh.size)
+    out.halo = int(P.halo)
+    out.data = np.array(P.data)
+    out._place()
+    return out

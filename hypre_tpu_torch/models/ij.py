@@ -10,8 +10,8 @@ Adds discards them; Adds after a Set accumulate on top of it.
 `IJMatrix` is the host accumulator (the aux_parcsr_matrix.c analog),
 numpy sorts instead of per-row dynamic arrays, as in the JAX package.
 `IJMatrixDevice` resolves the same streams on a torch device
-(`ij_assemble_device`).  The sharded assembly (IJMatrixSharded) waits
-for the port's multi-GPU work.
+(`ij_assemble_device`).  `IJMatrixSharded` assembles a row-sharded
+ParCSR (parallel/par_csr.py) from per-shard call queues.
 """
 
 from __future__ import annotations
@@ -187,3 +187,60 @@ class IJMatrixDevice(IJMatrix):
             ur.cpu().numpy(), uc.cpu().numpy(), uv.cpu().numpy(), self.shape
         )
         return self._assembled
+
+
+class IJMatrixSharded:
+    """Distributed IJ assembly (IJMatrix_parcsr.c:2774
+    hypre_IJMatrixAssembleParCSR): each shard queues Set / AddTo calls,
+    rows it does not own included; Assemble ships the queues to the
+    owning shards (the MPI exchange), resolves set-wins-then-add per
+    owner and builds the row-sharded ParCSR from the per-shard blocks
+    (no global matrix image).
+
+    The reference leaves the cross-rank order of Sets to MPI arrival;
+    here contributions resolve in a fixed total order, the JAX
+    package's: by owner, then source shard, then call order, so
+    re-assembly repeats bitwise."""
+
+    def __init__(self, nrows: int, ncols: int, mesh=None, axis=None):
+        from ..parallel.mesh import AXIS, default_mesh
+        from ..parallel.partition import block_partition
+
+        self.shape = (int(nrows), int(ncols))
+        self.mesh = mesh or default_mesh()
+        self.axis = axis or AXIS
+        self.S = self.mesh.shape[self.axis]
+        self.part = block_partition(nrows, self.S)
+        self._bufs = [IJMatrix(nrows, ncols) for _ in range(self.S)]
+
+    def set_values(self, shard: int, rows, cols, values):
+        self._bufs[shard].set_values(rows, cols, values)
+
+    def add_to_values(self, shard: int, rows, cols, values):
+        self._bufs[shard].add_to_values(rows, cols, values)
+
+    def assemble(self):
+        from ..parallel.par_csr import ParCSR
+
+        nrows, ncols = self.shape
+        per = self.part.rows_per_shard
+        # the exchange: owner o receives every source shard's entries
+        # for its rows, in (source shard, call order) order
+        owners_bufs = [IJMatrix(nrows, ncols) for _ in range(self.S)]
+        for s in range(self.S):
+            b = self._bufs[s]
+            for rows, cols, vals, isset in zip(b._rows, b._cols, b._vals,
+                                               b._isset):
+                own = self.part.owner(rows)
+                for o in np.unique(own):
+                    m = own == o
+                    owners_bufs[int(o)]._push(rows[m], cols[m], vals[m],
+                                              bool(isset[0]))
+        blocks = []
+        for o in range(self.S):
+            M = owners_bufs[o].assemble().to_scipy().tocsr()
+            lo = min(o * per, nrows)
+            hi = min(lo + per, nrows)
+            blocks.append(M[lo:hi])
+        return ParCSR.from_row_blocks(blocks, self.shape, mesh=self.mesh,
+                                      axis=self.axis)

@@ -2,8 +2,8 @@
 7-point, 5-point, 9-point and 27-point Laplacians, the 7-point
 convection-diffusion operator, the systems Laplacian, the rotated
 anisotropic Laplacian and the variable-coefficient convection-diffusion
-operator.  The row-block generator of the distributed path is not
-ported.
+operator, and the 7-point Laplacian's row blocks for the distributed
+path (`laplacian_7pt_row_block`).
 
 Reference analog: parcsr_ls/par_laplace.c (GenerateLaplacian,
 GenerateSysLaplacian), par_laplace_9pt.c, par_laplace_27pt.c,
@@ -32,15 +32,23 @@ def _stencil_matrix(nx, ny, nz, offsets, values) -> CSRMatrix:
     col_off = [dx + nx * (dy + ny * dz) for (dx, dy, dz), _ in live]
     if len(set(col_off)) != len(col_off):
         return _stencil_matrix_coo(nx, ny, nz, live)
-    order = np.argsort(col_off)
-    k = len(live)
-    idx = np.arange(n, dtype=np.int64)
+    return CSRMatrix(*_stencil_rows(nx, ny, nz, live, 0, n), (n, n))
+
+
+def _stencil_rows(nx, ny, nz, live, lo, hi):
+    """(indptr, cols, vals) of rows [lo, hi) of the sum of the shifted
+    diagonals `live` [((dx, dy, dz), value)]: global columns, each row's
+    entries in column-offset order, out-of-grid neighbours dropped."""
+    order = np.argsort([dx + nx * (dy + ny * dz) for (dx, dy, dz), _ in live])
+    idx = np.arange(lo, hi, dtype=np.int64)
     ix = idx % nx
     iy = (idx // nx) % ny
     iz = idx // (nx * ny)
-    cols = np.empty((n, k), dtype=np.int64)
-    vals = np.empty((n, k))
-    valid = np.empty((n, k), dtype=bool)
+    k = len(live)
+    nr = hi - lo
+    cols = np.empty((nr, k), dtype=np.int64)
+    vals = np.empty((nr, k))
+    valid = np.empty((nr, k), dtype=bool)
     for slot, oi in enumerate(order):
         (dx, dy, dz), v = live[oi]
         jx, jy, jz = ix + dx, iy + dy, iz + dz
@@ -49,9 +57,35 @@ def _stencil_matrix(nx, ny, nz, offsets, values) -> CSRMatrix:
         cols[:, slot] = jx + nx * (jy + ny * jz)
         vals[:, slot] = v
     flat = valid.ravel()
-    indptr = np.zeros(n + 1, dtype=np.int64)
+    indptr = np.zeros(nr + 1, dtype=np.int64)
     np.cumsum(valid.sum(axis=1), out=indptr[1:])
-    return CSRMatrix(indptr, cols.ravel()[flat], vals.ravel()[flat], (n, n))
+    return indptr, cols.ravel()[flat], vals.ravel()[flat]
+
+
+def _stencil_7pt(nx, ny, nz, cx, cy, cz):
+    """(offsets, values) of the 7-point Laplacian (ij.c:7799-7814)."""
+    diag = 0.0
+    if nx > 1:
+        diag += 2.0 * cx
+    if ny > 1:
+        diag += 2.0 * cy
+    if nz > 1:
+        diag += 2.0 * cz
+    return ([(0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+             (0, 0, -1), (0, 0, 1)],
+            [diag, -cx, -cx, -cy, -cy, -cz, -cz])
+
+
+def laplacian_7pt_row_block(nx, ny, nz, lo, hi, cx=1.0, cy=1.0, cz=1.0):
+    """Rows [lo, hi) of the 3D 7-pt Laplacian as a scipy CSR block with
+    GLOBAL columns: the distributed-generation path (par_laplace.c
+    GenerateLaplacian builds only a rank's rows; no rank holds the
+    global matrix).  Feed the per-shard blocks to
+    parallel.ParCSR.from_row_blocks."""
+    offsets, values = _stencil_7pt(nx, ny, nz, cx, cy, cz)
+    live = [(o, v) for o, v in zip(offsets, values) if v != 0.0]
+    indptr, cols, vals = _stencil_rows(nx, ny, nz, live, lo, hi)
+    return sp.csr_matrix((vals, cols, indptr), shape=(hi - lo, nx * ny * nz))
 
 
 def _stencil_matrix_coo(nx, ny, nz, live) -> CSRMatrix:
@@ -79,24 +113,7 @@ def _stencil_matrix_coo(nx, ny, nz, live) -> CSRMatrix:
 
 def laplacian_7pt(nx, ny=1, nz=1, cx=1.0, cy=1.0, cz=1.0) -> CSRMatrix:
     """3D 7-point Laplacian (ij.c:7799-7814 values + GenerateLaplacian)."""
-    diag = 0.0
-    if nx > 1:
-        diag += 2.0 * cx
-    if ny > 1:
-        diag += 2.0 * cy
-    if nz > 1:
-        diag += 2.0 * cz
-    offsets = [
-        (0, 0, 0),
-        (-1, 0, 0),
-        (1, 0, 0),
-        (0, -1, 0),
-        (0, 1, 0),
-        (0, 0, -1),
-        (0, 0, 1),
-    ]
-    values = [diag, -cx, -cx, -cy, -cy, -cz, -cz]
-    return _stencil_matrix(nx, ny, nz, offsets, values)
+    return _stencil_matrix(nx, ny, nz, *_stencil_7pt(nx, ny, nz, cx, cy, cz))
 
 
 def laplacian_27pt(nx, ny, nz) -> CSRMatrix:

@@ -1668,19 +1668,24 @@ class BoomerAMG:
         o = self.opts
         return max(o.additive, o.mult_additive, o.simple) >= 0
 
-    def _mult_steps(self, L: int, fine_u_zero: bool):
+    def _mult_steps(self, L: int, fine_u_zero: bool, top_counter: int = 1):
         """hypre's nonrecursive cycle state machine (par_cycle.c:255-621)
         over L levels, as the steps `_run` executes (see `_run`):
         lev_counter drives the V / W revisits (cycle_type), fcycle_lev
         the F-cycle.  With cycle_type 1 and no fcycle this is the
-        V-cycle.  fine_u_zero: the incoming u is exactly zero."""
+        V-cycle.  fine_u_zero: the incoming u is exactly zero.
+        top_counter: the first level's descents, when these levels are
+        the replicated tail of a sharded hierarchy whose top is a
+        mid-hierarchy level (a W-cycle descends cycle_type times there;
+        parallel/par_amg.py)."""
         o = self.opts
         if L == 1:
             yield "smooth", 0, o.relax_coarse, (0,), False, False
             return
         uz = [False] * L  # U[level] is exactly zero
         uz[0] = fine_u_zero
-        lev_counter = [1] + [1 if o.fcycle else o.cycle_type] * (L - 1)
+        lev_counter = ([top_counter]
+                       + [1 if o.fcycle else o.cycle_type] * (L - 1))
         fcycle_lev = L - 2
         level, cycle_param = 0, 0
         while True:
@@ -1841,19 +1846,23 @@ class BoomerAMG:
         restriction, prolongation and band correction, the coarse solve
         where it is an operator or the nested cycle of seq_threshold
         (ops/dia.py::kernel_launches gives an operator's)."""
+        levels = self.levels if levels is None else levels
+        if from_zero and self._additive():
+            steps = self._add_steps(len(levels), True)
+        else:
+            steps = self._mult_steps(len(levels), from_zero)
+        return self.steps_launches(levels, steps)
+
+    def steps_launches(self, levels, steps) -> dict:
+        """{kernel name: launches} of `_run(levels, steps, ...)`."""
         from ...ops.dia import kernel_launches
 
-        levels = self.levels if levels is None else levels
         out: dict = {"gs_sweep": 0}
 
         def add(counts: dict, k: int = 1):
             for name, c in counts.items():
                 out[name] = out.get(name, 0) + k * c
 
-        if from_zero and self._additive():
-            steps = self._add_steps(len(levels), True)
-        else:
-            steps = self._mult_steps(len(levels), from_zero)
         for step in steps:
             kind, l = step[0], step[1]
             lvl = levels[l]

@@ -9,9 +9,13 @@ grid-shaped array), or a tuple, list or dict of such parts (an sstruct
 vector's parts), as the JAX package's pytree helpers take them:
   * `tdot` of a tensor is the dot of its flat view (`jnp.vdot`); of a
     container, the sum of its parts' dots in order (a dict's parts in
-    sorted key order, as JAX flattens a dict);
-  * the elementwise helpers map over the parts.
-On a 1-D tensor every helper is the single torch op it always was.
+    sorted key order, as JAX flattens a dict), each part's dot moved to
+    the first part's device before it is added;
+  * the elementwise helpers map over the parts; a 0-d scalar (a dot, a
+    step length) is moved to a part's device where the two differ, so
+    the parts of a sharded vector (parallel/) may live on several cards.
+On a 1-D tensor every helper is the single torch op it always was, and
+on parts that share one device nothing is moved.
 
 The GMRES family keeps its Krylov basis as one stacked tensor; it runs
 on the flat view of its vectors (`FlatEdge`), which on a 1-D tensor is
@@ -60,16 +64,23 @@ def tdot(x: Vec, y: Vec) -> torch.Tensor:
     acc = None
     for a, b in zip(tleaves(x), tleaves(y)):
         d = torch.dot(a.reshape(-1), b.reshape(-1))
-        acc = d if acc is None else acc + d
+        acc = d if acc is None else acc + _on(d, acc.device)
     return acc
 
 
+def _on(alpha, device):
+    """alpha on `device`: a tensor elsewhere is moved, anything else kept."""
+    if isinstance(alpha, torch.Tensor) and alpha.device != device:
+        return alpha.to(device)
+    return alpha
+
+
 def taxpy(alpha, x: Vec, y: Vec) -> Vec:
-    return tmap(lambda a, b: b + alpha * a, x, y)
+    return tmap(lambda a, b: b + _on(alpha, a.device) * a, x, y)
 
 
 def tscale(alpha, x: Vec) -> Vec:
-    return tmap(lambda a: alpha * a, x)
+    return tmap(lambda a: _on(alpha, a.device) * a, x)
 
 
 def tsub(x: Vec, y: Vec) -> Vec:
@@ -86,7 +97,7 @@ def tzeros_like(x: Vec) -> Vec:
 
 def twhere(cond: torch.Tensor, x: Vec, y: Vec) -> Vec:
     """x where the 0-d flag holds, else y, part by part."""
-    return tmap(lambda a, b: torch.where(cond, a, b), x, y)
+    return tmap(lambda a, b: torch.where(_on(cond, a.device), a, b), x, y)
 
 
 def tnorm2(x: Vec) -> torch.Tensor:

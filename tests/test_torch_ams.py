@@ -183,16 +183,16 @@ def test_ame_matches_jax():
 
 @pytest.mark.slow
 def test_jax_counts_at_the_card_sizes_are_the_chip_pins():
-    """The JAX package's AMS-PCG at 64^3 edges, ADS-PCG at 13^3 faces
+    """The JAX package's AMS-PCG at 48^3 edges, ADS-PCG at 13^3 faces
     (tol 1e-6, b = ones) and AME at 16^3 (AMEOptions(), M = I): the
     counts, the G-space decision and the eigenvalues chip_smoke.py's
-    phase 16 (d)-(f) holds the card to (~19 min on a CPU, AME ~10 of
+    phase 16 (d)-(f) holds the card to (~18 min on a CPU, AME ~10 of
     them, ADS ~5; ~11 GB)."""
     pins = chip_smoke()
-    Aj, Gj, coj = jmx.curlcurl_matrix(64, 64, 64)
+    Aj, Gj, coj = jmx.curlcurl_matrix(48, 48, 48)
     ja = jams.AMS(Aj, Gj, coj)
     res = ja.solve(jnp.ones(Aj.num_rows), tol=1e-6, max_iter=200)
-    assert (int(res.num_iterations), ja._amg_G is not None) == pins.AUX_AMS64
+    assert (int(res.num_iterations), ja._amg_G is not None) == pins.AUX_AMS48
     Aj, Cj, Pij, Gj, coj = jmx.divdiv_matrix(13, 13, 13)
     res = jads.ADS(Aj, Cj, Pij, Gj, coj).solve(jnp.ones(Aj.num_rows),
                                                tol=1e-6, max_iter=200)

@@ -38,6 +38,17 @@ SLICE_MODULES = [
     "hypre_tpu_torch.ops.matops",
     "hypre_tpu_torch.ops.spmv",
     "hypre_tpu_torch.ops.tail_kernel",
+    "hypre_tpu_torch.parallel",
+    "hypre_tpu_torch.parallel.dist_csr_setup",
+    "hypre_tpu_torch.parallel.dist_setup",
+    "hypre_tpu_torch.parallel.halo",
+    "hypre_tpu_torch.parallel.mesh",
+    "hypre_tpu_torch.parallel.par_amg",
+    "hypre_tpu_torch.parallel.par_csr",
+    "hypre_tpu_torch.parallel.par_dia",
+    "hypre_tpu_torch.parallel.par_gs",
+    "hypre_tpu_torch.parallel.par_vector",
+    "hypre_tpu_torch.parallel.partition",
     "hypre_tpu_torch.solvers.amg.ads",
     "hypre_tpu_torch.solvers.amg.ame",
     "hypre_tpu_torch.solvers.amg.amgdd",
