@@ -159,9 +159,9 @@ Phases (any failure raises and the script exits non-zero):
      application held against the plain version); (d) IJ assembly of
      the 96^3 Laplacian on the host and the card from one seeded
      interleaved Set/AddTo stream, both bitwise the operator, and from
-     a second stream of inexact AddTo sums, each of two card runs
-     within 1e-12 of the host accumulator, whether they repeat bitwise
-     reported; (e) -smtype 6 / 8 / 9 -smlv 2 at 48^3 and (g) every
+     a second stream of inexact AddTo sums over the 48^3 Laplacian's
+     nonzeros (IJ_INEXACT_NX), each of two card runs within 1e-12 of
+     the host accumulator, whether they repeat bitwise reported; (e) -smtype 6 / 8 / 9 -smlv 2 at 48^3 and (g) every
      other solver id at 24^3, card against CPU.
  16. the AMG family, each line through the solver's own entry points
      with the counts at 0 before and read after, f64, b = ones: (a)
@@ -244,11 +244,31 @@ Phases (any failure raises and the script exits non-zero):
      rows, which its extended operator exceeds);
      dist_lattice_setup at 48^3 bitwise the serial device chain;
      IJMatrixSharded at 48^3 equal to from_row_blocks.
+ 20. the sharded struct stack (hypre_tpu_torch/parallel/par_struct.py:
+     layouts, the ghost-plane exchange, `shard_solver`) and
+     AMG-DD's sharded domains, 4 shards on the card(s) as in 19, f64,
+     b = ones, each sharded run with the counts at 0 before and read
+     after: (a) PFMG 96^3 cut along axis 0, (b) PFMG -c 2 3 40 96^3 on a
+     2 x 2 process grid, (c) PFMG-PCG 96^3 ((a)'s PFMG), each at the JAX
+     package's serial count (STRUCT_JAX) and the serial port's on the
+     card, x against the serial x (bitwise or 1e-12; (c)'s history
+     within 1e-12), no counted launch, each solve timed once and warm
+     beside the serial one, one cycle of each profiled ((a), (b)); (d) the [REF]
+     pfmgbase3d / smgbase3d lines at 12^3 cut along axis 0 (SMG's planes
+     cut: gathered whole) and axis 2 (SMG's planes whole, coarse shards
+     empty); (e) SparseMSG 16^3, every transfer a ParCSR: ELL launches
+     exactly 4 x the transfers x the cycles; (f) struct Jacobi and
+     hybrid 24^3 against the serial card run; (g) AMGDDDevice 24^3, 8
+     domains on 4 shards, f64 and f32, the sharded cycle against the
+     unsharded one, K2 launches a shard as `shard_launches` predicts,
+     the stationary solve with it at AUX_DD24, PCG with it at 10^3 at the
+     unsharded count.  The counted runs of (e) and (g) are the kernels
+     line's `par_struct` launches.
 The last three lines are the slice's numbers (entry, device RAP, ext+i,
 the GS family, the device setup chain, the cycle options, aggressive
 coarsening and AIR, the systems phase, the ij phase, the AMG family,
-the struct phase, the sstruct phase, the sharded phase),
-the kernel report and {"ok": true, ...}.
+the struct phase, the sstruct phase, the sharded phase, the sharded
+struct phase), the kernel report and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -1724,7 +1744,7 @@ def run_ext(nx, opts, dev, card, label):
         "DEVICE_RAP", "COLLAPSE")}
     rel, bound = check_solution(amg, res, nx**3)
     expected = expected_launches(amg, res.num_iterations)
-    _, wall, busy_us, events, _ = profile_solve(make_solve(amg))
+    _, wall, busy_us, events, _ = profile_solve(make_solve(amg), cpu=False)
     its = res.num_iterations
     for line in level_lines(amg):
         log(f"ext+i [{label}] levels: {line}")
@@ -1933,7 +1953,7 @@ def phase_device_setup(dev, card):
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
-        _, wall, busy_us, events, _ = profile_solve(solve)
+        _, wall, busy_us, events, _ = profile_solve(solve, cpu=False)
         levels = level_lines(amg)
         per_cycle = amg.cycle_launches()
         del amg, res, solve
@@ -2304,7 +2324,7 @@ def run_gs(nx, opts, dev, card, label, want_its):
     its = res.num_iterations
     expected = expected_launches(amg, its)
     per_cycle = amg.cycle_launches()
-    _, wall, busy_us, events, _ = profile_solve(make_solve(amg))
+    _, wall, busy_us, events, _ = profile_solve(make_solve(amg), cpu=False)
     # "gs_sweep_" covers both forms' kernels
     gs_us = sum(e.time_range.end - e.time_range.start for e in events
                 if "gs_sweep_" in e.name)
@@ -2456,10 +2476,12 @@ def solve_median_ms(solve, reps: int = MEDIAN_REPS):
     return float(np.median(times)), min(times), max(times)
 
 
-def busy(solve, its: int = 1, cpu: bool = True) -> dict:
+def busy(solve, its: int = 1, cpu: bool = False) -> dict:
     """One solve() under torch.profiler: its wall time, device busy,
-    idle share and device events an iteration (cpu=False: the device
-    activity alone recorded)."""
+    idle share and device events an iteration.  The device activity
+    alone is recorded unless cpu (the profiler collects it several times
+    faster; every number here reads device events); phases 6-16 recorded
+    the host's activity too until phase 20 came."""
     from hypre_tpu_torch.profile_slice import profile_solve
 
     _, wall, busy_us, events, _ = profile_solve(solve, cpu)
@@ -2491,7 +2513,7 @@ def run_cycle(opts, dev, card, label, want, slack, A=None):
     per_cycle = {k: v for k, v in amg.cycle_launches().items() if v}
     solve = make_solve(amg)
     med, lo, hi = solve_median_ms(solve)
-    _, wall, busy_us, events, _ = profile_solve(solve)
+    _, wall, busy_us, events, _ = profile_solve(solve, cpu=False)
     require_no_gs_fault(dev, f"cycles {label} timed solves")
     stats = statistics(amg)
     log(f"cycles [{label} {NX}^3; {card}]: {its} iterations (JAX package: "
@@ -2897,7 +2919,7 @@ def run_krylov(amg, label, name, kw, want, card, A0):
     want_calls = predicted_calls(name, kw, its)
     expected = krylov_launches(amg, made, A0)
     med, lo, hi = solve_median_ms(solve)
-    _, wall, busy_us, events, _ = profile_solve(solve)
+    _, wall, busy_us, events, _ = profile_solve(solve, cpu=False)
     log(f"krylov [{label} 96^3; {card}]: {its} iterations (JAX package: "
         f"{want}), final rel residual {float(res.rel_residual_norm):.3e} "
         f"(true, in f64: {rel:.3e}, bound {bound:.1e}); applications {made} "
@@ -2989,7 +3011,8 @@ def phase_lobpcg(dev, card):
         expected[name] += calls["T"] * c
     ms = start.elapsed_time(end)
     # where a solve's device time goes: one more run under the profiler
-    _, wall, busy_us, events, _ = profile_solve(lambda: lobpcg_run(amg, X0))
+    _, wall, busy_us, events, _ = profile_solve(lambda: lobpcg_run(amg, X0),
+                                                cpu=False)
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
@@ -3256,6 +3279,9 @@ IJ24.update({5: "-n 24 24 24 -solver 5 -max_iter 20",
 # residual's numbers masked.
 IJ24_SLACK = {10: 2}
 IJ_ADDS = 3  # the inexact AddTo calls an entry in (d)'s second stream
+# (d)'s second stream runs over laplacian_7pt(48^3)'s nonzeros (96^3,
+# 13.8 s of host assembly, until phase 20 came)
+IJ_INEXACT_NX = 48
 IJ_PHASES = ("SETUP", "STRENGTH", "COARSEN", "INTERP", "RAP", "FREEZE",
              "DEVICE_RAP", "COLLAPSE", "ILU_FACTOR", "ILU_SCHEDULE",
              "SMOOTHER_SETUP")
@@ -3553,14 +3579,16 @@ def ij_assembly(dev, card):
         f"laplacian_7pt bitwise: host {same[0]}, card {same[1]}")
     require(all(same), f"ij assembly: host / card equal the operator {same}")
     del host, card_ij, streams, runs
-    inexact = ij_assembly_inexact(C, dev, card)
+    inexact = ij_assembly_inexact(laplacian_7pt(
+        IJ_INEXACT_NX, IJ_INEXACT_NX, IJ_INEXACT_NX).to_scipy().tocoo(), dev,
+        card)
     return {"entries": 3 * nnz, "host_s": host_s, "card_s": card_s,
             "card_device_ms": [t * 1e3 for t in card_ms],
             "bitwise": same, "inexact": inexact}
 
 
 def ij_assembly_inexact(C, dev, card) -> dict:
-    """A second stream over the 96^3 operator's nonzeros whose sums are
+    """A second stream over the IJ_INEXACT_NX^3 operator's nonzeros whose sums are
     inexact: per entry a Set of its value, then IJ_ADDS AddTo calls of
     seeded normal values, the entries' calls merged at random across 16
     chunks.  Each of two card runs of ij_assemble_device (index_add_'s
@@ -3601,7 +3629,7 @@ def ij_assembly_inexact(C, dev, card) -> dict:
         runs.append((ms, uv))
     repeat = bool(torch.equal(runs[0][1], runs[1][1]))
     ndiff = int((runs[0][1] != runs[1][1]).sum())
-    log(f"ij inexact assembly 96^3 ({card}): {len(streams[0])} stream "
+    log(f"ij inexact assembly {IJ_INEXACT_NX}^3 ({card}): {len(streams[0])} stream "
         f"entries (a Set and {IJ_ADDS} inexact AddTo an entry); host "
         f"assemble {host_s:.2f} s, card sort + reductions "
         f"{runs[0][0]:.1f} / {runs[1][0]:.1f} ms; card vs host max abs "
@@ -4453,6 +4481,10 @@ def phase_family(dev, card):
 
 # -- 17. the struct interface ------------------------------------------------
 
+# phase 20's serial lines, whose (A, solver) phase 17 keeps: phase 20
+# label -> phase 17 label (the same driver line)
+PS_KEPT = {"(a) PFMG": "(a)", "(b) PFMG -c 2 3 40": "(c)"}
+
 # label -> (struct driver line, the JAX driver's count on the CPU; slow
 # test tests/test_torch_struct_driver.py::test_jax_count_is_the_chip_pin)
 STRUCT_JAX = {
@@ -4555,13 +4587,14 @@ def struct_solve(res, line: str):
     return (lambda: s.solve(b)), cycle
 
 
-def struct_line(label, dev, card) -> dict:
+def struct_line(label, dev, card, kept=None) -> dict:
     """One of (a)-(e): the JAX package's count, setup by phase, the
     solve's median of 5 and one profiled cycle, the true residual, the
     kernels' launches (K1 / ELL on SparseMSG's frozen transfers exactly
     as `kernel_launches` says, none elsewhere); for (e) each transfer
     held against its plain version and one cycle against the CPU's.
-    The seconds of each step are kept."""
+    The seconds of each step are kept; `kept[label]` = (A, solver) of
+    the line, where `kept` is given (phase 20 cuts them to its mesh)."""
     from hypre_tpu_torch.utils.timing import GLOBAL_TIMER
 
     line, want = STRUCT_JAX[label]
@@ -4569,6 +4602,8 @@ def struct_line(label, dev, card) -> dict:
     zero_counts()
     res, wall = drive_struct(line, dev)
     counts = read_counts()
+    if kept is not None:
+        kept[label] = (res.A, res.solver)
     its = int(res.num_iterations)
     phases = {k: round(GLOBAL_TIMER.seconds(k), 4) for k in STRUCT_PHASES
               if GLOBAL_TIMER.seconds(k)}
@@ -4611,7 +4646,7 @@ def struct_line(label, dev, card) -> dict:
         # the device-only profile against the full one on the same cycle
         t = time.perf_counter()
         out["kernels_per_cycle_full_profile"] = busy(
-            cycle, 1)["kernels_per_iteration"]
+            cycle, 1, cpu=True)["kernels_per_iteration"]
         seconds["profile, CPU activity too"] = time.perf_counter() - t
         full = (f" ({out['kernels_per_cycle_full_profile']:.0f} with the CPU "
                 f"activity recorded too)")
@@ -4739,7 +4774,7 @@ def struct_matvec_case(dev, flush, card) -> dict:
         ms = time_cuda_ms(fn, flush)
         bms, by = bound_ms(nbytes, 13 * n, torch.float64)
         before = dia_spmv_cuda.launches
-        k = busy(fn, 1)["kernels_per_iteration"]
+        k = busy(fn, 1, cpu=True)["kernels_per_iteration"]
         out[name] = {"ms": ms, "bound_ms": bms, "bound_by": by,
                      "bytes": nbytes, "kernels": k,
                      "k1_launches": dia_spmv_cuda.launches - before}
@@ -4758,10 +4793,11 @@ def phase_struct(dev, card, matvec):
     from hypre_tpu_torch.struct import StructGrid, StructMatrix
 
     t0 = time.perf_counter()
-    runs = {}
+    runs, kept = {}, {}
     for label in STRUCT_JAX:
         t = time.perf_counter()
-        runs[label] = struct_line(label, dev, card)
+        runs[label] = struct_line(label, dev, card,
+                                  kept if label in PS_KEPT.values() else None)
         runs[label]["wall_s"] = time.perf_counter() - t
         log(f"struct {label}: {runs[label]['wall_s']:.1f} s")
         torch.cuda.empty_cache()
@@ -4812,7 +4848,7 @@ def phase_struct(dev, card, matvec):
     log(f"struct launches, lines (a)-(e): {total}")
     log(f"the struct phase took {time.perf_counter() - t0:.1f} s")
     return {"lines": runs, "card_vs_cpu_24": small, "ref": ref,
-            "multibox": multibox, "ex1": ex1, "matvec": matvec}, total
+            "multibox": multibox, "ex1": ex1, "matvec": matvec}, total, kept
 
 
 # -- 18. the sstruct interface -----------------------------------------------
@@ -4850,11 +4886,13 @@ SSTRUCT24 = {0: 12, 8: 24, 10: 12, 13: 24, 19: 24}
 SSTRUCT_IN_IDS = (18, 20, 11)  # (f): every text; FAC-AMR 99 on FacParts texts
 SSTRUCT_FAC_ID = 99
 # solves timed again after the driver's own, on what it built
-# (`res.resolve`), for the median: 5 where a solve is under a second, one
-# where it is seconds of host-bound launches ((a) 2-3 s, (c) ~1 s on the
-# NVIDIA H100 80GB HBM3 at 700 W; 10 and 3 until phase 19 came); (b)'s 200 Split iterations are timed once, by
-# the driver, as the script's 1,200 s leave no room for more
-SSTRUCT_REPS = {"(a)": 1, "(b)": 0, "(c)": 1, "(d)": 5}
+# (`res.resolve`), for the median: 5 where a solve is under a second; 0
+# (the driver's one solve) where it is seconds of host-bound launches
+# ((a) 2-3 s, (c) ~1 s, (b)'s 200 Split iterations ~14 s on the NVIDIA
+# H100 80GB HBM3 at 700 W; (a) and (c) were timed again once until phase
+# 20 came, 3 times until phase 19), as the script's 1,200 s leave no
+# room for more
+SSTRUCT_REPS = {"(a)": 0, "(b)": 0, "(c)": 0, "(d)": 5}
 SSTRUCT_MAX_ITER = 200  # the driver's default; (b) and (d) stop there
 # lines whose whole solve is profiled (kernels and busy per iteration =
 # the solve's / its count): a DS-PCG iteration is ~18 kernels, and a
@@ -5847,6 +5885,423 @@ def phase_par(dev, card, flush):
             "dist_lattice_setup": setup, "ij": ij, "seconds": seconds}, total
 
 
+# -- 20. the sharded struct stack and AMG-DD's sharded domains ----------------
+PS_SHARDS = 4
+# label -> (struct driver line, process grid, cut grid axes, pinned count):
+# the 96^3 counts are STRUCT_JAX's (the JAX package's serial driver on the
+# CPU; its own tests pin sharded == serial); (c) reuses (a)'s PFMG
+PS96 = {
+    "(a) PFMG": (STRUCT_JAX["(a)"][0], (PS_SHARDS,), 0, STRUCT_JAX["(a)"][1]),
+    "(b) PFMG -c 2 3 40": (STRUCT_JAX["(c)"][0], (2, 2), (0, 1),
+                           STRUCT_JAX["(c)"][1]),
+    "(c) PFMG-PCG": (STRUCT_JAX["(b)"][0], (PS_SHARDS,), 0,
+                     STRUCT_JAX["(b)"][1]),
+}
+# (d): pfmgbase3d and smgbase3d at 12^3 (STRUCT_REF's [REF] lines), each
+# cut along axis 0 (SMG's planes cut) and along axis 2 (SMG's planes whole,
+# coarse shards empty)
+PS_REF = {"PFMG": STRUCT_REF[2], "SMG": STRUCT_REF[1]}
+# (e): SparseMSG 16^3, the JAX driver's count on the CPU (`python -m pytest
+# -m slow tests/test_torch_par_struct.py -k chip_pin`, ~1 min), the serial
+# port's too
+PS_MSG16 = ("-n 16 16 16 -solver 2", 11)
+# (f): struct Jacobi and hybrid at 24^3, the card's serial run the pin
+PS24 = ("-n 24 24 24 -solver 8", "-n 24 24 24 -solver 25")
+# (g): AMG-DD at 24^3 (phase 16 (g)'s: DD_AMG, 8 domains, padding 2) on 4
+# shards; its stationary solve is AUX_DD24 (the JAX package's AMGDD.solve);
+# PCG with the AMG-DD cycle stalls at 24^3 sharded or not (the cycle is not
+# symmetric), so PCG runs on the JAX test's 10^3 problem (tests/
+# test_amg.py:477-483), held to the unsharded count
+PS_DD_NX, PS_DD_PCG_NX = 24, 10
+PS_XTOL = 1e-12  # x against the serial run where not bitwise
+
+
+def ps_mesh(dims):
+    """A mesh of the dims' shards on the card(s), and its axis names."""
+    from hypre_tpu_torch.parallel import make_mesh, make_mesh_nd
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{s % count}" for s in range(int(np.prod(dims)))]
+    if len(dims) == 1:
+        return make_mesh(devices=devices), "shard"
+    mesh = make_mesh_nd(dims, devices=devices)
+    return mesh, mesh.axis_names
+
+
+def ps_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def ps_profile(cycle) -> dict:
+    """One cycle under the profiler, the device activity alone."""
+    p = busy(cycle, 1, cpu=False)
+    return {"cycle_wall_ms": p["wall_ms"], "cycle_busy_ms": p["busy_ms"],
+            "idle_share": p["idle_share"],
+            "kernels_per_cycle": p["kernels_per_iteration"]}
+
+
+def ps_struct96(label, dev, card, cache) -> dict:
+    """(a)-(c): the serial line's objects (phase 17's, in `cache` under
+    phase 17's label, or through the driver, its count the pin), the
+    same objects cut to the mesh, the sharded solve with the counts
+    at 0 before and read after (the struct path launches none of the
+    counted kernels), its count and x against the serial run, each
+    solve timed once and warm (an untimed cycle and product first build
+    the ghost plans and the block shapes' allocations; the serial solve
+    has just run), one cycle of each profiled ((a), (b))."""
+    from hypre_tpu_torch.parallel import shard_solver, shard_struct
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+    from hypre_tpu_torch.struct import struct_matvec
+
+    line, dims, gax, want = PS96[label]
+    seconds = {}
+    t = time.perf_counter()
+    if label == "(c) PFMG-PCG":
+        A, solver = cache[PS_KEPT["(a) PFMG"]]
+    elif PS_KEPT[label] in cache:
+        A, solver = cache[PS_KEPT[label]]
+    else:
+        res, _ = drive_struct(line, dev)
+        require(res.converged and res.num_iterations == want,
+                f"par_struct {label}: serial {res.num_iterations}, pinned "
+                f"{want}")
+        A, solver = res.A, res.solver
+        cache[PS_KEPT[label]] = (A, solver)
+    seconds["serial driver"] = time.perf_counter() - t
+    mesh, names = ps_mesh(dims)
+    b = torch.ones(A.shape, dtype=torch.float64, device=dev)
+    t = time.perf_counter()
+    A_sh, (bs,) = shard_struct(A, [np.ones(A.shape)], mesh, names, gax)
+    on = shard_solver(solver, A_sh.layout)
+    torch.cuda.synchronize()
+    seconds["cut"] = time.perf_counter() - t
+    if label == "(c) PFMG-PCG":
+        opts = PCGOptions(tol=1e-6, max_iter=200, two_norm=True)
+        sharded = lambda: pcg(lambda x: struct_matvec(A_sh, x), bs,  # noqa: E731
+                              M=on.precond, opts=opts)
+        serial = lambda: pcg(lambda x: struct_matvec(A, x), b,  # noqa: E731
+                             M=solver.precond, opts=opts)
+    else:
+        sharded, serial = (lambda: on.solve(bs)), (lambda: solver.solve(b))
+    on.cycle(bs)
+    struct_matvec(A_sh, bs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    zero_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    rs = sharded()
+    end.record()
+    end.synchronize()
+    counts = read_counts()
+    seconds["sharded solve"] = time.perf_counter() - t
+    require(not any(counts.values()), f"par_struct {label}: launches "
+                                      f"{counts}, the struct path has none")
+    rser = serial()
+    its = int(rs.num_iterations)
+    require(rs.converged and its == rser.num_iterations == want,
+            f"par_struct {label}: sharded {its}, serial "
+            f"{rser.num_iterations}, pinned {want}")
+    x = A_sh.layout.to_host(rs.x)
+    xr = rser.x.cpu().numpy()
+    dx, bitwise = ps_rel(x, xr), bool(np.array_equal(x, xr))
+    require(dx <= PS_XTOL, f"par_struct {label}: x {dx:.2e} from the serial "
+                           f"x on the card")
+    rel, bound = struct_true_residual(A, torch.from_numpy(x).to(dev), b, 1e-6)
+    require(rel < bound, f"par_struct {label}: true residual {rel:.3e}")
+    out = {"line": line, "process_grid": list(dims), "iterations": its,
+           "pinned": want, "x_rel_to_serial": dx, "x_bitwise": bitwise,
+           "true_rel_residual": rel}
+    if label == "(c) PFMG-PCG":
+        h = rs.res_norms[:its + 1].cpu().numpy()
+        hs = rser.res_norms[:its + 1].cpu().numpy()
+        out["history_rel_to_serial"] = dh = ps_rel(h, hs)
+        require(dh <= 1e-12, f"par_struct {label}: history {dh:.2e} from the "
+                             f"serial run's")
+    # the counted solve's time (CUDA events, warm), and the serial one's
+    out["solve_ms"] = start.elapsed_time(end)
+    t = time.perf_counter()
+    out["serial_solve_ms"] = solve_median_ms(serial, 1)[0]
+    seconds["timed serial solve"] = time.perf_counter() - t
+    if label != "(c) PFMG-PCG":
+        t = time.perf_counter()
+        out["sharded_cycle"] = ps_profile(lambda: on.cycle(bs))
+        out["serial_cycle"] = ps_profile(lambda: solver.cycle(b))
+        seconds["profiles"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    prof = (f"; one cycle sharded: busy {out['sharded_cycle']['cycle_busy_ms']:.2f} "
+            f"ms of {out['sharded_cycle']['cycle_wall_ms']:.2f}, "
+            f"{out['sharded_cycle']['kernels_per_cycle']:.0f} kernels; serial: "
+            f"busy {out['serial_cycle']['cycle_busy_ms']:.2f} ms of "
+            f"{out['serial_cycle']['cycle_wall_ms']:.2f}, "
+            f"{out['serial_cycle']['kernels_per_cycle']:.0f} kernels"
+            if "sharded_cycle" in out else
+            f"; history within {out['history_rel_to_serial']:.1e} of the "
+            f"serial run's")
+    log(f"par_struct {label} [{card}] {line} on {dims}: {its} iterations = "
+        f"serial = pinned {want}; x {'bitwise' if bitwise else f'{dx:.1e}'} "
+        f"the serial x; true rel residual {rel:.3e}; solve {out['solve_ms']:.1f} "
+        f"ms (serial {out['serial_solve_ms']:.1f}){prof}; seconds "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return out
+
+
+def ps_ref_lines(dev, card) -> dict:
+    """(d): pfmgbase3d / smgbase3d on 4 shards cut along axis 0 and 2:
+    the [REF] counts, SMG's residual within 2e-9 of its pin, x against
+    the serial run (bitwise but SMG's whole planes, 1e-12), the coarse
+    layouts' empty shards counted."""
+    from hypre_tpu_torch.parallel import shard_solver, shard_struct
+
+    out = {}
+    mesh, _ = ps_mesh((PS_SHARDS,))
+    for name, (line, want, rel_pin) in PS_REF.items():
+        res, _ = drive_struct(line, dev)
+        xr = res.x.cpu().numpy()
+        for gax in (0, 2):
+            A_sh, (bs,) = shard_struct(res.A, [np.ones(res.A.shape)], mesh,
+                                       grid_axis=gax)
+            on = shard_solver(res.solver, A_sh.layout)
+            rs = on.solve(bs)
+            rel = float(rs.rel_residual_norm)
+            x = A_sh.layout.to_host(rs.x)
+            dx, bitwise = ps_rel(x, xr), bool(np.array_equal(x, xr))
+            empty = sum(lvl.A.layout.block_shape(s)[gax] == 0
+                        for lvl in on.levels for s in range(PS_SHARDS))
+            key = f"{name} axis {gax}"
+            require(rs.converged and rs.num_iterations == want,
+                    f"par_struct (d) {key}: {rs.num_iterations}, [REF] {want}")
+            require(rel_pin is None or abs(rel - rel_pin) < 2e-9,
+                    f"par_struct (d) {key}: residual {rel:.6e}, [REF] {rel_pin}")
+            require(dx <= PS_XTOL, f"par_struct (d) {key}: x {dx:.2e} from "
+                                   f"the serial x")
+            require(gax == 0 or empty > 0, f"par_struct (d) {key}: no coarse "
+                                           f"shard empty")
+            out[key] = {"iterations": int(rs.num_iterations), "rel": rel,
+                        "x_bitwise": bitwise, "x_rel_to_serial": dx,
+                        "empty_coarse_blocks": int(empty)}
+    log(f"par_struct (d) [{card}] the [REF] lines on 4 shards: {out}")
+    return out
+
+
+def ps_sparse_msg(dev, card) -> tuple:
+    """(e): SparseMSG 16^3, serial on the card and on 4 shards: the
+    pinned count, every transfer a ParCSR (one ELL launch a shard),
+    launches exactly `cycle_launches` x the cycles, x within 1e-12; the
+    counted solve timed warm, after an untimed cycle."""
+    from hypre_tpu_torch.parallel import shard_solver, shard_struct
+
+    line, want = PS_MSG16
+    res, wall = drive_struct(line, dev)
+    require(res.converged and res.num_iterations == want,
+            f"par_struct (e): serial {res.num_iterations}, pinned {want}")
+    mesh, _ = ps_mesh((PS_SHARDS,))
+    t = time.perf_counter()
+    A_sh, (bs,) = shard_struct(res.A, [np.ones(res.A.shape)], mesh)
+    on = shard_solver(res.solver, A_sh.layout)
+    torch.cuda.synchronize()
+    cut_s = time.perf_counter() - t
+    on.cycle(bs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    zero_counts()
+    rs = on.solve(bs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    solve_s = time.perf_counter() - t
+    its = int(rs.num_iterations)
+    per = on.cycle_launches()
+    want_counts = expect([(per, its)])
+    transfers = len(on.Rdev) + len(on.Pdev)
+    require(rs.converged and its == want, f"par_struct (e): sharded {its}, "
+                                          f"pinned {want}")
+    require(counts == want_counts and per == {"ell_spmv": PS_SHARDS * transfers},
+            f"par_struct (e): launches {counts}, predicted {want_counts}")
+    x = A_sh.layout.to_host(rs.x)
+    dx = ps_rel(x, res.x.cpu().numpy())
+    require(dx <= PS_XTOL, f"par_struct (e): x {dx:.2e} from the serial x")
+    b = torch.ones(res.A.shape, dtype=torch.float64, device=dev)
+    prof = ps_profile(lambda: on.cycle(bs))
+    sprof = ps_profile(lambda: res.solver.cycle(b))
+    out = {"line": line, "iterations": its, "pinned": want,
+           "transfers": transfers, "ell_per_shard_per_cycle": transfers,
+           "launches": counts, "x_rel_to_serial": dx, "cut_s": cut_s,
+           "solve_s": solve_s, "serial_driver_s": wall,
+           "sharded_cycle": prof, "serial_cycle": sprof}
+    log(f"par_struct (e) [{card}] {line} on 4 shards: {its} iterations = "
+        f"pinned {want}; {transfers} transfers, ELL {transfers} a shard a "
+        f"cycle, launches {counts['ell_spmv']} = {PS_SHARDS} x {transfers} x "
+        f"{its} (exactly); x {dx:.1e} from the serial x; cut {cut_s:.1f} s, "
+        f"sharded solve {solve_s:.2f} s (serial driver {wall:.2f} s); one "
+        f"cycle sharded busy {prof['cycle_busy_ms']:.2f} ms of "
+        f"{prof['cycle_wall_ms']:.2f}, {prof['kernels_per_cycle']:.0f} kernels; "
+        f"serial busy {sprof['cycle_busy_ms']:.2f} ms of "
+        f"{sprof['cycle_wall_ms']:.2f}, {sprof['kernels_per_cycle']:.0f} kernels")
+    return out, counts
+
+
+def ps_jacobi_hybrid(dev, card) -> dict:
+    """(f): struct Jacobi and hybrid at 24^3 on 4 shards against the
+    serial run on the card: the same count, x within 1e-12."""
+    from hypre_tpu_torch.parallel import shard_solver, shard_struct
+
+    out = {}
+    mesh, _ = ps_mesh((PS_SHARDS,))
+    for line in PS24:
+        res, wall = drive_struct(line, dev)
+        A_sh, (bs,) = shard_struct(res.A, [np.ones(res.A.shape)], mesh)
+        t = time.perf_counter()
+        rs = shard_solver(res.solver, A_sh.layout).solve(bs)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t
+        x = A_sh.layout.to_host(rs.x)
+        xr = res.x.cpu().numpy()
+        dx = ps_rel(x, xr)
+        require(rs.num_iterations == res.num_iterations and dx <= PS_XTOL,
+                f"par_struct (f) {line}: sharded {rs.num_iterations} / serial "
+                f"{res.num_iterations}, x {dx:.2e}")
+        out[line] = {"iterations": int(rs.num_iterations), "x_rel_to_serial": dx,
+                     "x_bitwise": bool(np.array_equal(x, xr)),
+                     "solve_s": solve_s, "serial_driver_s": wall}
+    log(f"par_struct (f) [{card}] Jacobi / hybrid 24^3 on 4 shards vs the "
+        f"serial card run: {out}")
+    return out
+
+
+def ps_amgdd(dev, card) -> tuple:
+    """(g): AMGDDDevice at 24^3, 8 domains on 4 shards, f64 and f32: one
+    sharded cycle against the unsharded one on the card (f64 1e-12, f32
+    phase 16 (g)'s 1e-5), K2 launches a shard as `shard_launches` predicts; the
+    stationary solve with the sharded f64 cycle at AUX_DD24 and the
+    unsharded count; PCG with it at 10^3 at the unsharded count."""
+    from hypre_tpu_torch.models import laplacian_7pt
+    from hypre_tpu_torch.ops.dia import kernel_launches, spmv
+    from hypre_tpu_torch.solvers.amg import (AMGDD, AMGDDDevice, AMGDDOptions,
+                                             BoomerAMG, BoomerAMGOptions)
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+
+    mesh, _ = ps_mesh((PS_SHARDS,))
+    total = {name: 0 for name in read_counts()}
+
+    def counted(fn):
+        zero_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        c = read_counts()
+        for k in total:
+            total[k] += c[k]
+        return r, c
+
+    def build(nx):
+        amg = BoomerAMG(laplacian_7pt(nx, nx, nx), BoomerAMGOptions(**DD_AMG),
+                        device=dev)
+        return amg, AMGDD(amg, AMGDDOptions(num_domains=8, padding=2))
+
+    t = time.perf_counter()
+    amg, dd = build(PS_DD_NX)
+    setup_s = time.perf_counter() - t
+    n = amg.levels[0].A.num_rows
+    rt = torch.from_numpy(np.random.default_rng(2020).standard_normal(n)).to(dev)
+    out = {"setup_s": setup_s}
+    for dtype, tol in ((np.float64, 1e-12), (np.float32, 1e-5)):
+        one = AMGDDDevice(dd, dtype=dtype, device=dev)
+        sh = AMGDDDevice(dd, dtype=dtype, mesh=mesh)
+        z1 = one.cycle(rt)
+        zs, c = counted(lambda: sh.cycle(rt))
+        want = expect([(sh.cycle_launches(), 1)])
+        rel = ps_rel(zs.cpu().numpy(), z1.cpu().numpy())
+        key = np.dtype(dtype).name
+        require(rel <= tol, f"par_struct (g) {key}: the sharded cycle is "
+                            f"{rel:.2e} from the unsharded one")
+        require(c == want, f"par_struct (g) {key}: launches {c}, predicted "
+                           f"{want} ({sh.shard_launches()} a shard)")
+        out[key] = {"cycle_rel_to_unsharded": rel,
+                    "bitwise": bool(torch.equal(zs, z1)), "launches": c,
+                    "per_shard": sh.shard_launches(),
+                    "cycle_ms": solve_median_ms(lambda: sh.cycle(rt))[0],
+                    "unsharded_cycle_ms": solve_median_ms(lambda: one.cycle(rt))[0]}
+        if dtype == np.float64:
+            E = amg.levels[0].A
+            b = torch.ones(n, dtype=torch.float64, device=dev)
+
+            def stationary(dv):
+                x, its = torch.zeros_like(b), 0
+                bn = float(torch.linalg.vector_norm(b))
+                while its < 100:
+                    r = b - spmv(E, x)
+                    if float(torch.linalg.vector_norm(r)) / bn < 1e-8:
+                        break
+                    x, its = x + dv.cycle(r), its + 1
+                return its
+
+            its, c = counted(lambda: stationary(sh))
+            its1 = stationary(one)
+            want = expect([(sh.cycle_launches(), its),
+                           (kernel_launches(E), its + 1)])
+            require(its == its1 == AUX_DD24 and c == want,
+                    f"par_struct (g): stationary solve {its} (unsharded {its1}, "
+                    f"pinned {AUX_DD24}), launches {c}, predicted {want}")
+            out["stationary"] = {"iterations": its, "launches": c}
+            amg10, dd10 = build(PS_DD_PCG_NX)
+            E10 = amg10.levels[0].A
+            b10 = torch.ones(E10.num_rows, dtype=torch.float64, device=dev)
+            opts = PCGOptions(tol=1e-8, max_iter=100)
+            sh10 = AMGDDDevice(dd10, dtype=np.float64, mesh=mesh)
+            res, c = counted(lambda: pcg(lambda v: spmv(E10, v), b10,
+                                         M=sh10.precond, opts=opts))
+            ref = pcg(lambda v: spmv(E10, v), b10, M=AMGDDDevice(
+                dd10, dtype=np.float64, device=dev).precond, opts=opts)
+            k = res.num_iterations
+            # PCG applies M to b, to r0 and once an iteration, A to x0
+            # and once an iteration (the two-norm test off)
+            want = expect([(sh10.cycle_launches(), k + 2),
+                           (kernel_launches(E10), k + 1)])
+            require(res.converged and k == ref.num_iterations and c == want,
+                    f"par_struct (g): PCG at 10^3 {k} (unsharded "
+                    f"{ref.num_iterations}), launches {c}, predicted {want}")
+            out["pcg_10"] = {"iterations": k, "launches": c}
+    log(f"par_struct (g) [{card}] AMG-DD {PS_DD_NX}^3, 8 domains on 4 shards: "
+        f"{out}")
+    return out, total
+
+
+def phase_par_struct(dev, card, kept=None):
+    """Phase 20: the sharded struct stack and AMG-DD's sharded domains
+    (module docstring); `kept`: phase 17's (A, solver) of its (a) and (c)
+    lines (PS_KEPT), else they are built here.  Returns (numbers, the
+    launches of the phase's counted runs)."""
+    t0 = time.perf_counter()
+    log(f"par_struct: {PS_SHARDS} shards on the card(s): {PAR_CARD_NOTE}")
+    seconds, runs, cache = {}, {}, dict(kept or {})
+    for label in PS96:
+        t = time.perf_counter()
+        runs[label] = ps_struct96(label, dev, card, cache)
+        seconds[label] = time.perf_counter() - t
+    del cache
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    runs["(d) [REF]"] = ps_ref_lines(dev, card)
+    seconds["(d)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    runs["(e) SparseMSG"], msg_counts = ps_sparse_msg(dev, card)
+    seconds["(e)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    runs["(f) Jacobi / hybrid"] = ps_jacobi_hybrid(dev, card)
+    seconds["(f)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    runs["(g) AMG-DD"], dd_counts = ps_amgdd(dev, card)
+    seconds["(g)"] = time.perf_counter() - t
+    total = {k: msg_counts[k] + dd_counts[k] for k in msg_counts}
+    for name in ("ell_spmv", "take_along_axis", "flat_take"):
+        require(total[name] > 0, f"par_struct: the phase launched no {name}")
+    runs["seconds"] = seconds
+    log(f"par_struct seconds { {k: round(v, 1) for k, v in seconds.items()} }")
+    log(f"par_struct launches: {total}")
+    log(f"the sharded struct phase took {time.perf_counter() - t0:.1f} s")
+    return runs, total
+
+
 def counted_wrappers():
     """{kernel name: its wrapper}; each wrapper's `launches` counts its
     kernel's launches."""
@@ -6150,7 +6605,7 @@ def main() -> int:
     family, family_small, family_total, dd_gathers = phase_family(dev, card)
 
     # -- 17. the struct interface -------------------------------------------
-    struct, struct_total = phase_struct(dev, card, struct_matvec)
+    struct, struct_total, struct_kept = phase_struct(dev, card, struct_matvec)
 
     # -- 18. the sstruct interface ------------------------------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -6160,10 +6615,15 @@ def main() -> int:
     par, par_total = phase_par(dev, card, flush)
     del flush
 
+    # -- 20. the sharded struct stack, AMG-DD's sharded domains ------------
+    par_struct, par_struct_total = phase_par_struct(dev, card, struct_kept)
+    del struct_kept
+
     # `launches` counts the two f64 96^3 runs, the plain path's and the
     # lattice path's, phase 16's lines (a)-(h), phase 17's (a)-(e),
-    # phase 18's (a)-(g) and phase 19's two sharded solves,
-    # each driven with the counts at 0 just before and read just after;
+    # phase 18's (a)-(g), phase 19's two sharded solves and phase 20's
+    # counted runs, each driven with the counts at 0 just before and read
+    # just after;
     # "per" says what the times cover
     def entry(name, source, replaces, err, ms, plain_ms, lib_ms, bms, by,
               **per):
@@ -6171,7 +6631,7 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": (path64[name] + lat64[name] + family_total[name]
                              + struct_total[name] + sstruct_total[name]
-                             + par_total[name]),
+                             + par_total[name] + par_struct_total[name]),
                 "path_launches": {"plain f64": path64[name],
                                   "lattice f64": lat64[name],
                                   "plain f32/bf16": path32[name],
@@ -6194,7 +6654,8 @@ def main() -> int:
                                   "family": family_total[name],
                                   "struct": struct_total[name],
                                   "sstruct": sstruct_total[name],
-                                  "par": par_total[name]},
+                                  "par": par_total[name],
+                                  "par_struct": par_struct_total[name]},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **per}
 
@@ -6290,7 +6751,8 @@ def main() -> int:
         "replaces": "hypre_tpu/solvers/amg/relax.py:174",
         "tpu_form": "lax.scan over the wavefronts, no Pallas kernel",
         "launches": (gs64["launches"]["gs_sweep"] + family_total["gs_sweep"]
-                     + sstruct_total["gs_sweep"] + par_total["gs_sweep"]),
+                     + sstruct_total["gs_sweep"] + par_total["gs_sweep"]
+                     + par_struct_total["gs_sweep"]),
         "path_launches": {**{k: v["launches"]["gs_sweep"]
                              for k, v in gs_runs.items()},
                           **{f"cycles {k}": v["launches"]["gs_sweep"]
@@ -6303,7 +6765,8 @@ def main() -> int:
                              for k, v in ij_runs.items()},
                           "family": family_total["gs_sweep"],
                           "sstruct": sstruct_total["gs_sweep"],
-                          "par": par_total["gs_sweep"]},
+                          "par": par_total["gs_sweep"],
+                          "par_struct": par_struct_total["gs_sweep"]},
         "syncfree_launches": {k: v["syncfree_launches"]
                               for k, v in gs_runs.items() if k.startswith("gs")},
         "max_abs_err": gs_err, "ms": gs_tot[0], "earlier_ms": gs_tot[1],
@@ -6331,7 +6794,8 @@ def main() -> int:
                     "systems_24": systems24, "ij": ij_runs,
                     "ij_assembly": ij_asm, "ij_24": ij_small,
                     "family": family, "family_small": family_small,
-                    "struct": struct, "sstruct": sstruct, "par": par}))
+                    "struct": struct, "sstruct": sstruct, "par": par,
+                    "par_struct": par_struct}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

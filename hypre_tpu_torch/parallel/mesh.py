@@ -16,6 +16,11 @@ collectives below take and return such lists:
   * `all_gather`: the blocks concatenated in shard order on each
     shard's device.
 
+`MeshND` (`make_mesh_nd`) arranges the shards in a process grid with
+named axes, the JAX package's N-D mesh for the sharded struct stack
+(par_struct.py); the collectives see only its flat list of blocks, in
+row-major order over the grid.
+
 Between distinct devices a block moves by a peer copy
 (`Tensor.to(dst, non_blocking=True)`); on a shared device it is the
 block itself (the callers never write into a received block).  Shards
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..utils.errors import arg_error
@@ -73,6 +79,48 @@ def make_mesh(n_devices: int | None = None, devices=None,
     if not devs:
         raise arg_error("a mesh needs at least one shard")
     return Mesh(devices=devs, axis=axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshND:
+    """A process grid: prod(dims) shards arranged row-major in an N-D
+    grid of `dims`, axis k named axis_names[k] (the JAX package's
+    `make_mesh_nd`); shard s, at grid position
+    `np.unravel_index(s, dims)`, lives on devices[s].  A class beside
+    the 1-D `Mesh`, whose users (par_csr, par_dia, par_amg, dist_setup,
+    entry.dryrun_multichip) stay as they are; the collectives below
+    take both, since they see only the flat list of blocks.  Only the
+    sharded struct stack (par_struct.py) reads the grid."""
+
+    devices: tuple
+    dims: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size} in axis order, as a JAX mesh's `shape`."""
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_mesh_nd(shape, axes=None, devices=None) -> MeshND:
+    """A process grid of `shape` (the struct -P px py pz analog): with
+    `devices` (prod(shape) torch device names, repeats allowed) shard s
+    lives on devices[s]; otherwise on CUDA device s, and asking for more
+    shards than `torch.cuda.device_count()` raises, as `make_mesh` does.
+    Axis names default to shard0, shard1, ... (the JAX package's)."""
+    dims = tuple(int(p) for p in shape)
+    if not dims or min(dims) < 1:
+        raise arg_error(f"a process grid needs positive sizes, got {shape}")
+    n = int(np.prod(dims))
+    names = tuple(axes) if axes else tuple(f"{AXIS}{d}" for d in range(len(dims)))
+    if len(names) != len(dims) or len(set(names)) != len(names):
+        raise arg_error(f"axis names {names} for a grid of {dims}")
+    flat = make_mesh(n, devices)
+    return MeshND(devices=flat.devices, dims=dims, axis_names=names)
 
 
 def default_mesh() -> Mesh:

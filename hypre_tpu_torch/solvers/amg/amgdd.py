@@ -18,8 +18,19 @@ composite levels padded to common shapes and stacked on a leading
 domain axis, each composite matvec a batched ELL product whose gather
 is a hand kernel on the card (ops/gather_kernel.py): the tiled
 take_along_axis (K2 (a)) for float32 vectors, flat_take (K2 (c)) over
-the flattened vectors for float64.  The domain axis's sharding across
-cards is not ported yet.
+the flattened vectors for float64.
+
+`AMGDDDevice(dd, dtype, mesh=...)` splits the domain axis over the
+mesh's shards (the JAX package places the stacked levels with a
+NamedSharding on the domain axis): shard s holds the stacked levels of
+domains [s c, min((s + 1) c, D)), c = ceil(D / S) (the even split; where
+S does not divide D the last shards hold fewer, and a shard with none
+does no work), on its own device, at the unsharded padded shapes.  A
+cycle is one residual distribution (r moved to each shard, one
+flat_take a shard), the batched cycle a shard, and one owned-correction
+gather: each shard's owned rows written into z on shard 0's device (the
+owned rows are disjoint, so the order does not matter).  Without a
+mesh the same cycle runs on one shard that holds every domain.
 """
 
 from __future__ import annotations
@@ -242,59 +253,37 @@ class AMGDDDevice:
     JAX package's); `cycle` casts r to it.
     """
 
-    def __init__(self, dd: AMGDD, dtype=np.float32, *, device="cuda"):
+    def __init__(self, dd: AMGDD, dtype=np.float32, *, device="cuda",
+                 mesh=None):
+        """`mesh` (parallel/mesh.py): split the domain axis over its
+        shards (module docstring); `device` is then shard 0's.  Without
+        a mesh, one shard on `device` holds every domain."""
         self.opts = dd.opts
-        self.device = dev = torch.device(device)
+        self.mesh = mesh
+        devices = [device] if mesh is None else list(mesh.devices)
+        self.device = dev = torch.device(devices[0])
         dtype = np.dtype(dtype)
         self.dtype = getattr(torch, dtype.name)
         self.n0 = dd.amg._host_A[0].shape[0]
         D = len(dd.domains)
-        L = len(dd.domains[0])
-        self.num_levels = L
-        levs = []
-        for l in range(L):
-            nmax = max(len(dom[l]["idx"]) for dom in dd.domains)
-            cols, vals = _ell_stack([dom[l]["A"].tocsr() for dom in dd.domains],
-                                    nmax, dtype)
-            dinv = np.zeros((D, nmax), dtype)
-            for d, dom in enumerate(dd.domains):
-                dinv[d, :dom[l]["A"].shape[0]] = dom[l]["dinv"]
-            ent = dict(A=BatchedELL.build(cols, vals, nmax, dev),
-                       dinv=torch.from_numpy(dinv).to(dev))
-            if l < L - 1:
-                ncmax = max(len(dom[l + 1]["idx"]) for dom in dd.domains)
-                Ps = [dom[l]["P"].tocsr() for dom in dd.domains]
-                # R = P^T stored as ELL too, its width from the actual
-                # transpose row widths
-                ent["P"] = BatchedELL.build(*_ell_stack(Ps, nmax, dtype),
-                                            ncmax, dev)
-                ent["R"] = BatchedELL.build(
-                    *_ell_stack([P.T.tocsr() for P in Ps], ncmax, dtype),
-                    nmax, dev)
-            else:
-                inv = np.zeros((D, nmax, nmax), dtype)
-                for d, dom in enumerate(dd.domains):
-                    nl = dom[l]["A"].shape[0]
-                    inv[d, :nl, :nl] = dom[l]["inv"]
-                ent["inv"] = torch.from_numpy(inv).to(dev)
-            levs.append(ent)
-        self.levels = levs
+        self.num_levels = len(dd.domains[0])
+        self.num_shards = S = len(devices)
+        c = -(-D // S)
+        self.shards = []
+        for s, sdev in enumerate(devices):
+            d0, d1 = min(s * c, D), min((s + 1) * c, D)
+            if d1 > d0:
+                self.shards.append(_DDShard(dd, dtype, sdev, s, d0, d1,
+                                            self.n0, dev))
 
-        # residual scatter / owned-correction gather index plans
-        cmax0 = max(len(dom[0]["idx"]) for dom in dd.domains)
-        gidx = np.full((D, cmax0), self.n0, np.int32)  # pad -> zero sink
-        tgt = np.full((D, cmax0), self.n0, np.int64)
-        for d, dom in enumerate(dd.domains):
-            idx = dom[0]["idx"]
-            gidx[d, :len(idx)] = idx
-            own = dom[0]["owned"]
-            tgt[d, :len(idx)] = np.where(own, idx, self.n0)
-        self.gidx = torch.from_numpy(gidx).to(dev)
-        self.tgt = torch.from_numpy(tgt.reshape(-1)).to(dev)
+    @property
+    def levels(self) -> list:
+        """Shard 0's stacked levels (every domain's when unsharded)."""
+        return self.shards[0].levels
 
-    def _vcycle(self, l, u, f):
+    def _vcycle(self, l, u, f, levels):
         o = self.opts
-        lv = self.levels[l]
+        lv = levels[l]
         if l == self.num_levels - 1:
             return torch.einsum("dij,dj->di", lv["inv"], f)
         w = o.relax_weight
@@ -302,7 +291,7 @@ class AMGDDDevice:
             u = u + w * lv["dinv"] * (f - batched_ell_spmv(lv["A"], u))
         r = f - batched_ell_spmv(lv["A"], u)
         fc = batched_ell_spmv(lv["R"], r)
-        ec = self._vcycle(l + 1, torch.zeros_like(fc), fc)
+        ec = self._vcycle(l + 1, torch.zeros_like(fc), fc, levels)
         u = u + batched_ell_spmv(lv["P"], ec)
         for _ in range(o.num_relax):
             u = u + w * lv["dinv"] * (f - batched_ell_spmv(lv["A"], u))
@@ -310,34 +299,111 @@ class AMGDDDevice:
 
     def cycle(self, r):
         """One AMG-DD iteration on every domain at once: z of r's length
-        in the cycle's dtype."""
-        o = self.opts
+        in the cycle's dtype, on shard 0's device."""
         r = r.to(self.dtype)
         rp = torch.cat([r, r.new_zeros(1)])
-        f = flat_take(rp, self.gidx)  # ONE residual distribution
-        u = torch.zeros_like(f)
-        for _ in range(o.fac_cycles):
-            u = self._vcycle(0, u, f)
-        # ONE owned-correction gather.  Every padded or ghost slot writes
-        # to the sink n0, so several writes land there and on the card
-        # its value is whichever came last; it is dropped.  The owned
-        # indices are unique, so z[:n0] is deterministic.
-        z = r.new_zeros(self.n0 + 1)
-        z[self.tgt] = u.reshape(-1)
-        return z[: self.n0]
+        z = rp.new_zeros(self.n0, device=self.device)
+        for sh in self.shards:
+            # ONE residual distribution: r to the shard, one flat_take
+            rs = rp if rp.device == sh.device else rp.to(sh.device)
+            f = flat_take(rs, sh.gidx)
+            u = torch.zeros_like(f)
+            for _ in range(self.opts.fac_cycles):
+                u = self._vcycle(0, u, f, sh.levels)
+            # ONE owned-correction gather, combined on shard 0; the
+            # owned rows are disjoint, so z is deterministic
+            own = u.reshape(-1)[sh.own_pos]
+            z[sh.own_gid] = own.to(self.device)
+        return z
 
     def cycle_launches(self) -> dict:
-        """{kernel name: launches} of one `cycle` on the card: a gather a
+        """{kernel name: launches} of one `cycle` on the card, the sum of
+        `shard_launches`."""
+        out = {"take_along_axis": 0, "flat_take": 0}
+        for c in self.shard_launches():
+            for k, v in c.items():
+                out[k] += v
+        return out
+
+    def shard_launches(self) -> list:
+        """The launches of one `cycle` on each shard: a gather a
         composite matvec (num_relax sweeps before and after, the
         residual, R and P on every level but the coarsest, fac_cycles
         times), take_along_axis for float32 and flat_take for float64,
-        and the residual distribution's flat_take."""
+        and the residual distribution's flat_take; a shard with no
+        domains launches nothing."""
         o = self.opts
         mv = o.fac_cycles * (self.num_levels - 1) * (2 * o.num_relax + 3)
-        if self.dtype == torch.float32:
-            return {"take_along_axis": mv, "flat_take": 1}
-        return {"take_along_axis": 0, "flat_take": mv + 1}
+        each = ({"take_along_axis": mv, "flat_take": 1}
+                if self.dtype == torch.float32
+                else {"take_along_axis": 0, "flat_take": mv + 1})
+        held = {sh.index for sh in self.shards}
+        return [dict(each) if s in held
+                else {"take_along_axis": 0, "flat_take": 0}
+                for s in range(self.num_shards)]
 
     @property
     def precond(self):
         return self.cycle
+
+
+def _stack_levels(dd: AMGDD, dtype, dev, d0: int, d1: int) -> list:
+    """The composite levels of domains [d0, d1) stacked on the domain
+    axis on `dev`, at the shapes of all the domains (every level padded
+    to the largest domain's rows and widest row, as unsharded)."""
+    doms = dd.domains
+    L = len(doms[0])
+    levs = []
+    for l in range(L):
+        nmax = max(len(dom[l]["idx"]) for dom in doms)
+        cols, vals = _ell_stack([dom[l]["A"].tocsr() for dom in doms],
+                                nmax, dtype)
+        dinv = np.zeros((len(doms), nmax), dtype)
+        for d, dom in enumerate(doms):
+            dinv[d, :dom[l]["A"].shape[0]] = dom[l]["dinv"]
+        ent = dict(A=BatchedELL.build(cols[d0:d1], vals[d0:d1], nmax, dev),
+                   dinv=torch.from_numpy(dinv[d0:d1]).to(dev))
+        if l < L - 1:
+            ncmax = max(len(dom[l + 1]["idx"]) for dom in doms)
+            Ps = [dom[l]["P"].tocsr() for dom in doms]
+            # R = P^T stored as ELL too, its width from the actual
+            # transpose row widths
+            pc, pv = _ell_stack(Ps, nmax, dtype)
+            rc, rv = _ell_stack([P.T.tocsr() for P in Ps], ncmax, dtype)
+            ent["P"] = BatchedELL.build(pc[d0:d1], pv[d0:d1], ncmax, dev)
+            ent["R"] = BatchedELL.build(rc[d0:d1], rv[d0:d1], nmax, dev)
+        else:
+            inv = np.zeros((d1 - d0, nmax, nmax), dtype)
+            for d in range(d0, d1):
+                nl = doms[d][l]["A"].shape[0]
+                inv[d - d0, :nl, :nl] = doms[d][l]["inv"]
+            ent["inv"] = torch.from_numpy(inv).to(dev)
+        levs.append(ent)
+    return levs
+
+
+class _DDShard:
+    """Shard `index` of an AMGDDDevice: domains [d0, d1) on
+    `device`, with the residual distribution's index table, the owned
+    rows' positions in its flattened u, and their global rows on
+    `target` (where the corrections are combined)."""
+
+    def __init__(self, dd: AMGDD, dtype, device, index: int, d0: int,
+                 d1: int, n0: int, target):
+        self.index = index
+        self.device = dev = torch.device(device)
+        self.levels = _stack_levels(dd, dtype, dev, d0, d1)
+        cmax0 = max(len(dom[0]["idx"]) for dom in dd.domains)
+        gidx = np.full((d1 - d0, cmax0), n0, np.int32)  # pad -> zero sink
+        pos, gid = [], []
+        for d in range(d0, d1):
+            lv0 = dd.domains[d][0]
+            idx = lv0["idx"]
+            gidx[d - d0, :len(idx)] = idx
+            own = np.flatnonzero(lv0["owned"])
+            pos.append((d - d0) * cmax0 + own)
+            gid.append(idx[own])
+        self.gidx = torch.from_numpy(gidx).to(dev)
+        self.own_pos = torch.from_numpy(np.concatenate(pos)).to(dev)
+        self.own_gid = torch.from_numpy(
+            np.concatenate(gid).astype(np.int64)).to(target)

@@ -6,16 +6,19 @@ Reference: struct_ls/hybrid.c — run DSCG monitoring the convergence
 factor against cf_tol (default 0.90); if DSCG is converging too slowly,
 switch to PFMG(/SMG)-preconditioned Krylov.  Same pattern as
 parcsr_ls/amg_hybrid.c.  The switch is decided on the host between the
-two solves.
+two solves.  On a sharded grid (parallel/par_struct.py::shard_solver)
+both phases run on the blocks, the PFMG of phase 2 on the same layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ...struct.matrix import StructMatrix, struct_matvec
 from ..krylov import PCGOptions, pcg
-from ..krylov.common import SolverResult
+from ..krylov.common import SolverResult, tmap
 from .jacobi import inverse_diagonal
 from .pfmg import PFMG, PFMGOptions
 
@@ -41,6 +44,10 @@ class StructHybrid:
         self._pfmg = None  # built lazily on switch
         self.dscg = None  # phase 1's result, once solved
 
+    def _build_pfmg(self) -> PFMG:
+        """Phase 2's preconditioner, set up on the switch."""
+        return PFMG(self.A, self.opts.pfmg)
+
     def solve(self, b, x0=None) -> SolverResult:
         o = self.opts
         op = lambda x: struct_matvec(self.A, x)
@@ -49,7 +56,7 @@ class StructHybrid:
             op,
             b,
             x0=x0,
-            M=lambda r: self._dinv * r,
+            M=lambda r: tmap(torch.mul, self._dinv, r),
             opts=PCGOptions(
                 tol=o.tol,
                 max_iter=o.dscg_max_iter,
@@ -62,7 +69,7 @@ class StructHybrid:
             return res
         # phase 2: PFMG-preconditioned CG continuing from phase-1 iterate
         if self._pfmg is None:
-            self._pfmg = PFMG(self.A, o.pfmg)
+            self._pfmg = self._build_pfmg()
         return pcg(
             op,
             b,

@@ -3,7 +3,9 @@ reference: struct_ls/jacobi.c — pointwise Jacobi iteration as a
 standalone StructSolver, used by SStruct Split).
 
 The JAX package's `lax.while_loop` is a host loop here that reads the
-stop flag once an iteration.
+stop flag once an iteration.  On a sharded grid
+(parallel/par_struct.py::shard_solver) the product exchanges and the
+dots add the shards' dots in shard order.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from ...struct.matrix import StructMatrix, struct_matvec
-from ..krylov.common import SolverResult
+from ..krylov.common import SolverResult, tdot, tfirst, tsub, tzeros_like
 from .relax import point_jacobi
 
 
@@ -44,18 +46,19 @@ class StructJacobi:
 
     def solve(self, b, x0=None) -> SolverResult:
         o = self.opts
-        x = torch.zeros_like(b) if x0 is None else x0
-        b_dot_b = torch.dot(b.reshape(-1), b.reshape(-1))
+        x = tzeros_like(b) if x0 is None else x0
+        b_dot_b = tdot(b, b)
         bb = torch.where(b_dot_b > 0, b_dot_b, 1.0)
         eps = o.tol**2
-        norms = torch.full((o.max_iter + 1,), float("nan"), dtype=b.dtype,
-                           device=b.device)
-        rr = torch.tensor(float("inf"), dtype=b.dtype, device=b.device)
+        b0 = tfirst(b)
+        norms = torch.full((o.max_iter + 1,), float("nan"), dtype=b0.dtype,
+                           device=b0.device)
+        rr = torch.tensor(float("inf"), dtype=b0.dtype, device=b0.device)
         i, done = 0, False
         while i < o.max_iter and not done:
             x = point_jacobi(self.A, self.dinv, x, b, o.weight)
-            r = b - struct_matvec(self.A, x)
-            rr = torch.dot(r.reshape(-1), r.reshape(-1))
+            r = tsub(b, struct_matvec(self.A, x))
+            rr = tdot(r, r)
             norms[i + 1] = torch.sqrt(rr)
             done = bool(rr / bb < eps)
             i += 1

@@ -18,6 +18,13 @@ level's residual / relax is a stencil matvec and elementwise ops;
 restriction and interpolation are strided-slice adds along the level's
 cdir.  `solve` is a host loop with one host read an iteration (the
 residual norm), where the JAX package runs a `lax.while_loop`.
+
+On a sharded grid (parallel/par_struct.py::shard_solver) each level's
+operator, inverse diagonal, red mask and transfer (`xfer`) are cut to
+the level's layout (the fine one projected onto each coarse grid), so
+`solve`, `cycle` and `precond` take and return tuples of grid blocks.
+Each point's arithmetic is the serial one; only the stop test's dot
+sums the shards' dots in shard order.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 
 from ...struct.matrix import StructMatrix, struct_matvec
 from ...utils.timing import timed
-from ..krylov.common import SolverResult
+from ..krylov.common import (SolverResult, tdot, tfirst, tmap, tsub,
+                             tzeros_like)
 from .relax import parity_mask, red_black_gs
 
 REAL_MAX = 1.7976931348623157e308
@@ -62,6 +70,7 @@ class _Level:
     p_lo: Optional[torch.Tensor] = None  # interp weights at odd fine points
     p_hi: Optional[torch.Tensor] = None
     red_mask: Optional[torch.Tensor] = None  # parity coloring (relax 2/3)
+    xfer: object = None  # the sharded transfer (par_struct.ShardedSemi)
 
 
 def _host_data(A: StructMatrix) -> np.ndarray:
@@ -234,8 +243,9 @@ def semi_interp_add(x: torch.Tensor, axis: int, p_lo, p_hi,
     return x
 
 
-def _rr(r: torch.Tensor) -> torch.Tensor:
-    return torch.dot(r.reshape(-1), r.reshape(-1))
+def _rr(r) -> torch.Tensor:
+    """<r, r>: a grid tensor's flat dot, or the shards' dots in order."""
+    return tdot(r, r)
 
 
 class PFMG:
@@ -369,27 +379,33 @@ class PFMG:
         if self.opts.relax_type in (2, 3):
             for s in range(sweeps):
                 if zero_guess and s == 0:
-                    x = torch.where(lvl.red_mask, lvl.dinv * b, 0.0)
-                    r = b - struct_matvec(lvl.A, x)
-                    x = torch.where(~lvl.red_mask, lvl.dinv * r, x)
+                    x = tmap(lambda m, d, bb: torch.where(m, d * bb, 0.0),
+                             lvl.red_mask, lvl.dinv, b)
+                    r = tsub(b, struct_matvec(lvl.A, x))
+                    x = tmap(lambda m, d, rr, xx: torch.where(~m, d * rr, xx),
+                             lvl.red_mask, lvl.dinv, r, x)
                 else:
                     x = red_black_gs(lvl.A, lvl.dinv, x, b, lvl.red_mask)
             return x
         w = lvl.weight
         for s in range(sweeps):
             if zero_guess and s == 0:
-                x = w * lvl.dinv * b
+                x = tmap(lambda d, bb: w * d * bb, lvl.dinv, b)
             else:
-                r = b - struct_matvec(lvl.A, x)
-                x = x + w * lvl.dinv * r
+                r = tsub(b, struct_matvec(lvl.A, x))
+                x = tmap(lambda xx, d, rr: xx + w * d * rr, x, lvl.dinv, r)
         return x
 
     def _restrict(self, lvl: _Level, r):
         """b_c = P^T r along cdir (semi_restrict.c)."""
+        if lvl.xfer is not None:
+            return lvl.xfer.restrict(r)
         return semi_restrict(r, lvl.cdir, lvl.p_lo, lvl.p_hi)
 
     def _interp_add(self, lvl: _Level, x, e_c):
         """x += P e_c (semi_interp.c), in place on x."""
+        if lvl.xfer is not None:
+            return lvl.xfer.interp_add(x, e_c)
         return semi_interp_add(x, lvl.cdir, lvl.p_lo, lvl.p_hi, e_c)
 
     def _vcycle(self, b):
@@ -401,13 +417,13 @@ class PFMG:
         def down(l, bl):
             lvl = lvls[l]
             if l == L - 1:
-                return self._relax(lvl, torch.zeros_like(bl), bl, 1, True)
+                return self._relax(lvl, tzeros_like(bl), bl, 1, True)
             if lvl.active:
-                x = self._relax(lvl, torch.zeros_like(bl), bl, o.num_pre_relax,
+                x = self._relax(lvl, tzeros_like(bl), bl, o.num_pre_relax,
                                 True)
             else:
-                x = torch.zeros_like(bl)
-            r = bl - struct_matvec(lvl.A, x)
+                x = tzeros_like(bl)
+            r = tsub(bl, struct_matvec(lvl.A, x))
             bc = self._restrict(lvl, r)
             ec = down(l + 1, bc)
             x = self._interp_add(lvl, x, ec)
@@ -430,9 +446,9 @@ class PFMG:
         o = self.opts
         lvl0 = self.levels[0]
         zero_guess = u is None
-        u = torch.zeros_like(f) if u is None else u.clone()
+        u = tzeros_like(f) if u is None else tmap(torch.clone, u)
         u = self._relax(lvl0, u, f, o.num_pre_relax, zero_guess)
-        r = f - struct_matvec(lvl0.A, u)
+        r = tsub(f, struct_matvec(lvl0.A, u))
         u = self._fine_correction(u, r)
         u = self._relax(lvl0, u, f, o.num_post_relax, False)
         return u
@@ -448,17 +464,18 @@ class PFMG:
         an iteration: the residual's squared norm."""
         o = self.opts
         lvl0 = self.levels[0]
-        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        x = tzeros_like(b) if x0 is None else tmap(torch.clone, x0)
         b_dot_b = float(_rr(b))
         bb = b_dot_b if b_dot_b > 0 else 1.0
         eps = o.tol**2
-        norms = torch.full((o.max_iter + 1,), float("nan"), dtype=b.dtype,
-                           device=b.device)
+        b0 = tfirst(b)
+        norms = torch.full((o.max_iter + 1,), float("nan"), dtype=b0.dtype,
+                           device=b0.device)
         zg = bool(o.zero_guess and x0 is None)
         i, rr, done = 0, float("inf"), False
         while i < o.max_iter and not done:
             x = self._relax(lvl0, x, b, o.num_pre_relax, zg)
-            r = b - struct_matvec(lvl0.A, x)
+            r = tsub(b, struct_matvec(lvl0.A, x))
             rr_t = _rr(r)
             norms[i] = torch.sqrt(rr_t)
             rr = float(rr_t)
@@ -473,8 +490,8 @@ class PFMG:
         return SolverResult(
             x=x,
             num_iterations=i - 1 if done else i,
-            rel_residual_norm=torch.tensor(np.sqrt(rr / bb), dtype=b.dtype,
-                                           device=b.device),
+            rel_residual_norm=torch.tensor(np.sqrt(rr / bb), dtype=b0.dtype,
+                                           device=b0.device),
             converged=done,
             res_norms=norms,
         )

@@ -18,6 +18,16 @@ plane solves on the device (six V-cycles for the recursive planes, as
 in the JAX package); the Galerkin products run on the host.  The cycle
 is plain functions driven by a host loop (the JAX package compiles each
 level's pieces); `solve` reads one number an iteration.
+
+On a sharded grid (parallel/par_struct.py::shard_solver; the setup
+stays serial) the cycle takes tuples of grid blocks.  SMG's planes span
+the first two axes.  Cut along the last axis, every plane is whole on
+one shard and each shard solves its own planes (`WholePlanes`).  Cut along axis 0 or 1, a plane
+is spread over shards: the residual is gathered whole (the layout's
+all-gather) onto each distinct device of the shards, the serial plane
+solve runs there once, and each shard keeps its part (`CutPlanes`),
+bitwise the serial update; a distributed plane solve (a PCR across
+shards) would avoid the gather.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import torch
 
 from ...struct.matrix import StructMatrix, struct_matvec
 from ...utils.timing import timed
-from ..krylov.common import SolverResult
+from ..krylov.common import SolverResult, tdot, tfirst, tmap, tsub, tzeros_like
 from .pfmg import _build_P, _take_axis, semi_interp_add, semi_restrict
 
 # largest plane (points) solved by precomputed dense inverses; beyond
@@ -57,6 +67,7 @@ class _Level:
     planes: object  # _DensePlanes | _RecursivePlanes
     p_lo: Optional[torch.Tensor] = None
     p_hi: Optional[torch.Tensor] = None
+    xfer: object = None  # the sharded transfer (par_struct.ShardedSemi)
 
 
 class _DensePlanes:
@@ -68,6 +79,12 @@ class _DensePlanes:
     def solve(self, rm, cycles: int = 1, batch=None):
         inv = self.inv if batch is None else self.inv[batch]
         return torch.bmm(inv, rm[:, :, None])[:, :, 0]
+
+    def cut(self, planes: slice, device) -> "_DensePlanes":
+        """The solver of the planes `planes` only, on `device`."""
+        new = _DensePlanes.__new__(_DensePlanes)
+        new.inv = self.inv[planes].to(device)
+        return new
 
 
 class _RecursivePlanes:
@@ -100,6 +117,84 @@ class _RecursivePlanes:
         r3 = torch.swapaxes(r3, 1, 2)                  # [B, a2, a1]
         x3 = self.smg2.solve(r3.contiguous(), cycles=cycles, batch=batch)
         return torch.swapaxes(x3, 1, 2).reshape(nz, -1)
+
+    def cut(self, planes: slice, device) -> "_RecursivePlanes":
+        """The solver of the planes `planes` only, on `device`."""
+        new = _RecursivePlanes.__new__(_RecursivePlanes)
+        new.pshape = self.pshape
+        new.smg2 = self.smg2.cut(planes, device)
+        return new
+
+
+class WholePlanes:
+    """The plane solves of a level whose last axis is cut: shard s owns
+    the whole planes [a, b) and solves them with its own cut of the
+    level's plane solver (on its device)."""
+
+    def __init__(self, planes, layout, cdir: int):
+        self.cdir = cdir
+        self.starts, self.solvers = [], []
+        for s, dev in enumerate(layout.devices):
+            a, b = layout.box(s)[cdir]
+            self.starts.append(a)
+            self.solvers.append(planes.cut(slice(a, b), dev) if b > a else None)
+
+    def update(self, x, r, parity: int) -> tuple:
+        a = self.cdir
+        out = []
+        for xs, rs, z0, P in zip(x, r, self.starts, self.solvers):
+            nz = xs.shape[a]
+            if P is None or (parity - z0) % 2 >= nz:
+                out.append(xs)
+                continue
+            sel = slice((parity - z0) % 2, None, 2)
+            out.append(_plane_add(xs, rs, a, sel, P))
+        return tuple(out)
+
+
+class CutPlanes:
+    """The plane solves of a level cut along axis 0 or 1: the residual
+    gathered whole onto each distinct shard device, the `parity` planes
+    solved there once by the serial solver, each shard keeping its own
+    part of the correction (bitwise the serial update)."""
+
+    def __init__(self, planes, layout, cdir: int, device):
+        self.layout, self.cdir = layout, cdir
+        self.solvers = {d: planes if d == device else planes.cut(slice(None), d)
+                        for d in dict.fromkeys(layout.devices)}
+
+    def update(self, x, r, parity: int) -> tuple:
+        a, lay = self.cdir, self.layout
+        nz = lay.shape[a]
+        if parity >= nz:
+            return tuple(x)
+        sel = slice(parity, None, 2)
+        rest = tuple(n for d, n in enumerate(lay.shape) if d != a)
+        delta = {}
+        for dev, rw in lay.gather(r).items():
+            rm = torch.movedim(rw, a, 0).reshape(nz, -1)
+            dz = self.solvers[dev].solve(rm[sel], batch=sel)
+            delta[dev] = dz.reshape((dz.shape[0],) + rest)
+        out = []
+        for s, xs in enumerate(x):
+            box = [sl for d, sl in enumerate(lay.slices(s)) if d != a]
+            d_s = delta[xs.device][(slice(None),) + tuple(box)]
+            xm = torch.movedim(xs, a, 0).reshape(nz, -1).clone()
+            xm[sel] += d_s.reshape(d_s.shape[0], -1)
+            shp = tuple(n for d, n in enumerate(xs.shape) if d != a)
+            out.append(torch.movedim(xm.reshape((nz,) + shp), 0, a).contiguous())
+        return tuple(out)
+
+
+def _plane_add(x, r, a: int, sel: slice, planes):
+    """x with the planes `sel` (along axis a) corrected by their exact
+    solve against r (one half of the plane block-GS relax)."""
+    nz = x.shape[a]
+    rm = torch.movedim(r, a, 0).reshape(nz, -1)
+    xm = torch.movedim(x, a, 0).reshape(nz, -1).clone()
+    xm[sel] += planes.solve(rm[sel], batch=sel)
+    rest = tuple(s for d, s in enumerate(x.shape) if d != a)
+    return torch.movedim(xm.reshape((nz,) + rest), 0, a).contiguous()
 
 
 def _build_planes(A: StructMatrix, cdir: int, device):
@@ -258,17 +353,12 @@ class SMG:
         """Solve the `parity` planes' systems exactly with current
         off-plane values (one half of the plane block-GS relax); only
         those planes are solved, the others keep their values."""
-        a = lvl.cdir
-        shape = x.shape
-        nz = shape[a]
-        sel = slice(parity, None, 2)
-        r = b - struct_matvec(lvl.A, x)
-        rm = torch.movedim(r, a, 0).reshape(nz, -1)
-        xm = torch.movedim(x, a, 0).reshape(nz, -1).clone()
-        if parity < nz:
-            xm[sel] += lvl.planes.solve(rm[sel], batch=sel)
-        rest = tuple(s for d, s in enumerate(shape) if d != a)
-        return torch.movedim(xm.reshape((nz,) + rest), 0, a).contiguous()
+        if isinstance(x, torch.Tensor) and parity >= x.shape[lvl.cdir]:
+            return x
+        r = tsub(b, struct_matvec(lvl.A, x))
+        if not isinstance(x, torch.Tensor):
+            return lvl.planes.update(x, r, parity)
+        return _plane_add(x, r, lvl.cdir, slice(parity, None, 2), lvl.planes)
 
     def _relax(self, lvl: _Level, x, b, sweeps: int, up: bool = False):
         """Plane block-GS over the two parity spaces; down sweeps use
@@ -280,10 +370,14 @@ class SMG:
         return x
 
     def _restrict(self, lvl: _Level, r):
+        if lvl.xfer is not None:
+            return lvl.xfer.restrict(r)
         return semi_restrict(r, lvl.cdir, lvl.p_lo, lvl.p_hi)
 
     def _interp_add(self, lvl: _Level, x, ec):
         """x += P ec, in place on x."""
+        if lvl.xfer is not None:
+            return lvl.xfer.interp_add(x, ec)
         return semi_interp_add(x, lvl.cdir, lvl.p_lo, lvl.p_hi, ec)
 
     def _vcycle(self, l, b):
@@ -292,10 +386,11 @@ class SMG:
         lvl = self.levels[l]
         if l == self.num_levels - 1:
             # coarsest: single plane set — exact plane solve
-            x = self._plane_update(lvl, torch.zeros_like(b), b, 0)
+            x = self._plane_update(lvl, tzeros_like(b), b, 0)
             return self._plane_update(lvl, x, b, 1)
-        x = self._relax(lvl, torch.zeros_like(b), b, o.num_pre_relax)
-        ec = self._vcycle(l + 1, self._restrict(lvl, b - struct_matvec(lvl.A, x)))
+        x = self._relax(lvl, tzeros_like(b), b, o.num_pre_relax)
+        ec = self._vcycle(l + 1, self._restrict(
+            lvl, tsub(b, struct_matvec(lvl.A, x))))
         x = self._interp_add(lvl, x, ec)
         return self._relax(lvl, x, b, o.num_post_relax, up=True)
 
@@ -309,9 +404,9 @@ class SMG:
     def cycle(self, f, u=None):
         o = self.opts
         lvl0 = self.levels[0]
-        u = torch.zeros_like(f) if u is None else u.clone()
+        u = tzeros_like(f) if u is None else tmap(torch.clone, u)
         u = self._relax(lvl0, u, f, o.num_pre_relax)
-        r = f - struct_matvec(lvl0.A, u)
+        r = tsub(f, struct_matvec(lvl0.A, u))
         u = self._fine_correction(u, r)
         u = self._relax(lvl0, u, f, o.num_post_relax, up=True)
         return u
@@ -325,8 +420,8 @@ class SMG:
         convergence check (i > 0), descend/ascend, post-relax."""
         o = self.opts
         lvl0 = self.levels[0]
-        x = torch.zeros_like(b) if x0 is None else x0.clone()
-        b_dot_b = float(torch.dot(b.reshape(-1), b.reshape(-1)))
+        x = tzeros_like(b) if x0 is None else tmap(torch.clone, x0)
+        b_dot_b = float(tdot(b, b))
         eps = o.tol**2
         norms = [float("nan")] * (o.max_iter + 1)
         rel = float("inf")
@@ -334,8 +429,8 @@ class SMG:
         it_done = 0
         for it in range(o.max_iter):
             x = self._relax(lvl0, x, b, o.num_pre_relax)
-            r = b - struct_matvec(lvl0.A, x)
-            rr = float(torch.dot(r.reshape(-1), r.reshape(-1)))
+            r = tsub(b, struct_matvec(lvl0.A, x))
+            rr = float(tdot(r, r))
             norms[it] = float(np.sqrt(rr))
             rel = np.sqrt(rr / max(b_dot_b, 1e-300))
             it_done = it
@@ -344,10 +439,11 @@ class SMG:
                 break
             x = self._fine_correction(x, r)
             x = self._relax(lvl0, x, b, o.num_post_relax, up=True)
+        b0 = tfirst(b)
         return SolverResult(
             x=x,
             num_iterations=it_done,
-            rel_residual_norm=torch.tensor(rel, dtype=b.dtype, device=b.device),
+            rel_residual_norm=torch.tensor(rel, dtype=b0.dtype, device=b0.device),
             converged=converged,
-            res_norms=torch.tensor(norms, dtype=b.dtype, device=b.device),
+            res_norms=torch.tensor(norms, dtype=b0.dtype, device=b0.device),
         )

@@ -225,21 +225,32 @@ class BatchedSMG2D:
             return self.levels
         key = (batch.start, batch.stop, batch.step)
         if key not in self._views:
-            def cut(t):
-                return t[batch].contiguous()
-
-            views = []
-            for lvl in self.levels:
-                v = {"terms": [(p0, m, x0, cut(c))
-                               for p0, m, x0, c in lvl["terms"]],
-                     "pcr": tuple(([(k, cut(a), cut(g)) for k, a, g in sw],
-                                   cut(b)) for sw, b in lvl["pcr"])}
-                for k in ("p_lo", "p_hi"):
-                    if k in lvl:
-                        v[k] = cut(lvl[k])
-                views.append(v)
-            self._views[key] = views
+            self._views[key] = self._cut_levels(
+                lambda t: t[batch].contiguous())
         return self._views[key]
+
+    def _cut_levels(self, cut) -> list:
+        """The solve's tensors of every level, each through `cut`."""
+        views = []
+        for lvl in self.levels:
+            v = {"terms": [(p0, m, x0, cut(c))
+                           for p0, m, x0, c in lvl["terms"]],
+                 "pcr": tuple(([(k, cut(a), cut(g)) for k, a, g in sw],
+                               cut(b)) for sw, b in lvl["pcr"])}
+            for k in ("p_lo", "p_hi"):
+                if k in lvl:
+                    v[k] = cut(lvl[k])
+            views.append(v)
+        return views
+
+    def cut(self, planes: slice, device) -> "BatchedSMG2D":
+        """The same solver on the planes `planes` only, on `device` (a
+        shard's own planes under a sharded 3-D SMG)."""
+        new = BatchedSMG2D.__new__(BatchedSMG2D)
+        new.pre, new.post, new._views = self.pre, self.post, {}
+        new.levels = self._cut_levels(
+            lambda t: t[planes].contiguous().to(device))
+        return new
 
     @staticmethod
     def _line_update(lvl, x, b, parity):

@@ -18,6 +18,14 @@ once).  The transfers P and R = P^T are frozen through
 `ops/dia.py::freeze_auto` and applied by its `spmv`: on the card the
 non-square ones run the ELL kernel (`kernel_launches` counts them),
 those of at most `DENSE_MAX_ROWS` rows and columns a dense product.
+
+On a sharded grid (parallel/par_struct.py::shard_solver; the setup
+stays serial) each grid's operator, inverse diagonal and visit weights
+are cut to its layout (the fine layout projected along each direction
+the grid was coarsened), each transfer a `par_struct.ShardedTransfer`
+(a ParCSR: the halo exchange and one ELL launch a shard).  The ELL sums a row's entries in the merged
+diag-then-offd order, so the sharded cycle agrees with the serial one
+to rounding, not bitwise.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from ...ops.csr import CSRMatrix
 from ...ops.dia import freeze_auto, kernel_launches, spmv, sum_launches
 from ...struct.matrix import StructMatrix, struct_matvec
 from ...utils.timing import timed
-from ..krylov.common import SolverResult
+from ..krylov.common import SolverResult, tdot, tfirst, tmap, tsub, tzeros_like
 from .jacobi import inverse_diagonal
 from .pfmg import _build_P, _collapse_interp
 
@@ -46,11 +54,25 @@ class SparseMSGOptions:
     num_post: int = 1
 
 
-def _norm(v: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(v.reshape(-1)))
+def _norm(v) -> float:
+    """||v||: of a grid tensor, or of a sharded vector (the square root
+    of the shards' dots added in shard order)."""
+    if isinstance(v, torch.Tensor):
+        return float(torch.linalg.vector_norm(v.reshape(-1)))
+    return float(torch.sqrt(tdot(v, v)))
+
+
+def _transfer(T, v, shape):
+    """T v: a frozen operator on a grid tensor, or a sharded transfer
+    on a sharded vector."""
+    if isinstance(v, torch.Tensor):
+        return spmv(T, v.reshape(-1)).reshape(shape)
+    return T.matvec(v)
 
 
 class SparseMSG:
+    layout = None  # a StructLayout once sharded (par_struct.shard_solver)
+
     def __init__(self, A: StructMatrix,
                  opts: SparseMSGOptions = SparseMSGOptions(), *, device=None):
         """`device`: where the grids and transfers live and the cycle runs
@@ -150,13 +172,14 @@ class SparseMSG:
         A = self.grids[g]
         w = self.opts.relax_weight
         for _ in range(sweeps):
-            u = u + w * self.dinv[g].reshape(u.shape) * (f - struct_matvec(A, u))
+            u = tmap(lambda uu, d, rr: uu + w * d.reshape(uu.shape) * rr,
+                     u, self.dinv[g], tsub(f, struct_matvec(A, u)))
         return u
 
     def cycle(self, f0, u0=None):
         o = self.opts
         if u0 is None:
-            u0 = torch.zeros_like(f0)
+            u0 = tzeros_like(f0)
         F = {self.root: f0}
         U = {self.root: u0}
         count = {self.root: 1}
@@ -164,22 +187,21 @@ class SparseMSG:
         for level in range(max_level + 1):
             for g in [k for k in self.keys if sum(k) == level and k in F]:
                 if count[g] > 1:
-                    F[g] = F[g] / count[g]
+                    F[g] = tmap(lambda v, c=count[g]: v / c, F[g])
                 U[g] = self._relax(g, U[g], F[g], o.num_pre)
-                r = F[g] - struct_matvec(self.grids[g], U[g])
+                r = tsub(F[g], struct_matvec(self.grids[g], U[g]))
                 for d in range(len(g)):
                     key = (g, d)
                     child = self._edge(g, d)
                     if key not in self.Pmat or child not in self.grids:
                         continue
-                    rc = spmv(self.Rdev[key], r.reshape(-1)).reshape(
-                        self.cshapes[key])
+                    rc = _transfer(self.Rdev[key], r, self.cshapes[key])
                     if child in F:
-                        F[child] = F[child] + rc
+                        F[child] = tmap(torch.add, F[child], rc)
                         count[child] += 1
                     else:
                         F[child] = rc
-                        U[child] = torch.zeros_like(rc)
+                        U[child] = tzeros_like(rc)
                         count[child] = 1
         for level in range(max_level, 0, -1):
             for g in [k for k in self.keys if sum(k) == level and k in U]:
@@ -189,15 +211,18 @@ class SparseMSG:
                     if p not in U or (p, d) not in self.Pmat:
                         continue
                     pshape = tuple(self.grids[p].shape)
-                    up = spmv(self.Pdev[(p, d)], U[g].reshape(-1)).reshape(pshape)
-                    U[p] = U[p] + self.visit[p][d] * up
+                    up = _transfer(self.Pdev[(p, d)], U[g], pshape)
+                    U[p] = tmap(lambda uu, v, e: uu + v * e, U[p],
+                                self.visit[p][d], up)
         return self._relax(self.root, U[self.root], F[self.root], o.num_post)
 
     def cycle_launches(self) -> dict:
         """{kernel name: launches} of one `cycle` on CUDA vectors: each
         transfer that the cycle applies once (every frozen R on the way
-        down, every P on the way up)."""
-        return sum_launches([(kernel_launches(T), 1) for T in
+        down, every P on the way up); sharded, one ELL launch a shard a
+        transfer."""
+        return sum_launches([(T.kernel_launches() if self.layout is not None
+                              else kernel_launches(T), 1) for T in
                              (*self.Rdev.values(), *self.Pdev.values())])
 
     def solve(self, b, x0=None) -> SolverResult:
@@ -205,22 +230,23 @@ class SparseMSG:
         iteration, the residual norm."""
         o = self.opts
         A = self.grids[self.root]
-        x = torch.zeros_like(b) if x0 is None else x0
+        x = tzeros_like(b) if x0 is None else x0
         bnorm = _norm(b) or 1.0
-        norms = [_norm(b - struct_matvec(A, x))]
+        norms = [_norm(tsub(b, struct_matvec(A, x)))]
         it = 0
         while it < o.max_iter:
             x = self.cycle(b, x)
             it += 1
-            rn = _norm(b - struct_matvec(A, x))
+            rn = _norm(tsub(b, struct_matvec(A, x)))
             norms.append(rn)
             if rn / bnorm < o.tol:
                 break
+        b0 = tfirst(b)
         return SolverResult(
             x=x,
             num_iterations=it,
-            rel_residual_norm=torch.tensor(norms[-1] / bnorm, dtype=b.dtype,
-                                           device=b.device),
+            rel_residual_norm=torch.tensor(norms[-1] / bnorm, dtype=b0.dtype,
+                                           device=b0.device),
             converged=norms[-1] / bnorm < o.tol,
-            res_norms=torch.tensor(norms, dtype=b.dtype, device=b.device),
+            res_norms=torch.tensor(norms, dtype=b0.dtype, device=b0.device),
         )

@@ -269,7 +269,11 @@ class StructMatrix:
 
 def struct_matvec(A: StructMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
                   y=None) -> torch.Tensor:
-    """y = alpha*A*x + beta*y (struct_matvec.c semantics)."""
+    """y = alpha*A*x + beta*y (struct_matvec.c semantics).  A sharded
+    vector (a tuple of grid blocks) takes its ShardedStructMatrix's
+    product (parallel/par_struct.py)."""
+    if not isinstance(x, torch.Tensor):
+        return A.matvec(x, alpha, beta, y)
     periodic = A.periodic or (0,) * x.dim()
     acc = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     if A.in_box and not any(periodic):

@@ -4,8 +4,12 @@ bitwise, the host cycle and solve bitwise, the batched device cycle
 (AMGDDDevice) in float64 within 1e-12 of the JAX package's and within
 the JAX test's 1e-10 of the host cycle, in float32 within 1e-5; the
 batched gathers bitwise their numpy meaning, and the 32-bit index
-guard.  On the card the cycle runs the gather kernels, launched as
-`cycle_launches` says (tests/test_torch_cuda.py::
+guard; the domain axis split over 4 and 8 shards
+(`AMGDDDevice(..., mesh=...)`) against the JAX package's host cycle and
+its AMGDDDevice with the domain axis sharded over the 8 virtual CPU
+devices (tests/test_amg.py:457-475), f64 within 1e-12, bitwise the
+unsharded port.  On the card the cycle runs the gather kernels,
+launched as `cycle_launches` says (tests/test_torch_cuda.py::
 test_amgdd_device_cycle_runs_the_gather_kernels)."""
 
 import jax.numpy as jnp
@@ -86,6 +90,85 @@ def test_device_cycle_matches_jax_and_the_host_cycle(dd10):
     L = dev.num_levels
     assert dev.cycle_launches() == {"take_along_axis": 0,
                                     "flat_take": 2 * (L - 1) * 7 + 1}
+
+
+@pytest.fixture(scope="module")
+def jax_sharded_z(dd10):
+    """The JAX AMGDDDevice's f64 cycle with its domain axis sharded over
+    the 8 virtual devices, as tests/test_amg.py:457-475 places it."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from hypre_tpu.parallel import make_mesh as jax_make_mesh
+
+    _, jdd = dd10
+    dev = JaxAMGDDDevice(jdd, dtype=np.float64)
+    mesh = jax_make_mesh(8)
+    dev.levels = jax.tree.map(
+        lambda x: jax.device_put(x, NamedSharding(
+            mesh, P(*(("shard",) + (None,) * (x.ndim - 1)))))
+        if hasattr(x, "ndim") and x.ndim >= 1 and x.shape[0] == 8 else x,
+        dev.levels)
+    dev.gidx = jax.device_put(dev.gidx, NamedSharding(mesh, P("shard")))
+    dev.tgt = jax.device_put(dev.tgt, NamedSharding(mesh, P("shard")))
+    dev._cycle = jax.jit(dev._cycle_impl)
+    r = np.random.default_rng(0).standard_normal(1000)
+    return r, np.asarray(dev.cycle(jnp.asarray(r)))
+
+
+@pytest.mark.parametrize("S", [4, 8])
+def test_sharded_device_cycle(dd10, jax_sharded_z, S):
+    """8 domains on S shards (2 or 1 a shard): one residual distribution
+    and the batched cycle a shard, the owned rows combined on shard 0;
+    f64 within 1e-12 of the JAX host cycle and of the JAX package's
+    sharded device cycle, bitwise the unsharded port; f32 bitwise the
+    unsharded f32 cycle; launches a shard as `shard_launches` says."""
+    from hypre_tpu_torch.parallel import make_mesh
+
+    dd, jdd = dd10
+    r, z_jax = jax_sharded_z
+    mesh = make_mesh(devices=["cpu"] * S)
+    dev = AMGDDDevice(dd, dtype=np.float64, mesh=mesh)
+    z = dev.cycle(torch.from_numpy(r))
+    assert z.dtype == torch.float64 and z.shape == (1000,)
+    assert rel(z, jdd.cycle(r)) <= 1e-12 and rel(z, z_jax) <= 1e-12
+    z1 = AMGDDDevice(dd, dtype=np.float64, device="cpu").cycle(
+        torch.from_numpy(r))
+    assert torch.equal(z, z1)
+    L = dev.num_levels
+    each = {"take_along_axis": 0, "flat_take": 2 * (L - 1) * 7 + 1}
+    assert dev.shard_launches() == [each] * S
+    assert dev.cycle_launches() == {k: S * v for k, v in each.items()}
+    z32 = AMGDDDevice(dd, mesh=mesh).cycle(torch.from_numpy(r))
+    assert torch.equal(z32, AMGDDDevice(dd, device="cpu").cycle(
+        torch.from_numpy(r)))
+
+
+def test_sharded_device_cycle_uneven(dd10):
+    """8 domains on 3 shards (3, 3, 2) and on 16 (one domain a shard,
+    the last 8 none: they launch nothing); PCG with the sharded cycle as
+    its preconditioner takes the unsharded count."""
+    from hypre_tpu_torch.ops.dia import freeze_auto, spmv
+    from hypre_tpu_torch.ops.csr import CSRMatrix
+    from hypre_tpu_torch.parallel import make_mesh
+    from hypre_tpu_torch.solvers.krylov import PCGOptions, pcg
+
+    dd, _ = dd10
+    r = torch.from_numpy(np.random.default_rng(1).standard_normal(1000))
+    one = AMGDDDevice(dd, dtype=np.float64, device="cpu")
+    for S in (3, 16):
+        dev = AMGDDDevice(dd, dtype=np.float64,
+                          mesh=make_mesh(devices=["cpu"] * S))
+        assert torch.equal(dev.cycle(r), one.cycle(r))
+        busy = [c["flat_take"] > 0 for c in dev.shard_launches()]
+        assert busy == ([True] * 3 if S == 3 else [True] * 8 + [False] * 8)
+    E = freeze_auto(CSRMatrix.from_scipy(dd.amg._host_A[0]), torch.float64,
+                    "cpu")
+    b = torch.ones(1000, dtype=torch.float64)
+    opts = PCGOptions(tol=1e-8, max_iter=100)
+    res = pcg(lambda x: spmv(E, x), b, M=dev.precond, opts=opts)
+    ref = pcg(lambda x: spmv(E, x), b, M=one.precond, opts=opts)
+    assert res.converged and res.num_iterations == ref.num_iterations
 
 
 @pytest.mark.parametrize("nd,padding,max_its", [(1, 2, 8), (4, 2, 40)])
